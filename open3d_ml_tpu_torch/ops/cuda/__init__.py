@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels of the port, their plain versions and their
+wrappers."""

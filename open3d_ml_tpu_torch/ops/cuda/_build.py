@@ -1,0 +1,75 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+The sources under ``open3d_ml_tpu_torch/csrc/`` have a plain C interface.
+At first use they are compiled for ``sm_90a`` into one shared library under
+``csrc/build/``, named by a hash of the sources and flags, so an edited
+source builds anew and an unchanged one is loaded as it is.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+SOURCES = ("bucket_knn.cu", "bucket_gather.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argument types of each C entry point; every entry returns the
+# cudaError_t of its launch as an int
+ENTRY_POINTS = {
+    # points, queries, seg_ids, rel, d2, B, npad, Q, nqb, S, seg, qblock, k,
+    # stream
+    "bucket_knn_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P),
+    # values, seg_ids, rel, out, B, npad, Q, K, C, nqb, S, seg, qblock,
+    # round_bf16, stream
+    "bucket_gather_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _P),
+}
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
+                           "the port's kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build():
+    """Compile the kernels if no library for these sources exists yet.
+
+    Returns (path of the library, seconds spent compiling; 0 when the
+    library was already built)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        digest.update((CSRC / name).read_bytes())
+    out = CSRC / "build" / f"libo3dtorch_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out, 0.0
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                    *(str(CSRC / name) for name in SOURCES)], check=True)
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0
+
+
+@functools.cache
+def library():
+    """The loaded kernel library, built at the first call."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

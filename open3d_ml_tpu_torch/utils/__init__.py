@@ -1,0 +1,7 @@
+"""Registries, configuration and weight conversion of the port."""
+
+from .config import Config
+from .convert_jax import load_jax_variables
+from .registry import MODEL
+
+__all__ = ["MODEL", "Config", "load_jax_variables"]
