@@ -1,13 +1,17 @@
 """open3d_ml_tpu_torch: the PyTorch and CUDA port of open3d_ml_tpu.
 
-It covers RandLA-Net inference on the fused bucket path: the Hilbert sort,
-the bucket pyramid, the bucket KNN and bucket gather kernels (CUDA C++ for
-Hopper, each with a plain PyTorch version for CPU tensors) and the network.
-It imports PyTorch and never JAX, nor anything of ``open3d_ml_tpu``: its
-registry and configuration are its own (``utils``).
+It covers RandLA-Net inference two ways: on the fused bucket path (the
+Hilbert sort, the bucket pyramid, the bucket KNN and bucket gather
+kernels), and through ``SemanticSegmentation.run_inference`` on the exact
+evaluation path (the exact k-NN pyramid on the ``knn_exact`` kernel, the
+possibility-map patch loop and its host side). Each kernel is CUDA C++ for
+Hopper with a plain PyTorch version for CPU tensors. It imports PyTorch,
+numpy and scipy, and never JAX, nor anything of ``open3d_ml_tpu``: its
+registries and configuration are its own (``utils``).
 """
 
-from . import models, utils
-from .utils import MODEL
+from . import dataloaders, datasets, models, pipelines, utils
+from .utils import MODEL, PIPELINE, SAMPLER
 
-__all__ = ["MODEL", "models", "utils"]
+__all__ = ["MODEL", "PIPELINE", "SAMPLER", "dataloaders", "datasets",
+           "models", "pipelines", "utils"]

@@ -1,30 +1,53 @@
-"""RandLA-Net for semantic segmentation, on the fused bucket path.
+"""RandLA-Net for semantic segmentation: the fused bucket path and the exact
+evaluation path.
 
-Counterpart of ``open3d_ml_tpu/models/randlanet.py`` at
-``knn_method="fused"``: fc0 + BN, four LocalFeatureAggregation encoder
-stages with 4x subsampling, a shared-MLP bottleneck, four decoder stages
-with nearest-neighbour upsampling and skip concatenation, and a 3-layer
-head. The network runs on the whole [B, N, C] batch in Hilbert-sorted
-order; every neighbour, pool and upsample read is a bucket gather
-(``ops/cuda/bucket.py``), and the logits come back in the caller's order.
+Counterpart of ``open3d_ml_tpu/models/randlanet.py``: fc0 + BN, four
+LocalFeatureAggregation encoder stages with 4x subsampling, a shared-MLP
+bottleneck, four decoder stages with nearest-neighbour upsampling and skip
+concatenation, and a 3-layer head, over a whole [B, N, C] batch. Two
+neighbour paths share one ``state_dict``:
+
+* ``knn_method="fused"`` (``get_net``): the batch runs in Hilbert-sorted
+  order; every neighbour, pool and upsample read is a bucket gather
+  (``ops/cuda/bucket.py``), and the logits come back in the caller's order.
+* ``knn_method="exact"`` (``get_eval_net``): the exact k-NN pyramid
+  (``ops/neighbors.py``, the ``knn_exact`` kernel) in the caller's order,
+  whose first N // ratio points are each level's subsample; every read is
+  an index gather.
 
 Layout is channels-last [..., C], as in the JAX package. The parameter
 names follow the JAX variable tree (``utils/convert_jax.py`` maps one onto
 the other). BatchNorm follows torch semantics (momentum 0.01, eps 1e-6).
 
-With ``compute_dtype="bfloat16"`` every Linear but the last computes in
-bfloat16, BatchNorm and everything after it in float32, and the gathers
-round the values they read to bfloat16, as the TPU kernel did.
+With ``compute_dtype="bfloat16"`` the fused path computes every Linear but
+the last in bfloat16, BatchNorm and everything after it in float32, and its
+gathers round the values they read to bfloat16, as the TPU kernel did. The
+exact path computes in float32 whatever ``compute_dtype`` says, as the JAX
+net does off the fused path.
+
+The host side (``preprocess``, ``transform``, ``update_probs``) prepares
+test patches for ``pipelines/semantic_segmentation.py``.
 """
 
+import logging
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy.spatial import cKDTree
 from torch import nn
 
+from ..datasets.augment import SemsegAugmentation
+from ..datasets.utils import DataProcessing
 from ..ops.bucket import build_bucket_pyramid, pad_seg
 from ..ops.cuda.bucket import gather_bucket
+from ..ops.neighbors import build_knn_pyramid
 from ..utils.registry import MODEL
 from .base_model import BaseModel
+
+log = logging.getLogger(__name__)
+
+KNN_METHODS = ("fused", "exact")
 
 
 def _dense(linear, x, dtype):
@@ -33,6 +56,33 @@ def _dense(linear, x, dtype):
     dt = dtype or torch.float32
     bias = None if linear.bias is None else linear.bias.to(dt)
     return F.linear(x.to(dt), linear.weight.to(dt), bias)
+
+
+class _IndexLevel:
+    """One pyramid level of a batch [B, N, .] in the caller's order: its
+    neighbour, pool and upsample reads, each an index gather."""
+
+    def __init__(self, coords, nbr_idx, pool_idx, up_idx):
+        self.coords = coords
+        self.nbr_idx = nbr_idx.long()
+        self.pool_idx = pool_idx.long()
+        self.up_idx = up_idx.long()
+        self.batch = torch.arange(coords.shape[0],
+                                  device=coords.device)[:, None]
+
+    def gather(self, v):
+        """[B, N, C] -> [B, N, K, C] neighbour rows."""
+        return v[self.batch[..., None], self.nbr_idx]
+
+    def pool_max(self, v):
+        """[B, N, C] -> [B, N_sub, C]: max over each kept point's
+        neighbours."""
+        return v[self.batch[..., None], self.pool_idx].amax(dim=-2)
+
+    def upsample(self, v):
+        """[B, N_sub, C] -> [B, N, C]: each point takes its nearest sub
+        point's row."""
+        return v[self.batch, self.up_idx]
 
 
 class _BucketLevel:
@@ -164,21 +214,25 @@ class LocalFeatureAggregation(nn.Module):
 
 
 class RandLANetNet(nn.Module):
-    """The RandLA-Net network on the fused bucket path.
+    """The RandLA-Net network on the fused or the exact neighbour path.
 
     ``forward({"coords": [B, N, 3], "features": [B, N, in_channels]})``
-    returns logits [B, N, num_classes] in the caller's point order. In eval
-    mode the pyramid uses the inference table budget (``infer_num_segs``,
-    ``infer_gather_segs``; 0 keeps the training budget).
+    returns logits [B, N, num_classes] in the caller's point order. On the
+    fused path, eval mode takes the inference table budget
+    (``infer_num_segs``, ``infer_gather_segs``; 0 keeps the training
+    budget); the exact path ignores the table knobs.
     """
 
     def __init__(self, num_neighbors, num_layers, num_classes, in_channels,
                  dim_features, dim_output, sub_sampling_ratio, seg, block,
                  num_segs, gather_segs, infer_num_segs, infer_gather_segs,
-                 compute_dtype):
+                 compute_dtype, knn_method="fused"):
         super().__init__()
         if compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {compute_dtype!r}")
+        if knn_method not in KNN_METHODS:
+            raise ValueError(f"knn_method {knn_method!r}")
+        self.knn_method = knn_method
         self.num_neighbors = num_neighbors
         self.num_layers = num_layers
         self.sub_sampling_ratio = list(sub_sampling_ratio)
@@ -186,7 +240,9 @@ class RandLANetNet(nn.Module):
         self.num_segs, self.gather_segs = num_segs, gather_segs
         self.infer_num_segs = infer_num_segs
         self.infer_gather_segs = infer_gather_segs
-        self.round_bf16 = compute_dtype == "bfloat16"
+        # bf16 on the fused path only, as in the JAX net
+        self.round_bf16 = (knn_method == "fused" and
+                           compute_dtype == "bfloat16")
         cdt = torch.bfloat16 if self.round_bf16 else None
         self.cdt = cdt
 
@@ -214,6 +270,16 @@ class RandLANetNet(nn.Module):
         self.fc1_3 = SharedMLP(32, num_classes, bn=False, slope=None)
 
     def _levels(self, coords):
+        """(levels, perm): per-level neighbour contexts, and the Hilbert
+        permutation of the fused path (None on the exact path)."""
+        if self.knn_method == "exact":
+            pyr = build_knn_pyramid(coords, self.num_neighbors,
+                                    self.sub_sampling_ratio)
+            return [_IndexLevel(pyr["coords"][i],
+                                pyr["neighbor_indices"][i],
+                                pyr["sub_idx"][i],
+                                pyr["interp_idx"][i][..., 0])
+                    for i in range(self.num_layers)], None
         num_segs, gather_segs = self.num_segs, self.gather_segs
         if not self.training:
             num_segs = self.infer_num_segs or num_segs
@@ -228,9 +294,10 @@ class RandLANetNet(nn.Module):
     def forward(self, inputs):
         levels, perm = self._levels(inputs["coords"])
         feat = inputs["features"]
-        # sorted order from here to the head
-        feat = torch.gather(feat, 1,
-                            perm[..., None].expand(-1, -1, feat.shape[-1]))
+        if perm is not None:
+            # sorted order from here to the head
+            feat = torch.gather(
+                feat, 1, perm[..., None].expand(-1, -1, feat.shape[-1]))
         feat = _dense(self.fc0, feat, self.cdt).float()
         feat = self.bn0(feat.reshape(-1, feat.shape[-1])).reshape(feat.shape)
         feat = F.leaky_relu(feat, 0.2)
@@ -252,21 +319,23 @@ class RandLANetNet(nn.Module):
 
         feat = self.dropout(self.fc1_1(self.fc1_0(feat)))
         scores = self.fc1_3(feat)
+        if perm is None:
+            return scores
         # back to the caller's order: out[perm[i]] = scores[i]
         return torch.empty_like(scores).scatter_(
             1, perm[..., None].expand_as(scores), scores)
 
 
-# knobs of the JAX model that the port has no path for, with the one value
-# the port implements
-_PORTED_ONLY = {"knn_method": "fused", "knn_on_device": True,
-                "up_mode": "derive", "presorted": False, "gather_qblock": 0,
-                "up_segs": 0}
+# knobs of the JAX model's fused path that the port has no path for, with
+# the one value the port implements
+_FUSED_ONLY = {"up_mode": "derive", "presorted": False, "gather_qblock": 0,
+               "up_segs": 0}
 
 
 @MODEL.register_module()
 class RandLANet(BaseModel):
-    """RandLA-Net model: configuration plus the network (``get_net``).
+    """RandLA-Net model: configuration, the networks (``get_net``,
+    ``get_eval_net``) and the host side of inference.
 
     The defaults are the model section of
     ``open3d_ml_tpu/configs/randlanet_semantickitti.yml``.
@@ -314,15 +383,23 @@ class RandLANet(BaseModel):
                          infer_gather_segs=infer_gather_segs,
                          compute_dtype=compute_dtype, augment=augment,
                          **kwargs)
+        self.augmenter = SemsegAugmentation(self.cfg.augment)
 
-    def get_net(self):
-        """Build the network (``RandLANetNet``)."""
+    def get_net(self, knn_method=None):
+        """Build the network (``RandLANetNet``); ``knn_method`` overrides
+        the configured neighbour path (both share one ``state_dict``)."""
         cfg = self.cfg
-        for key, value in _PORTED_ONLY.items():
-            if cfg.get(key, value) != value:
+        method = knn_method or cfg.knn_method
+        ported = {"knn_method": (method, KNN_METHODS),
+                  "knn_on_device": (cfg.get("knn_on_device", True), (True,))}
+        if method == "fused":
+            ported.update({key: (cfg.get(key, value), (value,))
+                           for key, value in _FUSED_ONLY.items()})
+        for key, (value, allowed) in ported.items():
+            if value not in allowed:
                 raise NotImplementedError(
-                    f"RandLANet {key}={cfg[key]!r} is not ported; the port "
-                    f"runs {key}={value!r}")
+                    f"RandLANet {key}={value!r} is not ported; the port "
+                    f"runs {key} in {allowed}")
         return RandLANetNet(
             num_neighbors=cfg.num_neighbors,
             num_layers=cfg.num_layers,
@@ -337,4 +414,96 @@ class RandLANet(BaseModel):
             gather_segs=cfg.get("gather_segs", 0),
             infer_num_segs=cfg.get("infer_num_segs", 0),
             infer_gather_segs=cfg.get("infer_gather_segs", 0),
-            compute_dtype=cfg.compute_dtype)
+            compute_dtype=cfg.compute_dtype,
+            knn_method=method)
+
+    def get_eval_net(self):
+        """The evaluation net: exact neighbours unless ``eval_knn_method``
+        opts into the fused path. It runs in float32 whatever
+        ``compute_dtype`` says, and shares ``get_net()``'s state_dict."""
+        method = self.cfg.get("eval_knn_method", None) or "exact"
+        if method != "exact":
+            log.warning("RandLANet evaluation uses APPROXIMATE neighbors "
+                        "(eval_knn_method=%s); reported accuracy is not the "
+                        "exact-path accuracy.", method)
+        return self.get_net(knn_method=method)
+
+    # ------------------------------------------------------------- host side
+
+    def preprocess(self, data, attr):
+        """Grid-subsample the cloud and build its KD-tree; for the test
+        split also each input point's nearest subsampled point
+        (``proj_inds``)."""
+        cfg = self.cfg
+        points = np.array(data["point"][:, 0:3], dtype=np.float32)
+        if data.get("label") is None:
+            labels = np.zeros((points.shape[0],), dtype=np.int32)
+        else:
+            labels = np.array(data["label"], dtype=np.int32).reshape((-1,))
+        if data.get("feat") is None:
+            sub_points, sub_labels = DataProcessing.grid_subsampling(
+                points, labels=labels, grid_size=cfg.grid_size)
+            sub_feat = None
+        else:
+            sub_points, sub_feat, sub_labels = (
+                DataProcessing.grid_subsampling(
+                    points, features=np.array(data["feat"], np.float32),
+                    labels=labels, grid_size=cfg.grid_size))
+        search_tree = cKDTree(sub_points)
+        out = {"point": sub_points, "feat": sub_feat, "label": sub_labels,
+               "search_tree": search_tree}
+        if attr["split"] in ("test", "testing"):
+            _, proj_inds = search_tree.query(points, k=1)
+            out["proj_inds"] = np.asarray(proj_inds, np.int32).reshape(-1)
+        return out
+
+    def transform(self, data, attr, rng=None):
+        """Draw a patch of ``num_points`` with ``trans_point_sampler``,
+        recentre and normalise it, and build the network's inputs (features
+        are the coordinates, then the cloud's own features)."""
+        cfg = self.cfg
+        rng = rng or self.rng
+        pc = data["point"].copy()
+        label = data["label"].copy()
+        feat = data["feat"].copy() if data["feat"] is not None else None
+
+        pc, selected_idxs, _ = self.trans_point_sampler(
+            pc=pc, feat=feat, label=label, search_tree=data["search_tree"],
+            num_points=cfg.num_points, rng=rng)
+        label = label[selected_idxs]
+        if feat is not None:
+            feat = feat[selected_idxs]
+
+        augment_cfg = dict(cfg.get("augment", {}) or {})
+        val_augment_cfg = {key: augment_cfg.pop(key)
+                           for key in ("recenter", "normalize")
+                           if key in augment_cfg}
+        # recenter and normalize work in place on pc and feat
+        self.augmenter.augment(pc, feat, label, val_augment_cfg)
+        if attr["split"] in ("training", "train"):
+            pc, feat, label = self.augmenter.augment(pc, feat, label,
+                                                     augment_cfg)
+
+        feat = pc.copy() if feat is None else np.concatenate([pc, feat], 1)
+        if cfg.in_channels != feat.shape[1]:
+            raise RuntimeError(
+                "Wrong feature dimension; set in_channels = 3 + feat dims")
+        return {"coords": pc.astype(np.float32),
+                "features": feat.astype(np.float32),
+                "labels": label.astype(np.int32),
+                "point_inds": np.asarray(selected_idxs, np.int32)}
+
+    def update_probs(self, inputs, results, test_probs):
+        """Blend each patch's class probabilities into the cloud's
+        accumulator ``test_probs`` [N, num_classes] at its points, with
+        weight 0.05 on the new ones."""
+        test_smooth = 0.95
+        results = np.asarray(results, np.float32)
+        for b in range(results.shape[0]):
+            logits = results[b].reshape(-1, self.cfg.num_classes)
+            exp = np.exp(logits - logits.max(axis=-1, keepdims=True))
+            probs = exp / exp.sum(axis=-1, keepdims=True)
+            inds = np.asarray(inputs["point_inds"][b])
+            test_probs[inds] = (test_smooth * test_probs[inds] +
+                                (1 - test_smooth) * probs)
+        return test_probs

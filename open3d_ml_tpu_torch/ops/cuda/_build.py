@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 The sources under ``open3d_ml_tpu_torch/csrc/`` have a plain C interface.
-At first use they are compiled for ``sm_90a`` into one shared library under
+At first use each is compiled for ``sm_90a`` by its own ``nvcc``, all
+started together, and the objects are linked into one shared library under
 ``csrc/build/``, named by a hash of the sources and flags, so an edited
 source builds anew and an unchanged one is loaded as it is.
 """
@@ -15,9 +16,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = ("bucket_knn.cu", "bucket_gather.cu")
+SOURCES = ("bucket_knn.cu", "bucket_gather.cu", "knn_exact.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +33,8 @@ ENTRY_POINTS = {
     # round_bf16, stream
     "bucket_gather_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P),
+    # points, queries, mask (or NULL), idx, d2, B, N, Q, k, stream
+    "knn_exact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -56,9 +59,22 @@ def build():
         return out, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    objs = [out.with_suffix(f".{os.getpid()}.{name}.o") for name in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                    *(str(CSRC / name) for name in SOURCES)], check=True)
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(CSRC / name)])
+                 for name, obj in zip(SOURCES, objs)]
+        codes = [proc.wait() for proc in procs]
+        failed = [name for name, code in zip(SOURCES, codes) if code]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}")
+        subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                        *(str(obj) for obj in objs)], check=True)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out, time.perf_counter() - t0
 

@@ -9,38 +9,11 @@ launches each wrapper made, so a run can show that it went through them.
 
 import torch
 
+from ._launch import check, raise_on, route, stream
+
 LAUNCHES = {"bucket_knn": 0, "bucket_gather": 0}
 
 KNN_KS = (1, 16)
-
-
-def _check(t, name, dtype, ndim, device):
-    if t.dtype != dtype or t.dim() != ndim:
-        raise ValueError(f"{name}: expected a {ndim}-d {dtype} tensor, got "
-                         f"{t.dim()}-d {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _route(t):
-    """'plain' for a CPU tensor, 'kernel' for a CUDA one; any other device
-    is refused."""
-    if t.device.type == "cpu":
-        return "plain"
-    if t.device.type == "cuda":
-        return "kernel"
-    raise ValueError(f"no bucket kernel for device {t.device}")
-
-
-def _raise_on(err, name):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
 
 
 # ----------------------------------------------------------------- bucket KNN
@@ -78,9 +51,9 @@ def knn_bucket(points, queries, seg_ids, k, *, seg, qblock):
     device it launches the ``bucket_knn`` kernel (k must be 1 or 16 and
     qblock at most 1024 there)."""
     dev = points.device
-    _check(points, "points", torch.float32, 3, dev)
-    _check(queries, "queries", torch.float32, 3, dev)
-    _check(seg_ids, "seg_ids", torch.int32, 3, dev)
+    check(points, "points", torch.float32, 3, dev)
+    check(queries, "queries", torch.float32, 3, dev)
+    check(seg_ids, "seg_ids", torch.int32, 3, dev)
     b, npad, _ = points.shape
     q = queries.shape[1]
     nqb, s = seg_ids.shape[1:]
@@ -92,7 +65,7 @@ def knn_bucket(points, queries, seg_ids, k, *, seg, qblock):
     if npad % seg or nqb != -(-q // qblock) or s * seg < k:
         raise ValueError(f"bad bucket shapes: npad {npad}, seg {seg}, Q {q}, "
                          f"qblock {qblock}, nqb {nqb}, S {s}, k {k}")
-    if _route(points) == "plain":
+    if route(points, "bucket") == "plain":
         return knn_bucket_plain(points, queries, seg_ids, k, seg=seg,
                                 qblock=qblock)
     if k not in KNN_KS:
@@ -105,8 +78,8 @@ def knn_bucket(points, queries, seg_ids, k, *, seg, qblock):
     err = library().bucket_knn_launch(
         points.data_ptr(), queries.data_ptr(), seg_ids.data_ptr(),
         rel.data_ptr(), d2.data_ptr(), b, npad, q, nqb, s, seg, qblock, k,
-        _stream())
-    _raise_on(err, "bucket_knn")
+        stream())
+    raise_on(err, "bucket_knn")
     LAUNCHES["bucket_knn"] += 1
     return rel, d2
 
@@ -138,9 +111,9 @@ def gather_bucket(values, seg_ids, rel, *, seg, qblock, round_bf16):
     """``gather_bucket_plain``'s contract, checked for both routes; on a
     CUDA device it launches the ``bucket_gather`` kernel."""
     dev = values.device
-    _check(values, "values", torch.float32, 3, dev)
-    _check(seg_ids, "seg_ids", torch.int32, 3, dev)
-    _check(rel, "rel", torch.int32, 3, dev)
+    check(values, "values", torch.float32, 3, dev)
+    check(seg_ids, "seg_ids", torch.int32, 3, dev)
+    check(rel, "rel", torch.int32, 3, dev)
     b, npad, c = values.shape
     q, k = rel.shape[1:]
     nqb, s = seg_ids.shape[1:]
@@ -151,7 +124,7 @@ def gather_bucket(values, seg_ids, rel, *, seg, qblock, round_bf16):
     if npad % seg or nqb * qblock < q:
         raise ValueError(f"bad bucket shapes: npad {npad}, seg {seg}, Q {q}, "
                          f"qblock {qblock}, nqb {nqb}")
-    if _route(values) == "plain":
+    if route(values, "bucket") == "plain":
         return gather_bucket_plain(values, seg_ids, rel, seg=seg,
                                    qblock=qblock, round_bf16=round_bf16)
     if values.requires_grad and torch.is_grad_enabled():
@@ -161,7 +134,7 @@ def gather_bucket(values, seg_ids, rel, *, seg, qblock, round_bf16):
     err = library().bucket_gather_launch(
         values.data_ptr(), seg_ids.data_ptr(), rel.data_ptr(),
         out.data_ptr(), b, npad, q, k, c, nqb, s, seg, qblock,
-        int(round_bf16), _stream())
-    _raise_on(err, "bucket_gather")
+        int(round_bf16), stream())
+    raise_on(err, "bucket_gather")
     LAUNCHES["bucket_gather"] += 1
     return out

@@ -2,6 +2,6 @@
 
 from .config import Config
 from .convert_jax import load_jax_variables
-from .registry import MODEL
+from .registry import MODEL, PIPELINE, SAMPLER
 
-__all__ = ["MODEL", "Config", "load_jax_variables"]
+__all__ = ["MODEL", "PIPELINE", "SAMPLER", "Config", "load_jax_variables"]

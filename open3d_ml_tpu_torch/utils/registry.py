@@ -34,5 +34,7 @@ class Registry:
 
 
 MODEL = Registry("model")
+PIPELINE = Registry("pipeline")
+SAMPLER = Registry("sampler")
 
-__all__ = ["MODEL", "Registry"]
+__all__ = ["MODEL", "PIPELINE", "SAMPLER", "Registry"]

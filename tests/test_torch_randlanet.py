@@ -180,7 +180,7 @@ def test_registry_is_the_ports_own():
     assert jax_utils.MODEL.get("RandLANet") is not RandLANet
 
 
-@pytest.mark.parametrize("key, value", [("knn_method", "exact"),
+@pytest.mark.parametrize("key, value", [("knn_method", "approx"),
                                         ("up_mode", "search"),
                                         ("gather_qblock", 32)])
 def test_get_net_rejects_unported_paths(key, value):
@@ -195,11 +195,13 @@ def test_port_imports_no_jax():
             "import open3d_ml_tpu_torch\n"
             "import open3d_ml_tpu_torch.models.randlanet\n"
             "import open3d_ml_tpu_torch.ops.bucket\n"
+            "import open3d_ml_tpu_torch.ops.neighbors\n"
+            "import open3d_ml_tpu_torch.pipelines\n"
             "import open3d_ml_tpu_torch.ops.cuda._build\n"
             "import open3d_ml_tpu_torch.utils.convert_jax\n"
             "import chip_smoke\n"
-            "bad = [m for m in ('jax', 'flax', 'optax', 'open3d_ml_tpu')\n"
-            "       if m in sys.modules]\n"
+            "bad = [m for m in ('jax', 'flax', 'optax', 'yaml',\n"
+            "                   'open3d_ml_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
