@@ -1,10 +1,14 @@
 """Drive the PyTorch port's paths once on one CUDA card and check them.
 
-Three paths of RandLA-Net inference at the shipped SemanticKITTI config,
-with random weights drawn from a seeded generator:
+Four paths of RandLA-Net at the shipped SemanticKITTI config, with random
+weights drawn from a seeded generator:
 
 * the fused path: a batch of 4 patches of 45,056 points through the fused
   bucket pyramid and the network (``get_net``);
+* training: ``SemanticSegmentation.run_train`` on synthetic lidar-like
+  scenes, batches of 4 x 45,056 points through the fused path at the
+  training table budget, forward and backward, with validation,
+  checkpoints and a resume;
 * the eval slice: one patch of 45,056 points through the exact k-NN
   pyramid and the network in float32 (``get_eval_net``);
 * ``SemanticSegmentation.run_inference`` on a synthetic lidar scan of
@@ -31,8 +35,16 @@ Phases, one line each (or more), in this order:
 4. slice: the fused forward; the launch counts of one forward; sample 0
    against the same model on the CPU (float32: relative L2 <= 1e-4); the
    median forward time and points/s.
-5. eval: the same for the eval net at B = 1.
-6. inference: ``run_inference`` on the scan; its launch counts, patches,
+5. train: ``run_train`` for one epoch of 6 steps of 4 x 45,056 points and
+   2 validation steps of 2 patches, on 8 + 2 synthetic scenes of 120,000
+   points with the shipped class weights; the launch counts of every step;
+   finite losses; a checkpoint, and a second ``run_train`` in a fresh
+   pipeline that resumes from it with equal weights and Adam state; 10
+   steps on one batch, whose loss must fall; one float32 step of 1 x
+   11,264 points against the same step on the CPU; the median step time,
+   points trained per second, the host's share and the peak memory.
+6. eval: the same as slice for the eval net at B = 1.
+7. inference: ``run_inference`` on the scan; its launch counts, patches,
    wall time and where it went, and points labelled per second.
 
 Every path runs with the launch counts set to 0 just before it and read
@@ -47,6 +59,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -54,6 +67,10 @@ import numpy as np
 import torch
 
 from open3d_ml_tpu_torch import MODEL
+from open3d_ml_tpu_torch.dataloaders import (BatchLoader, DefaultBatcher,
+                                             PointCloudDataloader)
+from open3d_ml_tpu_torch.datasets import SyntheticShapes
+from open3d_ml_tpu_torch.modules.losses import SemSegLoss
 from open3d_ml_tpu_torch.ops import bucket as tb
 from open3d_ml_tpu_torch.ops.cuda import _build
 from open3d_ml_tpu_torch.ops.cuda import bucket as cb
@@ -65,8 +82,20 @@ REPO = Path(__file__).resolve().parent
 TPU_KERNELS = "open3d_ml_tpu/ops/pallas/bucket.py"
 SEED = 0
 DEVICE = "cuda"
-EXPECTED_LAUNCHES = {"bucket_knn": 5, "bucket_gather": 16, "knn_exact": 0}
+EXPECTED_LAUNCHES = {"bucket_knn": 5, "bucket_gather": 16,
+                     "bucket_gather_bwd": 0, "knn_exact": 0}
+# per training step: the forward's launches, and one backward per gather
+TRAIN_STEP_LAUNCHES = dict(EXPECTED_LAUNCHES, bucket_gather_bwd=16)
 SCAN_POINTS = 120_000  # about one SemanticKITTI scan
+# dataset and pipeline sections of
+# open3d_ml_tpu/configs/randlanet_semantickitti.yml (a CPU test pins them)
+SEMANTICKITTI_CLASS_WEIGHTS = [
+    55437630, 320797, 541736, 2578735, 3274484, 552662, 184064, 78858,
+    240942562, 17294618, 170599734, 6369672, 230413074, 101130274, 476491114,
+    9833174, 129609852, 4506626, 1168181]
+TRAIN_PIPELINE = {"batch_size": 4, "val_batch_size": 2,
+                  "optimizer": {"lr": 0.001}, "scheduler_gamma": 0.9886,
+                  "save_ckpt_freq": 5, "num_workers": 2}
 COUNTERS = (cb.LAUNCHES, ck.LAUNCHES)
 
 
@@ -228,37 +257,102 @@ def _gather_check(label, values, seg_ids, rel, seg, qblock):
     return out[True]
 
 
+def _gather_bwd_check(label, seg_ids, rel, npad, c, seg, qblock, gen):
+    """bucket_gather_bwd against its plain version at one shape, rounding
+    off and on: bit-equal on dyadic cotangents (integers in [-4096, 4096]
+    over 64, whose sums are exact in float32 in any order), and on random
+    normal ones within the bound of float32 summation in any order,
+    |err| <= n * 2^-24 * sum |g| over a row's n readers, of a float64
+    reference. Returns (max |difference| on normal cotangents, kernel ms,
+    plain ms) with rounding on."""
+    dev = rel.device
+    shape = (*rel.shape, c)
+    dyadic = torch.randint(-4096, 4097, shape, generator=gen,
+                           device=dev).float() / 64
+    normal = torch.randn(shape, generator=gen, device=dev)
+    readers = cb.gather_bucket_bwd_plain(
+        torch.ones(shape, dtype=torch.float64, device=dev), seg_ids, rel,
+        npad, seg=seg, qblock=qblock, round_bf16=False)
+    out = {}
+    for round_bf16 in (False, True):
+        kw = dict(seg=seg, qblock=qblock, round_bf16=round_bf16)
+        got = cb.gather_bucket_bwd(dyadic, seg_ids, rel, npad, **kw)
+        ref = cb.gather_bucket_bwd_plain(dyadic, seg_ids, rel, npad, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"bucket_gather_bwd {label} round_bf16="
+                                 f"{round_bf16}: differs from the plain "
+                                 "version on dyadic cotangents")
+        g = normal.bfloat16().float() if round_bf16 else normal
+        got = cb.gather_bucket_bwd(normal, seg_ids, rel, npad, **kw)
+        ref64 = cb.gather_bucket_bwd_plain(g.double(), seg_ids, rel, npad,
+                                           seg=seg, qblock=qblock,
+                                           round_bf16=False)
+        abs_sum = cb.gather_bucket_bwd_plain(g.double().abs(), seg_ids, rel,
+                                             npad, seg=seg, qblock=qblock,
+                                             round_bf16=False)
+        err = (got.double() - ref64).abs()
+        bound = readers * 2.0 ** -24 * abs_sum
+        if (err > bound).any():
+            raise AssertionError(f"bucket_gather_bwd {label} round_bf16="
+                                 f"{round_bf16}: error past the float32 "
+                                 "summation bound on normal cotangents")
+        ms, plain_ms, span, plain_span = timings(
+            lambda: cb.gather_bucket_bwd(normal, seg_ids, rel, npad, **kw),
+            lambda: cb.gather_bucket_bwd_plain(normal, seg_ids, rel, npad,
+                                               **kw))
+        say("kernels", f"bucket_gather_bwd {label} B={rel.shape[0]} "
+            f"Q={rel.shape[1]} K={rel.shape[2]} C={c} npad={npad} "
+            f"S={seg_ids.shape[-1]} qblock={qblock} round_bf16={round_bf16}:"
+            f" equal on dyadic cotangents; normal: max |err| "
+            f"{err.max().item():.3e} vs float64, within n * 2^-24 * sum|g| "
+            f"(max readers per row {int(readers.max().item())}); device ms: "
+            f"kernel {ms:.4f}, plain {plain_ms:.4f}; call span ms: kernel "
+            f"{span:.4f}, plain {plain_span:.4f}")
+        out[round_bf16] = (err.max().item(), ms, plain_ms)
+    return out[True]
+
+
 def phase_kernels(model_cfg):
-    """Both kernels against their plain versions at the main path's
-    shapes: the level-0 search, and one neighbour, pool and upsample gather
-    from the pyramid of the same batch."""
+    """The kernels against their plain versions at the main paths' shapes:
+    the level-0 search at the inference and the training budget; one
+    neighbour, pool and upsample gather from the inference pyramid of the
+    same batch and the level-0 neighbour gather from its training pyramid;
+    the gather backward at four shapes of the training step."""
     dev = torch.device(DEVICE)
     b, n = 4, model_cfg.num_points
     seg, qblock = model_cfg.seg, model_cfg.block
     gen = torch.Generator(device=dev).manual_seed(SEED)
     pts = torch.rand((b, n, 3), generator=gen, device=dev) * 50 - 25
     _, sp = hilbert_sort(pts)
-    sids = tb.select_segments(sp, sp, seg=seg, qblock=qblock,
-                              num_segs=model_cfg.infer_num_segs)
-    knn = _knn_check(sp, sids, seg, qblock)
+    knns = [_knn_check(sp, tb.select_segments(sp, sp, seg=seg, qblock=qblock,
+                                              num_segs=num_segs), seg, qblock)
+            for num_segs in (model_cfg.infer_num_segs, model_cfg.num_segs)]
+    knn = knns[0]
 
     pyr = tb.build_bucket_pyramid(
         pts, model_cfg.num_neighbors, model_cfg.sub_sampling_ratio, seg=seg,
         qblock=qblock, num_segs=model_cfg.infer_num_segs,
         gather_segs=model_cfg.infer_gather_segs)
+    train_pyr = tb.build_bucket_pyramid(
+        pts, model_cfg.num_neighbors, model_cfg.sub_sampling_ratio, seg=seg,
+        qblock=qblock, num_segs=model_cfg.num_segs,
+        gather_segs=model_cfg.gather_segs)
 
     def values(rows, c):
         return tb.pad_seg(torch.randn((b, rows, c), generator=gen,
                                       device=dev), seg)
+
+    def tables(p, name, level):
+        return (p[f"{name}_seg_ids"][level], p[f"{name}_rel"][level], seg,
+                p[f"{name}_qblock"][level])
 
     n1, n3 = (pyr["coords"][i].shape[1] for i in (1, 3))
     # level 1's first neighbour gather (3 coords + 32 features), its pool
     # gather (2 * 64 channels) and the decoder's first upsample (level 4's
     # 2 * 256 channels onto level 3)
     gathers = [
-        _gather_check(label, values(rows, c), pyr[f"{name}_seg_ids"][level],
-                      pyr[f"{name}_rel"][level], seg,
-                      pyr[f"{name}_qblock"][level])
+        _gather_check(label, values(rows, c), *tables(pyr, name, level))
         for label, level, name, rows, c in (
             ("neighbour", 1, "nbr", n1, 35), ("pool", 1, "pool", n1, 128),
             ("upsample", 3, "up", n3 // 4, 512))]
@@ -266,7 +360,26 @@ def phase_kernels(model_cfg):
               sum(g[2] for g in gathers))
     say("kernels", f"bucket_gather, three shapes at round_bf16=True: device "
         f"ms: kernel {gather[1]:.4f}, plain {gather[2]:.4f} in all")
-    return {"bucket_knn": knn, "bucket_gather": gather}
+    _gather_check("training level-0 neighbour", values(n, 11),
+                  *tables(train_pyr, "nbr", 0))
+
+    # the largest gather of a training step (3 coords + 8 features at level
+    # 0) and the three shapes above, at the training budget
+    bwds = []
+    for label, name, level, rows, c in (
+            ("level-0 neighbour", "nbr", 0, n, 11),
+            ("level-1 neighbour", "nbr", 1, n1, 35),
+            ("level-1 pool", "pool", 1, n1, 128),
+            ("level-3 upsample", "up", 3, n3 // 4, 512)):
+        sids, rel, _, qb = tables(train_pyr, name, level)
+        bwds.append(_gather_bwd_check(label, sids, rel, -(-rows // seg) * seg,
+                                      c, seg, qb, gen))
+    bwd = (max(g[0] for g in bwds), sum(g[1] for g in bwds),
+           sum(g[2] for g in bwds))
+    say("kernels", f"bucket_gather_bwd, four shapes at round_bf16=True: "
+        f"device ms: kernel {bwd[1]:.4f}, plain {bwd[2]:.4f} in all")
+    return {"bucket_knn": knn, "bucket_gather": gather,
+            "bucket_gather_bwd": bwd}
 
 
 def phase_knn_exact(model_cfg):
@@ -421,6 +534,267 @@ def phase_slice(model, card):
     return launches
 
 
+class _FixedDropout(torch.nn.Module):
+    """Dropout with a given keep mask, so that two nets drop the same
+    elements."""
+
+    def __init__(self, keep):
+        super().__init__()
+        self.keep = keep
+
+    def forward(self, x):
+        if not self.training:
+            return x
+        return torch.where(self.keep.to(x.device), x * 2.0,
+                           torch.zeros_like(x))
+
+
+def _instrument(pipeline, record):
+    """Wrap the pipeline's train and eval steps: each call appends (kind,
+    start, end, launch counts, loss) to ``record``, its end taken after a
+    synchronise."""
+    for kind, name in (("train", "_train_step"), ("eval", "_eval_step")):
+        fn = getattr(pipeline, name)
+
+        def wrapper(inputs, loss_fn, fn=fn, kind=kind):
+            before = read_counts()
+            t0 = time.perf_counter()
+            loss, cm = fn(inputs, loss_fn)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            after = read_counts()
+            record.append((kind, t0, t1,
+                           {k: after[k] - before[k] for k in after},
+                           float(loss)))
+            return loss, cm
+
+        setattr(pipeline, name, wrapper)
+
+
+def _train_dataset(root):
+    """8 training and 2 validation scenes of 120,000 points, 24 and 4
+    patches an epoch (6 and 2 steps), the preprocess cached under
+    ``root``."""
+    return SyntheticShapes(
+        num_points_per_cloud=SCAN_POINTS,
+        num_clouds={"training": 8, "validation": 2, "test": 1},
+        use_cache=True, cache_dir=str(root / "cache"),
+        test_result_folder=str(root / "test"), seed=SEED,
+        steps_per_epoch_train=24, steps_per_epoch_valid=4,
+        class_weights=SEMANTICKITTI_CLASS_WEIGHTS)
+
+
+def _check_steps(record, first, last):
+    """Launch counts and finite losses of every step in record[first:last];
+    returns the train steps' times (s)."""
+    train_s = []
+    for kind, t0, t1, launches, loss in record[first:last]:
+        expected = (TRAIN_STEP_LAUNCHES if kind == "train" else
+                    EXPECTED_LAUNCHES)
+        if launches != expected:
+            raise AssertionError(f"train: a {kind} step launched {launches}, "
+                                 f"expected {expected}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"train: a {kind} step's loss is {loss}")
+        if kind == "train":
+            train_s.append(t1 - t0)
+    return train_s
+
+
+def _resume_check(pipeline, saved):
+    """Make ``pipeline.load_ckpt`` check, right after loading, that the net
+    and the Adam state equal ``saved`` (the first run's at its end); the
+    epoch it returns goes into ``saved["first_epoch"]``."""
+    load = pipeline.load_ckpt
+
+    def checked(*args, **kwargs):
+        epoch = load(*args, **kwargs)
+        for key, value in pipeline.net.state_dict().items():
+            if not torch.equal(value, saved["model"][key]):
+                raise AssertionError(f"resume: {key} differs from the saved "
+                                     "weights")
+        state = pipeline.optimizer.state_dict()["state"]
+        if set(state) != set(saved["adam"]):
+            raise AssertionError("resume: Adam state for other parameters")
+        for idx, moments in saved["adam"].items():
+            for name in ("step", "exp_avg", "exp_avg_sq"):
+                # the step count lives on the CPU, the moments on the card
+                if not torch.equal(state[idx][name].cpu(),
+                                   moments[name].cpu()):
+                    raise AssertionError(f"resume: Adam {name} of parameter "
+                                         f"{idx} differs")
+        saved["first_epoch"] = epoch
+        return epoch
+
+    pipeline.load_ckpt = checked
+
+
+def _overfit(pipeline, dataset):
+    """10 training steps on one fixed batch of the train split; returns the
+    losses."""
+    model = pipeline.model
+    split = dataset.get_split("train")
+    loader = PointCloudDataloader(split, preprocess=model.preprocess,
+                                  transform=model.transform,
+                                  sampler=split.sampler, use_cache=True)
+    model.trans_point_sampler = split.sampler.get_point_sampler()
+    batch = next(iter(BatchLoader(loader, 4, DefaultBatcher(), num_workers=0,
+                                  sampler=split.sampler)))
+    inputs = pipeline._device_batch(batch)
+    loss_fn = SemSegLoss(pipeline, model, dataset)
+    return [float(pipeline._train_step(inputs, loss_fn)[0])
+            for _ in range(10)]
+
+
+def _rel_l2(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _step_vs_cpu(dataset, root):
+    """One float32 training step, 1 x 11,264 points, full widths, the
+    training budget, on the card and on the CPU from the same weights,
+    batch and dropout mask. Returns (loss relative difference, gradient
+    relative L2, running statistics relative L2, parameter relative L2
+    after the Adam step, CPU step seconds)."""
+    n = 11_264
+    out = {}
+    model = MODEL.get("RandLANet")(compute_dtype="float32", num_points=n)
+    split = dataset.get_split("train")
+    loader = PointCloudDataloader(split, preprocess=model.preprocess,
+                                  transform=model.transform,
+                                  sampler=split.sampler, use_cache=True)
+    model.trans_point_sampler = split.sampler.get_point_sampler()
+    batch = DefaultBatcher().collate_fn([loader[0]])
+    keep = torch.rand((1, n, 32),
+                      generator=torch.Generator().manual_seed(SEED)) >= 0.5
+    state = None
+    for device in (DEVICE, "cpu"):
+        pipeline = SemanticSegmentation(model, dataset=dataset, device=device,
+                                        seed=SEED, main_log_dir=str(root),
+                                        **TRAIN_PIPELINE)
+        if state is None:
+            state = {k: v.cpu() for k, v in pipeline.net.state_dict().items()}
+        pipeline.net.load_state_dict(state)
+        pipeline.net.dropout = _FixedDropout(keep)
+        pipeline.optimizer, pipeline.scheduler = model.get_optimizer(
+            pipeline.cfg, pipeline.net)
+        t0 = time.perf_counter()
+        loss, _ = pipeline._train_step(pipeline._device_batch(batch),
+                                       SemSegLoss(pipeline, model, dataset))
+        seconds = time.perf_counter() - t0
+        net = pipeline.net
+        out[device] = {
+            "loss": loss.double().cpu(),
+            "grad": torch.cat([p.grad.reshape(-1).cpu()
+                               for p in net.parameters()]),
+            "stats": torch.cat([b.reshape(-1).cpu()
+                                for k, b in net.state_dict().items()
+                                if k.endswith(("running_mean",
+                                               "running_var"))]),
+            "params": torch.cat([p.detach().reshape(-1).cpu()
+                                 for p in net.parameters()]),
+            "seconds": seconds}
+    gpu, cpu = out[DEVICE], out["cpu"]
+    return ((abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])).item(),
+            _rel_l2(gpu["grad"], cpu["grad"]),
+            _rel_l2(gpu["stats"], cpu["stats"]),
+            _rel_l2(gpu["params"], cpu["params"]), cpu["seconds"])
+
+
+def phase_train(card):
+    """run_train at the shipped config on synthetic scenes, a resume from
+    its checkpoint, an overfit batch and one step against the CPU; returns
+    the first run's launch counts."""
+    model = MODEL.get("RandLANet")(seed=SEED)
+    b, n = TRAIN_PIPELINE["batch_size"], model.cfg.num_points
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        dataset = _train_dataset(root)
+        pipeline = SemanticSegmentation(model, dataset=dataset, device=DEVICE,
+                                        seed=SEED, max_epoch=0,
+                                        main_log_dir=str(root / "logs"),
+                                        **TRAIN_PIPELINE)
+        record = []
+        _instrument(pipeline, record)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        pipeline.run_train()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps = _check_steps(record, 0, len(record))
+        kinds = [r[0] for r in record]
+        if kinds != ["train"] * 6 + ["eval"] * 2:
+            raise AssertionError(f"train: ran steps {kinds}, expected 6 "
+                                 "train and 2 eval")
+        step = statistics.median(steps[1:])
+        loop = record[-1][2] - record[0][1]
+        busy = sum(t1 - t0 for _, t0, t1, _, _ in record)
+        say("train", f"run_train max_epoch=0: 6 train steps of {b} x {n} "
+            f"points and 2 validation steps of 2, each with the expected "
+            f"launches ({TRAIN_STEP_LAUNCHES} per train step, "
+            f"{EXPECTED_LAUNCHES} per validation step); losses "
+            f"{[round(r[4], 4) for r in record]}, finite")
+        say("train", f"step B={b} N={n} bf16, S{model.cfg.num_segs}/"
+            f"G{model.cfg.gather_segs}: median {step * 1e3:.2f} ms over steps "
+            f"2..6 (min {min(steps[1:]) * 1e3:.2f}, max "
+            f"{max(steps[1:]) * 1e3:.2f}, first {steps[0] * 1e3:.2f}), "
+            f"{b * n / step:.0f} points trained/s on {card}")
+        say("train", f"wall {wall:.3f} s, of it set-up (scenes, preprocess "
+            f"cache, optimizer) {record[0][1] - t0:.3f} s and the step loop "
+            f"{loop:.3f} s: steps (synchronised) {busy / loop:.1%}, host "
+            f"between steps (loader wait, copies, metrics) "
+            f"{1 - busy / loop:.1%}; peak device memory "
+            f"{peak / 2**30:.2f} GiB on {card}")
+        ckpt = Path(pipeline.cfg.logs_dir) / "checkpoint" / "ckpt_00000.pth"
+        if not ckpt.exists():
+            raise AssertionError(f"train: no checkpoint at {ckpt}")
+
+        saved = {"model": {k: v.clone()
+                           for k, v in pipeline.net.state_dict().items()},
+                 "adam": {idx: {k: v.clone() for k, v in moments.items()}
+                          for idx, moments in
+                          pipeline.optimizer.state_dict()["state"].items()}}
+        resumed = SemanticSegmentation(model, dataset=dataset, device=DEVICE,
+                                       seed=SEED + 1, max_epoch=1,
+                                       main_log_dir=str(root / "logs"),
+                                       **TRAIN_PIPELINE)
+        _resume_check(resumed, saved)
+        record2 = []
+        _instrument(resumed, record2)
+        resumed.run_train()
+        _check_steps(record2, 0, len(record2))
+        if saved.get("first_epoch") != 1 or len(record2) != 8:
+            raise AssertionError(f"resume: started at epoch "
+                                 f"{saved.get('first_epoch')} with "
+                                 f"{len(record2)} steps")
+        say("train", f"{ckpt.name} written; a fresh pipeline resumed from it "
+            "at epoch 1 with equal weights, BN statistics and Adam state "
+            f"(step, moments), and ran 6 + 2 steps with finite losses "
+            f"{[round(r[4], 4) for r in record2]}")
+
+        losses = _overfit(resumed, dataset)
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"overfit: loss did not fall: {losses}")
+        say("train", f"10 steps on one batch: loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} ({[round(x, 4) for x in losses]})")
+
+        loss_rel, grad_rel, stats_rel, param_rel, cpu_s = _step_vs_cpu(
+            dataset, root / "cpu")
+        say("train", f"one float32 step B=1 N=11264, card vs CPU: loss "
+            f"relative difference {loss_rel:.3e} (bound 1e-5), gradient "
+            f"relative L2 {grad_rel:.3e} (bound 1e-4), running statistics "
+            f"relative L2 {stats_rel:.3e} (bound 1e-4); parameters after "
+            f"Adam relative L2 {param_rel:.3e} (no bound: Adam's first "
+            f"step moves each weight by about lr times the sign of its "
+            f"gradient); CPU step {cpu_s:.1f} s")
+        if not (loss_rel <= 1e-5 and grad_rel <= 1e-4 and stats_rel <= 1e-4):
+            raise AssertionError("train: card and CPU steps disagree")
+    return launches
+
+
 def phase_eval(model, card):
     """The eval net at the shipped config, one patch, float32; returns its
     state_dict (the seeded random weights)."""
@@ -443,8 +817,9 @@ def phase_eval(model, card):
         logits = net(batch)
         torch.cuda.synchronize()
         launches = read_counts()
-    check_counts("eval", launches, {"bucket_knn": 0, "bucket_gather": 0,
-                                    "knn_exact": model_cfg.num_layers})
+    check_counts("eval", launches, dict(
+        EXPECTED_LAUNCHES, bucket_knn=0, bucket_gather=0,
+        knn_exact=model_cfg.num_layers))
     if tuple(logits.shape) != (1, n, model_cfg.num_classes):
         raise AssertionError(f"eval logits shape {tuple(logits.shape)}")
     if not torch.isfinite(logits).all():
@@ -501,12 +876,13 @@ def phase_inference(model, state, card):
     model_cfg = model.cfg
     points = lidar_scan(SCAN_POINTS, SEED)
     pipeline = SemanticSegmentation(model, device=DEVICE, seed=SEED)
+    # run_inference copies the training net's weights into the eval net
     pipeline.net.load_state_dict(state)
     spent = collections.Counter()
     for name in ("preprocess", "transform", "update_probs"):
         setattr(model, name, _timed(getattr(model, name), spent, name))
-    pipeline.net.forward = _timed(pipeline.net.forward, spent, "forward",
-                                  sync=True)
+    pipeline.eval_net.forward = _timed(pipeline.eval_net.forward, spent,
+                                       "forward", sync=True)
     try:
         reset_counts()
         t0 = time.perf_counter()
@@ -519,9 +895,9 @@ def phase_inference(model, state, card):
             delattr(model, name)
     patches = spent["transform calls"]
     forwards = spent["forward calls"]
-    check_counts("inference", launches, {
-        "bucket_knn": 0, "bucket_gather": 0,
-        "knn_exact": model_cfg.num_layers * forwards})
+    check_counts("inference", launches, dict(
+        EXPECTED_LAUNCHES, bucket_knn=0, bucket_gather=0,
+        knn_exact=model_cfg.num_layers * forwards))
     labels, scores = result["predict_labels"], result["predict_scores"]
     if labels.shape != (SCAN_POINTS,) or scores.shape != (
             SCAN_POINTS, model_cfg.num_classes):
@@ -553,6 +929,8 @@ def main():
     measured = phase_kernels(model.cfg)
     measured["knn_exact"] = phase_knn_exact(model.cfg)
     launches = phase_slice(model, card)
+    # bucket_gather_bwd's launches are the training run's
+    launches["bucket_gather_bwd"] = phase_train(card)["bucket_gather_bwd"]
     state = phase_eval(model, card)
     # knn_exact's launches are run_inference's, the main path of its slice
     launches["knn_exact"] = phase_inference(model, state, card)["knn_exact"]
@@ -560,6 +938,9 @@ def main():
                               f"{TPU_KERNELS}:261"),
                "bucket_gather": ("open3d_ml_tpu_torch/csrc/bucket_gather.cu",
                                  f"{TPU_KERNELS}:428, {TPU_KERNELS}:408"),
+               "bucket_gather_bwd": (
+                   "open3d_ml_tpu_torch/csrc/bucket_gather_bwd.cu",
+                   f"{TPU_KERNELS}:563, {TPU_KERNELS}:539"),
                "knn_exact": ("open3d_ml_tpu_torch/csrc/knn_exact.cu",
                              "open3d_ml_tpu/ops/pallas/knn.py:116")}
     kernels = []

@@ -106,13 +106,9 @@ cudaError_t launch(const float* points, const float* queries,
                    const int* seg_ids, int* rel, float* d2, int b, int npad,
                    int q, int nqb, int s, int seg, int qblock,
                    cudaStream_t stream) {
+  // at most the 48 KB a block gets without opting in (36 KB at the
+  // training budget S = 48, seg = 64); the wrapper refuses larger tables
   const size_t smem = sizeof(float) * 3 * (size_t)s * seg;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bucket_knn_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
   bucket_knn_kernel<K><<<dim3(nqb, b), qblock, smem, stream>>>(
       points, queries, seg_ids, rel, d2, npad, q, nqb, s, seg);
   return cudaGetLastError();

@@ -1,8 +1,9 @@
-"""Dataset splits, samplers, augmentations and data utilities."""
+"""Datasets, dataset splits, samplers, augmentations and data utilities."""
 
 from . import augment, samplers, utils
-from .base_dataset import BaseDatasetSplit
+from .base_dataset import BaseDataset, BaseDatasetSplit
 from .inference_dummy import InferenceDummySplit
+from .synthetic import SyntheticShapes, make_semseg_scene
 
-__all__ = ["augment", "samplers", "utils", "BaseDatasetSplit",
-           "InferenceDummySplit"]
+__all__ = ["augment", "samplers", "utils", "BaseDataset", "BaseDatasetSplit",
+           "InferenceDummySplit", "SyntheticShapes", "make_semseg_scene"]

@@ -1,9 +1,9 @@
-"""Host-side data processing: grid subsampling.
+"""Host-side data processing: grid subsampling and class weights.
 
 Counterpart of ``open3d_ml_tpu/datasets/utils/dataprocessing.py``
 ``DataProcessing.grid_subsampling``, whose body is the numpy sort-reduce of
-``open3d_ml_tpu/ops/subsample.py``; the same numpy operations in the same
-order give the same bits.
+``open3d_ml_tpu/ops/subsample.py`` (the same numpy operations in the same
+order give the same bits), and ``get_class_weights``.
 """
 
 import numpy as np
@@ -60,3 +60,11 @@ class DataProcessing:
         if len(out) == 1:
             return out[0]
         return tuple(out)
+
+    @staticmethod
+    def get_class_weights(num_per_class):
+        """Inverse-frequency class weights 1 / (freq + 0.02), float32, of
+        per-class point counts."""
+        num_per_class = np.array(num_per_class, dtype=np.float32)
+        weight = num_per_class / float(np.sum(num_per_class))
+        return 1.0 / (weight + 0.02)

@@ -17,7 +17,9 @@ neighbour paths share one ``state_dict``:
 
 Layout is channels-last [..., C], as in the JAX package. The parameter
 names follow the JAX variable tree (``utils/convert_jax.py`` maps one onto
-the other). BatchNorm follows torch semantics (momentum 0.01, eps 1e-6).
+the other). BatchNorm (``_BatchNorm``) has flax's training semantics and
+torch's momentum 0.01 (flax 0.99) and eps 1e-6; dropout (``_Dropout``)
+draws its mask from the net's own generator.
 
 With ``compute_dtype="bfloat16"`` the fused path computes every Linear but
 the last in bfloat16, BatchNorm and everything after it in float32, and its
@@ -26,7 +28,8 @@ exact path computes in float32 whatever ``compute_dtype`` says, as the JAX
 net does off the fused path.
 
 The host side (``preprocess``, ``transform``, ``update_probs``) prepares
-test patches for ``pipelines/semantic_segmentation.py``.
+patches for ``pipelines/semantic_segmentation.py``; ``get_loss`` and
+``get_optimizer`` are the training step's loss and its Adam.
 """
 
 import logging
@@ -39,8 +42,10 @@ from torch import nn
 
 from ..datasets.augment import SemsegAugmentation
 from ..datasets.utils import DataProcessing
+from ..modules.losses import filter_valid_label
+from ..modules.schedulers import exponential_lr
 from ..ops.bucket import build_bucket_pyramid, pad_seg
-from ..ops.cuda.bucket import gather_bucket
+from ..ops.cuda.bucket import BucketGather
 from ..ops.neighbors import build_knn_pyramid
 from ..utils.registry import MODEL
 from .base_model import BaseModel
@@ -99,9 +104,8 @@ class _BucketLevel:
 
     def _gather(self, v, name):
         seg_ids, rel, qblock = self.tables[name]
-        return gather_bucket(pad_seg(v, self.seg).contiguous(), seg_ids, rel,
-                             seg=self.seg, qblock=qblock,
-                             round_bf16=self.round_bf16)
+        return BucketGather.apply(pad_seg(v, self.seg).contiguous(), seg_ids,
+                                  rel, self.seg, qblock, self.round_bf16)
 
     def gather(self, v):
         """[B, N, C] -> [B, N, K, C] neighbour rows."""
@@ -118,14 +122,69 @@ class _BucketLevel:
         return self._gather(v, "up")[..., 0, :]
 
 
+class _BatchNorm(nn.BatchNorm1d):
+    """BatchNorm over every axis but the last, in float32, with flax's
+    training semantics (``flax.linen.BatchNorm``, ``use_fast_variance``).
+
+    In train mode it normalises with the batch mean and the biased batch
+    variance E[x^2] - E[x]^2 (clamped at 0) over all rows, as
+    (x - mean) * (rsqrt(var + eps) * weight) + bias, and moves the running
+    statistics towards the same biased variance with torch momentum 0.01
+    (flax momentum 0.99); ``nn.BatchNorm1d`` would move them towards the
+    unbiased one. In eval mode it is ``nn.BatchNorm1d``'s. The parameter
+    and buffer names are ``nn.BatchNorm1d``'s.
+    """
+
+    def __init__(self, dim):
+        super().__init__(dim, eps=1e-6, momentum=0.01)
+
+    def forward(self, x):
+        """x [..., C] (float32 or bfloat16) -> float32 [..., C]."""
+        rows = x.float().reshape(-1, x.shape[-1])
+        if not self.training:
+            return super().forward(rows).reshape(x.shape)
+        mean = rows.mean(0)
+        var = torch.clamp((rows * rows).mean(0) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((rows - mean) * mul + self.bias).reshape(x.shape)
+
+
+class _Dropout(nn.Module):
+    """Dropout whose keep mask comes from a generator of its own, seeded by
+    ``manual_seed`` and made on the input's device at first use: an
+    element is kept with probability 1 - p and scaled by 1 / (1 - p), as
+    ``flax.linen.Dropout`` does. The identity in eval mode."""
+
+    def __init__(self, p, seed=0):
+        super().__init__()
+        self.p = p
+        self.manual_seed(seed)
+
+    def manual_seed(self, seed):
+        self.seed = int(seed)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training:
+            return x
+        if self.generator is None or self.generator.device != x.device:
+            self.generator = torch.Generator(device=x.device).manual_seed(
+                self.seed)
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
 class SharedMLP(nn.Module):
     """Linear + BatchNorm + LeakyReLU over the channel axis."""
 
     def __init__(self, in_dim, out_dim, bn=True, slope=0.2, dtype=None):
         super().__init__()
         self.conv = nn.Linear(in_dim, out_dim)
-        self.batch_norm = (nn.BatchNorm1d(out_dim, eps=1e-6, momentum=0.01)
-                           if bn else None)
+        self.batch_norm = _BatchNorm(out_dim) if bn else None
         self.slope = slope
         self.dtype = dtype
 
@@ -133,8 +192,7 @@ class SharedMLP(nn.Module):
         x = _dense(self.conv, x, self.dtype)
         if self.batch_norm is not None:
             # float32 parameters promote the (possibly bf16) product
-            x = self.batch_norm(x.float().reshape(-1, x.shape[-1])).reshape(
-                x.shape)
+            x = self.batch_norm(x)
         if self.slope is not None:
             x = F.leaky_relu(x, self.slope)
         return x
@@ -247,7 +305,7 @@ class RandLANetNet(nn.Module):
         self.cdt = cdt
 
         self.fc0 = nn.Linear(in_channels, dim_features)
-        self.bn0 = nn.BatchNorm1d(dim_features, eps=1e-6, momentum=0.01)
+        self.bn0 = _BatchNorm(dim_features)
         d_in = dim_features
         for i in range(num_layers):
             self.add_module(f"encoder_{i}", LocalFeatureAggregation(
@@ -266,7 +324,8 @@ class RandLANetNet(nn.Module):
             feat_dim = skip
         self.fc1_0 = SharedMLP(feat_dim, 64, dtype=cdt)
         self.fc1_1 = SharedMLP(64, 32, dtype=cdt)
-        self.dropout = nn.Dropout(0.5)
+        # p = 0.5 in Hilbert-sorted order, as in the JAX net
+        self.dropout = _Dropout(0.5)
         self.fc1_3 = SharedMLP(32, num_classes, bn=False, slope=None)
 
     def _levels(self, coords):
@@ -298,8 +357,7 @@ class RandLANetNet(nn.Module):
             # sorted order from here to the head
             feat = torch.gather(
                 feat, 1, perm[..., None].expand(-1, -1, feat.shape[-1]))
-        feat = _dense(self.fc0, feat, self.cdt).float()
-        feat = self.bn0(feat.reshape(-1, feat.shape[-1])).reshape(feat.shape)
+        feat = self.bn0(_dense(self.fc0, feat, self.cdt))
         feat = F.leaky_relu(feat, 0.2)
 
         encoder_feats = []
@@ -383,7 +441,7 @@ class RandLANet(BaseModel):
                          infer_gather_segs=infer_gather_segs,
                          compute_dtype=compute_dtype, augment=augment,
                          **kwargs)
-        self.augmenter = SemsegAugmentation(self.cfg.augment)
+        self.augmenter = SemsegAugmentation(self.cfg.augment, seed=self.rng)
 
     def get_net(self, knn_method=None):
         """Build the network (``RandLANetNet``); ``knn_method`` overrides
@@ -428,6 +486,39 @@ class RandLANet(BaseModel):
                         "exact-path accuracy.", method)
         return self.get_net(knn_method=method)
 
+    # ------------------------------------------------------------- training
+
+    def get_loss(self, loss, results, inputs):
+        """(loss, remapped labels [B * N], scores [B * N, num_classes]) of
+        logits ``results`` [B, N, num_classes] against the raw labels
+        ``inputs["labels"]`` [B, N]; ``loss`` is a ``SemSegLoss``."""
+        cfg = self.cfg
+        labels = inputs["labels"].reshape(-1)
+        scores = results.reshape(-1, cfg.num_classes)
+        remapped, valid = filter_valid_label(scores, labels, cfg.num_classes,
+                                             cfg.ignored_label_inds)
+        return (loss.weighted_cross_entropy(scores, remapped, valid),
+                remapped, scores)
+
+    def get_optimizer(self, cfg_pipeline, net):
+        """(Adam over ``net``'s parameters, its learning-rate scheduler).
+
+        The JAX package's ``optax.adam`` (betas 0.9 and 0.999, eps 1e-8)
+        with the learning rate ``optimizer.lr`` (else ``adam_lr``, else
+        1e-2) decayed by ``scheduler_gamma`` once per ``steps_per_epoch``
+        updates; step the scheduler after every optimizer step. The JAX
+        signature has no ``net``: optax transforms take the parameters at
+        each update.
+        """
+        opt = dict(cfg_pipeline.get("optimizer") or {})
+        lr = opt.get("lr", cfg_pipeline.get("adam_lr", 1e-2))
+        optimizer = torch.optim.Adam(net.parameters(), lr=lr,
+                                     betas=(0.9, 0.999), eps=1e-8)
+        scheduler = exponential_lr(
+            optimizer, cfg_pipeline.get("scheduler_gamma", 1.0),
+            steps_per_epoch=cfg_pipeline.get("steps_per_epoch", 1))
+        return optimizer, scheduler
+
     # ------------------------------------------------------------- host side
 
     def preprocess(self, data, attr):
@@ -459,8 +550,9 @@ class RandLANet(BaseModel):
 
     def transform(self, data, attr, rng=None):
         """Draw a patch of ``num_points`` with ``trans_point_sampler``,
-        recentre and normalise it, and build the network's inputs (features
-        are the coordinates, then the cloud's own features)."""
+        recentre and normalise it, augment it on the training split, and
+        build the network's inputs (features are the coordinates, then the
+        cloud's own features)."""
         cfg = self.cfg
         rng = rng or self.rng
         pc = data["point"].copy()
@@ -478,11 +570,12 @@ class RandLANet(BaseModel):
         val_augment_cfg = {key: augment_cfg.pop(key)
                            for key in ("recenter", "normalize")
                            if key in augment_cfg}
-        # recenter and normalize work in place on pc and feat
-        self.augmenter.augment(pc, feat, label, val_augment_cfg)
+        # recenter and normalize work in place on pc and feat; the random
+        # steps draw from rng
+        self.augmenter.augment(pc, feat, label, val_augment_cfg, seed=rng)
         if attr["split"] in ("training", "train"):
             pc, feat, label = self.augmenter.augment(pc, feat, label,
-                                                     augment_cfg)
+                                                     augment_cfg, seed=rng)
 
         feat = pc.copy() if feat is None else np.concatenate([pc, feat], 1)
         if cfg.in_channels != feat.shape[1]:

@@ -16,7 +16,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = ("bucket_knn.cu", "bucket_gather.cu", "knn_exact.cu")
+SOURCES = ("bucket_knn.cu", "bucket_gather.cu", "bucket_gather_bwd.cu",
+           "knn_exact.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -33,6 +34,10 @@ ENTRY_POINTS = {
     # round_bf16, stream
     "bucket_gather_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P),
+    # g, seg_ids, rel, dvalues, B, npad, Q, K, C, nqb, S, seg, qblock,
+    # round_bf16, stream
+    "bucket_gather_bwd_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _P),
     # points, queries, mask (or NULL), idx, d2, B, N, Q, k, stream
     "knn_exact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

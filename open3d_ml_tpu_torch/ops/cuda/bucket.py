@@ -1,19 +1,25 @@
-"""The bucket KNN and bucket gather: CUDA kernels, their plain versions,
-and the wrappers the pyramid and the model call.
+"""The bucket KNN, the bucket gather and its backward: CUDA kernels, their
+plain versions, and the wrappers the pyramid and the model call.
 
 A wrapper takes the plain version for tensors on the CPU and launches its
-kernel (``csrc/bucket_knn.cu``, ``csrc/bucket_gather.cu``) for tensors on a
-CUDA device; it has no other route. ``LAUNCHES`` counts the kernel
-launches each wrapper made, so a run can show that it went through them.
+kernel (``csrc/bucket_knn.cu``, ``csrc/bucket_gather.cu``,
+``csrc/bucket_gather_bwd.cu``) for tensors on a CUDA device; it has no
+other route. ``LAUNCHES`` counts the kernel launches each wrapper made, so
+a run can show that it went through them. ``BucketGather`` is the gather
+with its gradient: its forward is ``gather_bucket`` and its backward
+``gather_bucket_bwd``, on either route.
 """
 
 import torch
 
 from ._launch import check, raise_on, route, stream
 
-LAUNCHES = {"bucket_knn": 0, "bucket_gather": 0}
+LAUNCHES = {"bucket_knn": 0, "bucket_gather": 0, "bucket_gather_bwd": 0}
 
 KNN_KS = (1, 16)
+# bucket_knn stages its table (S * seg points, 12 bytes each) in the 48 KB
+# of shared memory a block gets without opting in
+KNN_TABLE_BYTES = 48 * 1024
 
 
 # ----------------------------------------------------------------- bucket KNN
@@ -47,9 +53,10 @@ def knn_bucket_plain(points, queries, seg_ids, k, *, seg, qblock):
 
 
 def knn_bucket(points, queries, seg_ids, k, *, seg, qblock):
-    """``knn_bucket_plain``'s contract, checked for both routes; on a CUDA
-    device it launches the ``bucket_knn`` kernel (k must be 1 or 16 and
-    qblock at most 1024 there)."""
+    """``knn_bucket_plain``'s contract, checked for both routes (a table
+    of S * seg points must fit the kernel's 48 KB of shared memory, 12
+    bytes a point); on a CUDA device it launches the ``bucket_knn`` kernel
+    (k must be 1 or 16 and qblock at most 1024 there)."""
     dev = points.device
     check(points, "points", torch.float32, 3, dev)
     check(queries, "queries", torch.float32, 3, dev)
@@ -65,6 +72,10 @@ def knn_bucket(points, queries, seg_ids, k, *, seg, qblock):
     if npad % seg or nqb != -(-q // qblock) or s * seg < k:
         raise ValueError(f"bad bucket shapes: npad {npad}, seg {seg}, Q {q}, "
                          f"qblock {qblock}, nqb {nqb}, S {s}, k {k}")
+    if s * seg * 12 > KNN_TABLE_BYTES:
+        raise ValueError(f"bucket_knn table of S {s} x seg {seg} points "
+                         f"needs {s * seg * 12} bytes of shared memory, more "
+                         f"than {KNN_TABLE_BYTES}")
     if route(points, "bucket") == "plain":
         return knn_bucket_plain(points, queries, seg_ids, k, seg=seg,
                                 qblock=qblock)
@@ -86,6 +97,16 @@ def knn_bucket(points, queries, seg_ids, k, *, seg, qblock):
 
 # -------------------------------------------------------------- bucket gather
 
+def _bucket_rows(seg_ids, rel, *, seg, qblock):
+    """[B, Q, K] int64 value rows read by a gather: seg_ids[b, i // qblock,
+    rel // seg] * seg + rel % seg."""
+    b, q, _ = rel.shape
+    blk = (torch.arange(q, device=rel.device) // qblock)[None, :, None]
+    bidx = torch.arange(b, device=rel.device)[:, None, None]
+    return (seg_ids[bidx, blk, torch.div(rel, seg, rounding_mode="floor")]
+            .long() * seg + rel % seg)
+
+
 def gather_bucket_plain(values, seg_ids, rel, *, seg, qblock, round_bf16):
     """out[b, i, j] = values[b, seg_ids[b, i // qblock, rel // seg] * seg
     + rel % seg] with rel = rel[b, i, j].
@@ -97,38 +118,44 @@ def gather_bucket_plain(values, seg_ids, rel, *, seg, qblock, round_bf16):
     """
     b, q, k = rel.shape
     c = values.shape[2]
-    blk = (torch.arange(q, device=rel.device) // qblock)[None, :, None]
-    bidx = torch.arange(b, device=rel.device)[:, None, None]
-    glob = (seg_ids[bidx, blk, torch.div(rel, seg, rounding_mode="floor")]
-            .long() * seg + rel % seg)
+    glob = _bucket_rows(seg_ids, rel, seg=seg, qblock=qblock)
     out = torch.gather(values, 1, glob.reshape(b, -1, 1).expand(-1, -1, c))
     if round_bf16:
         out = out.bfloat16().float()
     return out.reshape(b, q, k, c)
 
 
-def gather_bucket(values, seg_ids, rel, *, seg, qblock, round_bf16):
-    """``gather_bucket_plain``'s contract, checked for both routes; on a
-    CUDA device it launches the ``bucket_gather`` kernel."""
-    dev = values.device
-    check(values, "values", torch.float32, 3, dev)
-    check(seg_ids, "seg_ids", torch.int32, 3, dev)
-    check(rel, "rel", torch.int32, 3, dev)
-    b, npad, c = values.shape
-    q, k = rel.shape[1:]
-    nqb, s = seg_ids.shape[1:]
+def _check_gather(values_shape, seg_ids, rel, seg, qblock):
+    b, npad = values_shape[:2]
+    q = rel.shape[1]
+    nqb = seg_ids.shape[1]
     if seg_ids.shape[0] != b or rel.shape[0] != b:
         raise ValueError("batch sizes differ: values "
-                         f"{tuple(values.shape)}, seg_ids "
+                         f"{tuple(values_shape)}, seg_ids "
                          f"{tuple(seg_ids.shape)}, rel {tuple(rel.shape)}")
     if npad % seg or nqb * qblock < q:
         raise ValueError(f"bad bucket shapes: npad {npad}, seg {seg}, Q {q}, "
                          f"qblock {qblock}, nqb {nqb}")
+
+
+def gather_bucket(values, seg_ids, rel, *, seg, qblock, round_bf16):
+    """``gather_bucket_plain``'s contract, checked for both routes; on a
+    CUDA device it launches the ``bucket_gather`` kernel. Values that need
+    a gradient go through ``BucketGather``, whose forward this is."""
+    if values.requires_grad and torch.is_grad_enabled():
+        return BucketGather.apply(values, seg_ids, rel, seg, qblock,
+                                  round_bf16)
+    dev = values.device
+    check(values, "values", torch.float32, 3, dev)
+    check(seg_ids, "seg_ids", torch.int32, 3, dev)
+    check(rel, "rel", torch.int32, 3, dev)
+    _check_gather(values.shape, seg_ids, rel, seg, qblock)
     if route(values, "bucket") == "plain":
         return gather_bucket_plain(values, seg_ids, rel, seg=seg,
                                    qblock=qblock, round_bf16=round_bf16)
-    if values.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("bucket_gather has no backward kernel yet")
+    b, npad, c = values.shape
+    q, k = rel.shape[1:]
+    nqb, s = seg_ids.shape[1:]
     from ._build import library
     out = torch.empty((b, q, k, c), dtype=torch.float32, device=dev)
     err = library().bucket_gather_launch(
@@ -138,3 +165,78 @@ def gather_bucket(values, seg_ids, rel, *, seg, qblock, round_bf16):
     raise_on(err, "bucket_gather")
     LAUNCHES["bucket_gather"] += 1
     return out
+
+
+# ----------------------------------------------------- bucket gather backward
+
+def gather_bucket_bwd_plain(g, seg_ids, rel, npad, *, seg, qblock,
+                            round_bf16):
+    """The gather's gradient with respect to its values: dvalues
+    [B, npad, C] float32, where each value row is the float32 sum of the
+    cotangent rows g[b, i, j] that read it (the row ``gather_bucket_plain``
+    names for rel[b, i, j]).
+
+    g [B, Q, K, C] float32; seg_ids and rel as for the gather. With
+    ``round_bf16`` each g value is rounded to bfloat16 before the sum, as
+    the TPU kernel's bf16 product rounded it; the sum stays float32.
+    """
+    b, q, k, c = g.shape
+    glob = _bucket_rows(seg_ids, rel, seg=seg, qblock=qblock)
+    rows = g.reshape(b, q * k, c)
+    if round_bf16:
+        rows = rows.bfloat16().float()
+    # float32 for float32 g (float64 g gives a float64 reference)
+    dv = torch.zeros((b, npad, c), dtype=rows.dtype, device=g.device)
+    return dv.scatter_add_(1, glob.reshape(b, -1, 1).expand(-1, -1, c), rows)
+
+
+def gather_bucket_bwd(g, seg_ids, rel, npad, *, seg, qblock, round_bf16):
+    """``gather_bucket_bwd_plain``'s contract, checked for both routes; on
+    a CUDA device it launches the ``bucket_gather_bwd`` kernel, whose sums
+    are taken in a run-dependent order."""
+    dev = g.device
+    check(g, "g", torch.float32, 4, dev)
+    check(seg_ids, "seg_ids", torch.int32, 3, dev)
+    check(rel, "rel", torch.int32, 3, dev)
+    b, q, k, c = g.shape
+    if tuple(rel.shape) != (b, q, k):
+        raise ValueError(f"g {tuple(g.shape)} does not match rel "
+                         f"{tuple(rel.shape)}")
+    _check_gather((b, npad, c), seg_ids, rel, seg, qblock)
+    if route(g, "bucket") == "plain":
+        return gather_bucket_bwd_plain(g, seg_ids, rel, npad, seg=seg,
+                                       qblock=qblock, round_bf16=round_bf16)
+    nqb, s = seg_ids.shape[1:]
+    from ._build import library
+    dvalues = torch.zeros((b, npad, c), dtype=torch.float32, device=dev)
+    err = library().bucket_gather_bwd_launch(
+        g.data_ptr(), seg_ids.data_ptr(), rel.data_ptr(), dvalues.data_ptr(),
+        b, npad, q, k, c, nqb, s, seg, qblock, int(round_bf16), stream())
+    raise_on(err, "bucket_gather_bwd")
+    LAUNCHES["bucket_gather_bwd"] += 1
+    return dvalues
+
+
+class BucketGather(torch.autograd.Function):
+    """``gather_bucket`` with its gradient ``gather_bucket_bwd``:
+    ``BucketGather.apply(values, seg_ids, rel, seg, qblock, round_bf16)``.
+    The tables carry no gradient. With ``round_bf16`` the backward rounds
+    the cotangents to bfloat16 as the forward rounds the values. (The
+    forward runs with gradients off, so its ``gather_bucket`` launches the
+    kernel or takes the plain version.)"""
+
+    @staticmethod
+    def forward(ctx, values, seg_ids, rel, seg, qblock, round_bf16):
+        ctx.save_for_backward(seg_ids, rel)
+        ctx.meta = (values.shape[1], seg, qblock, round_bf16)
+        return gather_bucket(values, seg_ids, rel, seg=seg, qblock=qblock,
+                             round_bf16=round_bf16)
+
+    @staticmethod
+    def backward(ctx, g):
+        seg_ids, rel = ctx.saved_tensors
+        npad, seg, qblock, round_bf16 = ctx.meta
+        dvalues = gather_bucket_bwd(g.contiguous(), seg_ids, rel, npad,
+                                    seg=seg, qblock=qblock,
+                                    round_bf16=round_bf16)
+        return dvalues, None, None, None, None, None

@@ -1,4 +1,5 @@
-"""Load the JAX package's flax variables into a port network.
+"""Load the JAX package's flax variables into a port network, and turn a
+port state_dict back into flax variables.
 
 The port names its modules after the flax variable tree, so a flax path
 ``params/net/encoder_0/lse1/mlp/conv/kernel`` becomes the state_dict key
@@ -9,7 +10,9 @@ The port names its modules after the flax variable tree, so a flax path
 * BatchNorm ``scale`` -> ``weight``;
 * batch_stats ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
 
-BatchNorm hyper-parameters need no conversion: the port builds its layers
+``state_dict_to_jax`` is the inverse map, so weights trained on the card
+can be applied by the JAX package. BatchNorm hyper-parameters need no
+conversion: the port builds its layers
 with eps 1e-6 and torch momentum 0.01, which is flax momentum 0.99.
 """
 
@@ -69,3 +72,33 @@ def load_jax_variables(net, variables):
                              f"shape {tuple(target[key].shape)}")
     net.load_state_dict(sd, strict=False)
     return net
+
+
+def state_dict_to_jax(state_dict):
+    """A port state_dict -> ``{"params": {"net": ...}, "batch_stats":
+    {"net": ...}}`` with float32 numpy leaves, the inverse of
+    ``jax_to_state_dict``: a 2-d ``weight`` is a Dense ``kernel``
+    (transposed), a 1-d one a BatchNorm ``scale``; the running statistics
+    go to ``batch_stats``; ``num_batches_tracked`` has no flax leaf."""
+    out = {"params": {"net": {}}, "batch_stats": {"net": {}}}
+    stats = {v: k for k, v in _STAT_LEAVES.items()}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        value = value.detach().cpu().float().numpy()
+        if leaf in stats:
+            collection, name = "batch_stats", stats[leaf]
+        elif leaf == "weight":
+            collection = "params"
+            name = "kernel" if value.ndim == 2 else "scale"
+            value = value.T if value.ndim == 2 else value
+        elif leaf == "bias":
+            collection, name = "params", "bias"
+        else:
+            raise KeyError(f"no flax leaf for {key}")
+        tree = out[collection]["net"]
+        for part in path:
+            tree = tree.setdefault(part, {})
+        tree[name] = np.ascontiguousarray(value)
+    return out

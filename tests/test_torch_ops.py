@@ -2,8 +2,9 @@
 
 Both sides get the same numpy inputs. The JAX bucket kernels run as the JAX
 package's own tests run them on the CPU (``interpret=True``: their XLA
-twins); the port's kernel wrappers take their plain versions for CPU
-tensors.
+twins, or the Pallas kernels themselves in Mosaic interpret mode where a
+test sets ``_INTERPRET_KERNEL``, as ``tests/test_bucket.py`` does); the
+port's kernel wrappers take their plain versions for CPU tensors.
 
 Where indices are compared, the points lie on a 1/32 lattice in [-4, 4)^3:
 every squared distance is then exact in float32 under both the twin's
@@ -228,7 +229,13 @@ def test_wrappers_have_no_route_off_cpu_or_cuda(search):
         cb.gather_bucket(meta, search["seg_ids"].to("meta"),
                          torch.from_numpy(search["rel"]).to("meta"), seg=SEG,
                          qblock=QBLOCK, round_bf16=False)
-    assert cb.LAUNCHES == {"bucket_knn": 0, "bucket_gather": 0}
+    with pytest.raises(ValueError, match="no bucket kernel"):
+        cb.gather_bucket_bwd(torch.empty((B, N, K, 3), device="meta"),
+                             search["seg_ids"].to("meta"),
+                             torch.from_numpy(search["rel"]).to("meta"), N,
+                             seg=SEG, qblock=QBLOCK, round_bf16=False)
+    assert cb.LAUNCHES == {"bucket_knn": 0, "bucket_gather": 0,
+                           "bucket_gather_bwd": 0}
 
 
 def test_entry_points_match_the_sources():
@@ -258,3 +265,170 @@ def test_build_without_a_toolkit_raises(monkeypatch, tmp_path):
         (tmp_path / name).write_text("// empty\n")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build()
+
+
+# ------------------------------------------------------ gather backward
+
+def _bwd_case(qblock, q, s=2, seg=32, k=4, c=8, npad=256, seed=20):
+    """Tables, rel and two kinds of cotangents for one gather backward:
+    dyadic ones (integers in [-4096, 4096] over 64: exact in float32, and
+    their bf16 roundings still multiples of 1/64, so every sum is exact in
+    any order) and standard normal ones."""
+    rng = np.random.default_rng(seed)
+    nqb = -(-q // qblock)
+    seg_ids = np.stack([np.stack([rng.choice(npad // seg, s, replace=False)
+                                  for _ in range(nqb)])
+                        for _ in range(B)]).astype(np.int32)
+    rel = rng.integers(0, s * seg, (B, q, k)).astype(np.int32)
+    dyadic = (rng.integers(-4096, 4097, (B, q, k, c)) / 64).astype(np.float32)
+    normal = rng.standard_normal((B, q, k, c)).astype(np.float32)
+    return seg_ids, rel, {"dyadic": dyadic, "normal": normal}, npad, seg
+
+
+def _jax_gather_bwd(monkeypatch, g, seg_ids, rel, npad, seg, qblock, dtype,
+                    kernel):
+    """The JAX package's gradient of ``gather_pallas`` for cotangent g,
+    through its TPU kernels in Mosaic interpret mode (``kernel``) or its
+    XLA twin."""
+    # the flag is read while tracing and is not part of JAX's trace cache
+    # key, so drop the caches for each setting
+    monkeypatch.setattr(pb, "_INTERPRET_KERNEL", kernel)
+    jax.clear_caches()
+    values = jnp.zeros((B, npad, g.shape[-1]), jnp.float32)
+    _, vjp = jax.vjp(lambda v: pb.gather_pallas(
+        v, jnp.asarray(seg_ids), jnp.asarray(rel), seg, qblock,
+        getattr(jnp, dtype), True), values)
+    return np.asarray(vjp(jnp.asarray(g))[0])
+
+
+@pytest.mark.parametrize("cotangent", ["dyadic", "normal"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("path, qblock, q", [
+    ("_gather_bwd_kernel", 128, 256),
+    ("_gather_bwd_flat_kernel", 32, 128)])
+def test_gather_bwd_plain_matches_tpu_kernels(monkeypatch, path, qblock, q,
+                                              dtype, cotangent):
+    """TPU kernel 4 (qblock >= 128: K one-hot products per block) and
+    kernel 5 (qblock 32 < 128: one flat product over group = 4 blocks)
+    in Mosaic interpret mode against the plain backward, rounding the
+    cotangents to bf16 exactly where the kernel's bf16 product does.
+    Dyadic cotangents: equal bits. Normal ones: the sums run in other
+    orders, each within the float32 summation bound n * 2^-24 * sum |g|
+    of the exact sum over a value row's n readers, so the two are within
+    twice that of each other."""
+    seg_ids, rel, gs, npad, seg = _bwd_case(qblock, q)
+    g = gs[cotangent]
+    round_bf16 = dtype == "bfloat16"
+    called = []
+    kern = getattr(pb, path)
+    monkeypatch.setattr(pb, path, lambda *a, **kw: called.append(1) or
+                        kern(*a, **kw))
+    want = _jax_gather_bwd(monkeypatch, g, seg_ids, rel, npad, seg, qblock,
+                           dtype, True)
+    assert called, f"{path} did not run"
+    got = cb.gather_bucket_bwd(torch.from_numpy(g),
+                               torch.from_numpy(seg_ids),
+                               torch.from_numpy(rel), npad, seg=seg,
+                               qblock=qblock, round_bf16=round_bf16).numpy()
+    if cotangent == "dyadic":
+        np.testing.assert_array_equal(got, want)
+        return
+    gr = torch.from_numpy(g)
+    if round_bf16:
+        gr = gr.bfloat16().float()
+    kw = dict(seg=seg, qblock=qblock, round_bf16=False)
+    ids, rels = torch.from_numpy(seg_ids), torch.from_numpy(rel)
+    readers = cb.gather_bucket_bwd_plain(torch.ones_like(gr).double(), ids,
+                                         rels, npad, **kw).numpy()
+    abs_sum = cb.gather_bucket_bwd_plain(gr.double().abs(), ids, rels, npad,
+                                         **kw).numpy()
+    bound = readers * 2.0 ** -24 * abs_sum
+    assert (np.abs(got - want) <= 2 * bound).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_bwd_plain_matches_xla_twin(monkeypatch, dtype):
+    """The JAX CPU twin is an exact float32 scatter-add whatever the
+    compute dtype: the plain backward without rounding gives its bits on
+    dyadic cotangents."""
+    seg_ids, rel, gs, npad, seg = _bwd_case(64, 200, seed=21)
+    want = _jax_gather_bwd(monkeypatch, gs["dyadic"], seg_ids, rel, npad,
+                           seg, 64, dtype, False)
+    got = cb.gather_bucket_bwd_plain(
+        torch.from_numpy(gs["dyadic"]), torch.from_numpy(seg_ids),
+        torch.from_numpy(rel), npad, seg=seg, qblock=64, round_bf16=False)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("round_bf16", [False, True])
+def test_bucket_gather_grad_matches_torch_gather(search, round_bf16):
+    """``BucketGather``'s gradient is torch.gather's autograd gradient of
+    the same reads, with the cotangents rounded to bf16 first when
+    ``round_bf16`` is set: stated by the Function, not left to the
+    backward of a cast."""
+    rng = np.random.default_rng(22)
+    seg_ids, rel = search["seg_ids"], torch.from_numpy(search["rel"])
+    values = torch.from_numpy(rng.standard_normal((B, N, 5)).astype(
+        np.float32)).requires_grad_()
+    out = cb.BucketGather.apply(values, seg_ids, rel, SEG, QBLOCK,
+                                round_bf16)
+    g = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
+        np.float32))
+    (got,) = torch.autograd.grad(out, values, g)
+
+    ref_values = values.detach().clone().requires_grad_()
+    glob = cb._bucket_rows(seg_ids, rel, seg=SEG, qblock=QBLOCK)
+    ref = torch.gather(ref_values, 1,
+                       glob.reshape(B, -1, 1).expand(-1, -1, 5))
+    g_ref = g.reshape(B, -1, 5)
+    if round_bf16:
+        g_ref = g_ref.bfloat16().float()
+    (want,) = torch.autograd.grad(ref, ref_values, g_ref)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+    if round_bf16:
+        ref = ref.bfloat16().float()
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  ref.detach().reshape(out.shape).numpy())
+
+
+def test_gather_bucket_carries_a_gradient(search):
+    """Called directly on values that need a gradient, ``gather_bucket``
+    goes through ``BucketGather`` rather than drop it."""
+    values = torch.ones((B, N, 3), requires_grad=True)
+    kw = dict(seg=SEG, qblock=QBLOCK, round_bf16=False)
+    rel = torch.from_numpy(search["rel"])
+    out = cb.gather_bucket(values, search["seg_ids"], rel, **kw)
+    assert out.grad_fn is not None
+    (grad,) = torch.autograd.grad(out.sum(), values)
+    want = cb.gather_bucket_bwd_plain(torch.ones(tuple(out.shape)),
+                                      search["seg_ids"], rel, N, **kw)
+    assert torch.equal(grad, want)
+    with torch.no_grad():
+        assert cb.gather_bucket(values, search["seg_ids"], rel,
+                                **kw).grad_fn is None
+
+
+def test_gather_bwd_checks_its_shapes(search):
+    seg_ids, rel = search["seg_ids"], torch.from_numpy(search["rel"])
+    with pytest.raises(ValueError, match="does not match rel"):
+        cb.gather_bucket_bwd(torch.zeros((B, N, K + 1, 3)), seg_ids, rel, N,
+                             seg=SEG, qblock=QBLOCK, round_bf16=False)
+    with pytest.raises(ValueError, match="bad bucket shapes"):
+        cb.gather_bucket_bwd(torch.zeros((B, N, K, 3)), seg_ids, rel, N + 1,
+                             seg=SEG, qblock=QBLOCK, round_bf16=False)
+
+
+def test_knn_refuses_a_table_past_shared_memory():
+    """The kernel stages S * seg points (12 bytes each) in the 48 KB a
+    block gets without opting in: S 48 x seg 64 (the training budget, 36
+    KB) and S 64 x seg 64 (48 KB) pass, S 65 x seg 64 is refused on either
+    route."""
+    pts = torch.zeros((1, 65 * 64, 3))
+    for s, ok in ((48, True), (64, True), (65, False)):
+        sids = torch.zeros((1, 1, s), dtype=torch.int32)
+        queries = pts[:, :8]
+        if ok:
+            cb.knn_bucket(pts, queries, sids, 1, seg=64, qblock=8)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                cb.knn_bucket(pts, queries, sids, 1, seg=64, qblock=8)

@@ -173,6 +173,18 @@ def test_defaults_equal_shipped_yaml():
         assert defaults[key] == value, key
 
 
+def test_chip_smoke_training_config_equals_shipped_yaml():
+    """``chip_smoke.py`` trains with the shipped config's class weights
+    and pipeline settings without reading the YAML."""
+    import chip_smoke
+    cfg = Config.load_from_file(
+        REPO / "open3d_ml_tpu/configs/randlanet_semantickitti.yml")
+    assert chip_smoke.SEMANTICKITTI_CLASS_WEIGHTS == list(
+        cfg.dataset.class_weights)
+    for key, value in chip_smoke.TRAIN_PIPELINE.items():
+        assert cfg.pipeline[key] == value, key
+
+
 def test_registry_is_the_ports_own():
     import open3d_ml_tpu.utils as jax_utils
     assert MODEL.get("RandLANet") is RandLANet
@@ -197,6 +209,12 @@ def test_port_imports_no_jax():
             "import open3d_ml_tpu_torch.ops.bucket\n"
             "import open3d_ml_tpu_torch.ops.neighbors\n"
             "import open3d_ml_tpu_torch.pipelines\n"
+            "import open3d_ml_tpu_torch.modules\n"
+            "import open3d_ml_tpu_torch.modules.losses\n"
+            "import open3d_ml_tpu_torch.modules.metrics\n"
+            "import open3d_ml_tpu_torch.modules.schedulers\n"
+            "import open3d_ml_tpu_torch.datasets.synthetic\n"
+            "import open3d_ml_tpu_torch.dataloaders.batch_loader\n"
             "import open3d_ml_tpu_torch.ops.cuda._build\n"
             "import open3d_ml_tpu_torch.utils.convert_jax\n"
             "import chip_smoke\n"
