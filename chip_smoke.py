@@ -1,7 +1,8 @@
 """Drive the PyTorch port's paths once on one CUDA card and check them.
 
-Four paths of RandLA-Net at the shipped SemanticKITTI config, with random
-weights drawn from a seeded generator:
+Four paths of RandLA-Net at the shipped SemanticKITTI config and one of
+SparseConvUnet at the shipped ScanNet config, with random weights drawn
+from a seeded generator:
 
 * the fused path: a batch of 4 patches of 45,056 points through the fused
   bucket pyramid and the network (``get_net``);
@@ -13,15 +14,25 @@ weights drawn from a seeded generator:
   pyramid and the network in float32 (``get_eval_net``);
 * ``SemanticSegmentation.run_inference`` on a synthetic lidar scan of
   120,000 points, patch by patch through the eval net until every point
-  is labelled.
+  is labelled;
+* SparseConvUnet serving: two requests of 65,536 points (a synthetic room
+  of 6 m, and the same scene at the bench's 20 m) through ``preprocess``
+  -> ``transform`` -> ``DefaultBatcher`` -> the stencil forward
+  (``get_net``, bf16, 39 ``stencil_conv`` launches) -> ``update_probs``.
 
-The model is the port's ``RandLANet()`` at its defaults, which equal the
-model section of ``open3d_ml_tpu/configs/randlanet_semantickitti.yml`` (a
-CPU test pins that); nothing of the JAX package is imported.
+The models are the port's ``RandLANet()`` and ``SparseConvUnet()`` at their
+defaults, which equal the model sections of
+``open3d_ml_tpu/configs/randlanet_semantickitti.yml`` and
+``sparseconvunet_scannet.yml`` (CPU tests pin that); nothing of the JAX
+package is imported.
 
 Run from the root of the repository, with one card:
 
     python3 chip_smoke.py
+
+``python3 chip_smoke.py --step-branches`` runs only that float32 training
+step against the CPU, on the patches of model seeds 0-3, with the CPU on
+its own branches and on the card's.
 
 Phases, one line each (or more), in this order:
 
@@ -41,16 +52,33 @@ Phases, one line each (or more), in this order:
    finite losses; a checkpoint, and a second ``run_train`` in a fresh
    pipeline that resumes from it with equal weights and Adam state; 10
    steps on one batch, whose loss must fall; one float32 step of 1 x
-   11,264 points against the same step on the CPU; the median step time,
-   points trained per second, the host's share and the peak memory.
+   11,264 points on a seeded patch against the same step on the CPU, the
+   CPU taking the card's max-pool and LeakyReLU branches (relative L2
+   <= 1e-4 for the gradient); the median step time, points trained per
+   second, the host's share and the peak memory.
 6. eval: the same as slice for the eval net at B = 1.
 7. inference: ``run_inference`` on the scan; its launch counts, patches,
    wall time and where it went, and points labelled per second.
+8. kernels (stencil_conv): the stencil kernel against its plain version at
+   five convolutions of the room request's forward (its keys and tables,
+   new values and weights): bit-equal on dyadic inputs at float32 and
+   bf16, within the float32 summation bound of a float64 reference on
+   normal ones; its time, the plain version's and its bound.
+9. scu: the two requests served, with 39 ``stencil_conv`` launches each
+   and no other kernel; their overflow counters; finite logits and
+   probabilities; the card against the CPU (float32: relative L2 <= 1e-4;
+   bf16 reported); on the room request the stencil path against the hash
+   path on the card (gated at 1e-4 only when every counter is 0); the
+   median forward, points/s, peak memory and the stencil calls' share of
+   one forward.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is not 0. The
-second-last line is a JSON record of the kernels, the last one ``{"ok":
-true, "device": ...}``. There is no CPU fallback: without CUDA the script
+second-last line is a JSON record of the kernels (each with its bound: the
+larger of its bytes over 3.35 TB/s and its operations over the peak for
+their type, and the time of one PyTorch call that computes the same
+function where there is one), the last one ``{"ok": true, "device":
+...}``. There is no CPU fallback: without CUDA the script
 fails first.
 """
 
@@ -70,12 +98,17 @@ from open3d_ml_tpu_torch import MODEL
 from open3d_ml_tpu_torch.dataloaders import (BatchLoader, DefaultBatcher,
                                              PointCloudDataloader)
 from open3d_ml_tpu_torch.datasets import SyntheticShapes
+from open3d_ml_tpu_torch.datasets.synthetic import make_semseg_scene
+from open3d_ml_tpu_torch.models import randlanet as trl
+from open3d_ml_tpu_torch.models import sparseconvunet as tscu
 from open3d_ml_tpu_torch.modules.losses import SemSegLoss
 from open3d_ml_tpu_torch.ops import bucket as tb
 from open3d_ml_tpu_torch.ops.cuda import _build
 from open3d_ml_tpu_torch.ops.cuda import bucket as cb
 from open3d_ml_tpu_torch.ops.cuda import knn as ck
+from open3d_ml_tpu_torch.ops.cuda import stencil as cs
 from open3d_ml_tpu_torch.ops.morton import hilbert_sort
+from open3d_ml_tpu_torch.ops.voxelize import voxelize
 from open3d_ml_tpu_torch.pipelines import SemanticSegmentation
 
 REPO = Path(__file__).resolve().parent
@@ -96,7 +129,24 @@ SEMANTICKITTI_CLASS_WEIGHTS = [
 TRAIN_PIPELINE = {"batch_size": 4, "val_batch_size": 2,
                   "optimizer": {"lr": 0.001}, "scheduler_gamma": 0.9886,
                   "save_ckpt_freq": 5, "num_workers": 2}
-COUNTERS = (cb.LAUNCHES, ck.LAUNCHES)
+COUNTERS = (cb.LAUNCHES, ck.LAUNCHES, cs.LAUNCHES)
+# the H100 SXM's device memory rate and its dense peaks (NVIDIA's
+# datasheet): a kernel's bound is the larger of its bytes over the rate
+# and its operations over the peak for their type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+# SparseConvUnet: the room scene's extent, and the bench's scene (1,000
+# voxels of 0.02 m, as bench.py sizes child_sparseconvunet's scene)
+SCU_ROOM_EXTENT_M = 6.0
+SCU_BENCH_EXTENT_M = 1000 * 0.02
+SCU_FORWARD_LAUNCHES = 39  # stencil convolutions per 7-level forward
+# the stencil kernel's checks: (label, K, Cin, Cout, qblock) of five
+# convolutions of the room scene's forward
+STENCIL_SHAPES = (("level-0 block", 27, 32, 32, 32),
+                  ("level-0 post conv1", 27, 64, 32, 32),
+                  ("level-0 down", 8, 32, 64, 32),
+                  ("level-0 up", 8, 64, 32, 128),
+                  ("deepest block", 27, 224, 224, 32))
 
 
 def say(phase, msg):
@@ -113,7 +163,13 @@ def read_counts():
     return {key: n for counts in COUNTERS for key, n in counts.items()}
 
 
+def every_count(expected):
+    """``expected`` with 0 for every counted kernel it does not name."""
+    return dict(dict.fromkeys(read_counts(), 0), **expected)
+
+
 def check_counts(phase, launches, expected):
+    expected = every_count(expected)
     say(phase, f"launched {launches}; expected {expected}")
     if launches != expected:
         raise AssertionError(f"{phase}: launch counts {launches}, expected "
@@ -169,6 +225,51 @@ def timings(fn, plain):
     return device_ms(fn), device_ms(plain), span_ms(fn), span_ms(plain)
 
 
+def bound(size, ops, dtype="float32"):
+    """(ms of ``size`` bytes at the memory rate, ms of ``ops`` at the peak
+    for ``dtype``): the least time the card could take is the larger."""
+    return (size / HBM_BYTES_PER_S * 1e3,
+            ops / PEAK_OPS_PER_S[dtype] * 1e3)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_record(err, ms, plain_ms, bounds, library_ms=None):
+    """A kernel's entry of the closing JSON line at one shape, but for its
+    name and launches; ``bounds`` as ``bound`` gives them."""
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bounds": bounds, "bound_ms": max(bounds),
+            "library_ms": library_ms}
+
+
+def combine(records):
+    """Several shapes of one kernel as one entry: the largest error, the
+    sums of the times and of the shapes' bounds, bound by whichever of
+    bytes and operations takes the larger share of it (the library time
+    only where every shape has one)."""
+    lib = [r["library_ms"] for r in records]
+    by_bytes = sum(r["bounds"][0] for r in records)
+    by_ops = sum(r["bounds"][1] for r in records)
+    return {"max_abs_err": max(r["max_abs_err"] for r in records),
+            "ms": sum(r["ms"] for r in records),
+            "plain_ms": sum(r["plain_ms"] for r in records),
+            "bounds": (by_bytes, by_ops),
+            "bound_ms": sum(r["bound_ms"] for r in records),
+            "library_ms": None if None in lib else sum(lib)}
+
+
+def json_entry(name, source, replaces, launches, rec):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": ("bytes" if rec["bounds"][0] >= rec["bounds"][1]
+                         else "operations"),
+            "library_ms": rec["library_ms"]}
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this check runs only on a card")
@@ -207,8 +308,10 @@ def _differ_only_at_ties(name, got, want, d2):
 
 
 def _knn_check(sp, sids, seg, qblock):
-    """bucket_knn against its plain version on one level; returns
-    (max |d2 difference|, kernel ms, plain ms)."""
+    """bucket_knn against its plain version on one level; returns its
+    record (error: max |d2 difference|). Bound: the points, queries and
+    tables read and the [B, Q, k] outputs written; 8 float32 operations
+    for each candidate distance."""
     pcp = tb.pad_seg(sp, seg, fill=1e9)
     k = 16
     rel_k, d2_k = cb.knn_bucket(pcp, sp, sids, k, seg=seg, qblock=qblock)
@@ -229,12 +332,22 @@ def _knn_check(sp, sids, seg, qblock):
         f"differ at d2 ties), d2 equal; device ms: kernel {ms:.4f}, plain "
         f"{plain_ms:.4f}; call span ms: kernel {span:.4f}, plain "
         f"{plain_span:.4f}")
-    return err, ms, plain_ms
+    b, q, _ = sp.shape
+    return kernel_record(err, ms, plain_ms, bound(
+        nbytes(pcp, sp, sids) + b * q * k * 8,
+        b * q * sids.shape[-1] * seg * 8))
 
 
 def _gather_check(label, values, seg_ids, rel, seg, qblock):
     """bucket_gather against its plain version, rounding off and on;
-    returns (max |difference|, kernel ms, plain ms) with rounding on."""
+    returns its record with rounding on. Bound: the values and tables
+    read once, the [B, Q, K, C] output written. Library call:
+    ``torch.gather`` of the same rows, their indices computed ahead."""
+    b, q, k = rel.shape
+    c = values.shape[2]
+    rows = cb._bucket_rows(seg_ids, rel, seg=seg, qblock=qblock)
+    idx = rows.reshape(b, -1, 1).expand(-1, -1, c)
+    library_ms = device_ms(lambda: torch.gather(values, 1, idx))
     out = {}
     for round_bf16 in (False, True):
         kw = dict(seg=seg, qblock=qblock, round_bf16=round_bf16)
@@ -252,8 +365,11 @@ def _gather_check(label, values, seg_ids, rel, seg, qblock):
             f"Q={rel.shape[1]} K={rel.shape[2]} C={values.shape[2]} "
             f"S={seg_ids.shape[-1]} qblock={qblock} round_bf16={round_bf16}:"
             f" equal; device ms: kernel {ms:.4f}, plain {plain_ms:.4f}; call "
-            f"span ms: kernel {span:.4f}, plain {plain_span:.4f}")
-        out[round_bf16] = ((got - ref).abs().max().item(), ms, plain_ms)
+            f"span ms: kernel {span:.4f}, plain {plain_span:.4f}; "
+            f"torch.gather {library_ms:.4f}")
+        out[round_bf16] = kernel_record(
+            (got - ref).abs().max().item(), ms, plain_ms,
+            bound(nbytes(values, seg_ids, rel, got), 0), library_ms)
     return out[True]
 
 
@@ -263,10 +379,14 @@ def _gather_bwd_check(label, seg_ids, rel, npad, c, seg, qblock, gen):
     over 64, whose sums are exact in float32 in any order), and on random
     normal ones within the bound of float32 summation in any order,
     |err| <= n * 2^-24 * sum |g| over a row's n readers, of a float64
-    reference. Returns (max |difference| on normal cotangents, kernel ms,
-    plain ms) with rounding on."""
+    reference. Returns its record with rounding on (error on normal
+    cotangents). Bound: the cotangents and tables read, the [B, npad, C]
+    gradient written, one float32 add per cotangent value. Library call:
+    ``scatter_add_`` of the same rows, their indices computed ahead."""
     dev = rel.device
     shape = (*rel.shape, c)
+    rows = cb._bucket_rows(seg_ids, rel, seg=seg, qblock=qblock)
+    idx = rows.reshape(rel.shape[0], -1, 1).expand(-1, -1, c)
     dyadic = torch.randint(-4096, 4097, shape, generator=gen,
                            device=dev).float() / 64
     normal = torch.randn(shape, generator=gen, device=dev)
@@ -292,8 +412,8 @@ def _gather_bwd_check(label, seg_ids, rel, npad, c, seg, qblock, gen):
                                              npad, seg=seg, qblock=qblock,
                                              round_bf16=False)
         err = (got.double() - ref64).abs()
-        bound = readers * 2.0 ** -24 * abs_sum
-        if (err > bound).any():
+        limit = readers * 2.0 ** -24 * abs_sum
+        if (err > limit).any():
             raise AssertionError(f"bucket_gather_bwd {label} round_bf16="
                                  f"{round_bf16}: error past the float32 "
                                  "summation bound on normal cotangents")
@@ -309,7 +429,16 @@ def _gather_bwd_check(label, seg_ids, rel, npad, c, seg, qblock, gen):
             f"(max readers per row {int(readers.max().item())}); device ms: "
             f"kernel {ms:.4f}, plain {plain_ms:.4f}; call span ms: kernel "
             f"{span:.4f}, plain {plain_span:.4f}")
-        out[round_bf16] = (err.max().item(), ms, plain_ms)
+        out[round_bf16] = kernel_record(
+            err.max().item(), ms, plain_ms,
+            bound(nbytes(normal, seg_ids, rel) +
+                  rel.shape[0] * npad * c * 4, normal.numel()))
+    dv = torch.zeros((rel.shape[0], npad, c), device=dev)
+    rows_g = normal.reshape(rel.shape[0], -1, c)
+    out[True]["library_ms"] = device_ms(lambda: dv.scatter_add_(1, idx,
+                                                                rows_g))
+    say("kernels", f"bucket_gather_bwd {label}: scatter_add_ device ms "
+        f"{out[True]['library_ms']:.4f}")
     return out[True]
 
 
@@ -329,6 +458,8 @@ def phase_kernels(model_cfg):
                                               num_segs=num_segs), seg, qblock)
             for num_segs in (model_cfg.infer_num_segs, model_cfg.num_segs)]
     knn = knns[0]
+    say("kernels", f"bucket_knn bound at S{model_cfg.infer_num_segs}: "
+        f"{knn['bound_ms']:.4f} ms")
 
     pyr = tb.build_bucket_pyramid(
         pts, model_cfg.num_neighbors, model_cfg.sub_sampling_ratio, seg=seg,
@@ -356,10 +487,11 @@ def phase_kernels(model_cfg):
         for label, level, name, rows, c in (
             ("neighbour", 1, "nbr", n1, 35), ("pool", 1, "pool", n1, 128),
             ("upsample", 3, "up", n3 // 4, 512))]
-    gather = (max(g[0] for g in gathers), sum(g[1] for g in gathers),
-              sum(g[2] for g in gathers))
+    gather = combine(gathers)
     say("kernels", f"bucket_gather, three shapes at round_bf16=True: device "
-        f"ms: kernel {gather[1]:.4f}, plain {gather[2]:.4f} in all")
+        f"ms: kernel {gather['ms']:.4f}, plain {gather['plain_ms']:.4f}, "
+        f"torch.gather {gather['library_ms']:.4f}, bound "
+        f"{gather['bound_ms']:.4f} in all")
     _gather_check("training level-0 neighbour", values(n, 11),
                   *tables(train_pyr, "nbr", 0))
 
@@ -374,21 +506,24 @@ def phase_kernels(model_cfg):
         sids, rel, _, qb = tables(train_pyr, name, level)
         bwds.append(_gather_bwd_check(label, sids, rel, -(-rows // seg) * seg,
                                       c, seg, qb, gen))
-    bwd = (max(g[0] for g in bwds), sum(g[1] for g in bwds),
-           sum(g[2] for g in bwds))
+    bwd = combine(bwds)
     say("kernels", f"bucket_gather_bwd, four shapes at round_bf16=True: "
-        f"device ms: kernel {bwd[1]:.4f}, plain {bwd[2]:.4f} in all")
+        f"device ms: kernel {bwd['ms']:.4f}, plain {bwd['plain_ms']:.4f}, "
+        f"scatter_add_ {bwd['library_ms']:.4f}, bound "
+        f"{bwd['bound_ms']:.4f} in all")
     return {"bucket_knn": knn, "bucket_gather": gather,
             "bucket_gather_bwd": bwd}
 
 
 def phase_knn_exact(model_cfg):
     """knn_exact against its plain version at the eval pyramid's two
-    largest levels, one sample of seeded uniform points; returns (max |d2
-    difference|, kernel ms, plain ms) at level 0. The plain version's time
-    is its call span: it launches about 18 kernels per block of queries,
-    more than the host can queue ahead while the card sleeps, and each
-    block's device work outlasts its launches."""
+    largest levels, one sample of seeded uniform points; returns its
+    record at level 0 (error: max |d2 difference| over both levels). The
+    plain version's time is its call span: it launches about 18 kernels
+    per block of queries, more than the host can queue ahead while the
+    card sleeps, and each block's device work outlasts its launches.
+    Bound: points and queries read, [1, N, k] outputs written, 8 float32
+    operations per candidate distance."""
     dev = torch.device(DEVICE)
     k = model_cfg.num_neighbors
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -425,18 +560,24 @@ def phase_knn_exact(model_cfg):
             f"({int(rows.sum())} differ at d2 ties){note}; kernel device ms "
             f"{ms:.4f}, call span ms: kernel {span:.4f}, plain "
             f"{plain_span:.4f}")
-        out.append(((d2_k - d2_p).abs().max().item(), ms, plain_span))
-    return max(e for e, _, _ in out), out[0][1], out[0][2]
+        out.append(kernel_record(
+            (d2_k - d2_p).abs().max().item(), ms, plain_span,
+            bound(2 * nbytes(sub) + n * k * 8, n * n * 8)))
+    return dict(out[0], max_abs_err=max(r["max_abs_err"] for r in out))
 
 
 def random_weights(net, seed):
     """Seeded random weights, with BN statistics that are not the
-    identity."""
+    identity: a Linear weight [out, in] scaled by 1 / sqrt(in), a stencil
+    weight [K, Cin, Cout] by 1 / sqrt(K * Cin)."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in net.named_parameters():
             if p.dim() == 2:
                 p.copy_(torch.randn(p.shape, generator=gen) / p.shape[1] ** .5)
+            elif p.dim() == 3:
+                p.copy_(torch.randn(p.shape, generator=gen) /
+                        (p.shape[0] * p.shape[1]) ** .5)
             elif name.endswith("weight"):  # BatchNorm scales
                 p.copy_(torch.rand(p.shape, generator=gen) + 0.5)
             else:
@@ -589,8 +730,8 @@ def _check_steps(record, first, last):
     returns the train steps' times (s)."""
     train_s = []
     for kind, t0, t1, launches, loss in record[first:last]:
-        expected = (TRAIN_STEP_LAUNCHES if kind == "train" else
-                    EXPECTED_LAUNCHES)
+        expected = every_count(TRAIN_STEP_LAUNCHES if kind == "train" else
+                               EXPECTED_LAUNCHES)
         if launches != expected:
             raise AssertionError(f"train: a {kind} step launched {launches}, "
                                  f"expected {expected}")
@@ -651,55 +792,141 @@ def _rel_l2(a, b):
     return ((a - b).norm() / b.norm()).item()
 
 
-def _step_vs_cpu(dataset, root):
-    """One float32 training step, 1 x 11,264 points, full widths, the
-    training budget, on the card and on the CPU from the same weights,
-    batch and dropout mask. Returns (loss relative difference, gradient
-    relative L2, running statistics relative L2, parameter relative L2
-    after the Adam step, CPU step seconds)."""
-    n = 11_264
-    out = {}
-    model = MODEL.get("RandLANet")(compute_dtype="float32", num_points=n)
+class _SameBranches:
+    """Make two runs of the fused net take the same branches.
+
+    The training step's gradient is not continuous in its inputs: each max
+    pool hands its gradient to its largest neighbour, and each LeakyReLU
+    passes it whole or times its slope. Where two neighbours nearly tie,
+    or a LeakyReLU's input is nearly 0, float32 rounding alone picks the
+    branch, and a branch taken otherwise moves the gradient of every layer
+    before it: on some patches far more than the card's and the CPU's
+    float32 sums differ (``--step-branches`` measures it).
+
+    While it is entered, the fused net's pools gather the neighbour that
+    ``argmax`` picks and its LeakyReLUs apply a sign mask: the first run
+    records its choices, the run after ``replay()`` takes them and counts
+    in ``differ`` the choices its own values would have made otherwise.
+    Like the fixed dropout mask, this gives both runs one function. With
+    ``active`` false it changes nothing."""
+
+    def __init__(self, active=True):
+        self.active = active
+        self.recorded, self.replaying, self.differ = [], False, 0
+        self.total = 0  # choices recorded
+
+    def replay(self):
+        self.total = sum(c.numel() for c in self.recorded)
+        if self.active and not self.total:
+            raise AssertionError("train: the step took no branch through "
+                                 "_SameBranches")
+        self.replaying = True
+
+    def _choose(self, own):
+        if not self.replaying:
+            self.recorded.append(own)
+            return own
+        want = self.recorded.pop(0).to(own.device)
+        self.differ += int((want != own).sum())
+        return want
+
+    def __enter__(self):
+        if not self.active:
+            return self
+        choose = self._choose
+
+        def pool_max(level, v):
+            rows = level._gather(v, "pool")
+            pick = choose(rows.argmax(dim=-2, keepdim=True))
+            return torch.gather(rows, -2, pick).squeeze(-2)
+
+        class Functional:
+            """``torch.nn.functional`` with a LeakyReLU of chosen signs."""
+
+            def __getattr__(self, name):
+                return getattr(torch.nn.functional, name)
+
+            @staticmethod
+            def leaky_relu(x, slope=0.01):
+                return torch.where(choose(x > 0), x, x * slope)
+
+        self._saved = trl._BucketLevel.pool_max, trl.F
+        trl._BucketLevel.pool_max, trl.F = pool_max, Functional()
+        return self
+
+    def __exit__(self, *exc):
+        if self.active:
+            trl._BucketLevel.pool_max, trl.F = self._saved
+
+
+def _step_model_and_batch(dataset, n=11_264, seed=SEED):
+    """The float32 model of the card-vs-CPU step and its one patch of ``n``
+    points from the first training cloud. The model is seeded, so the
+    patch (its crop and augmentation) is the same in every run."""
+    model = MODEL.get("RandLANet")(compute_dtype="float32", num_points=n,
+                                   seed=seed)
     split = dataset.get_split("train")
     loader = PointCloudDataloader(split, preprocess=model.preprocess,
                                   transform=model.transform,
                                   sampler=split.sampler, use_cache=True)
     model.trans_point_sampler = split.sampler.get_point_sampler()
-    batch = DefaultBatcher().collate_fn([loader[0]])
+    return model, DefaultBatcher().collate_fn([loader[0]])
+
+
+def _step_vs_cpu(dataset, root, seed=SEED, same_branches=True):
+    """One float32 training step, 1 x 11,264 points, full widths, the
+    training budget, on the card and on the CPU from the same weights,
+    batch (that of model seed ``seed``), dropout mask and, with
+    ``same_branches``, branches (``_SameBranches``: the CPU takes the
+    card's). Returns (loss relative difference, gradient relative L2,
+    running statistics relative L2, parameter relative L2 after the Adam
+    step, CPU step seconds, the ``_SameBranches`` used)."""
+    n = 11_264
+    out = {}
+    model, batch = _step_model_and_batch(dataset, n, seed)
     keep = torch.rand((1, n, 32),
                       generator=torch.Generator().manual_seed(SEED)) >= 0.5
     state = None
-    for device in (DEVICE, "cpu"):
-        pipeline = SemanticSegmentation(model, dataset=dataset, device=device,
-                                        seed=SEED, main_log_dir=str(root),
-                                        **TRAIN_PIPELINE)
-        if state is None:
-            state = {k: v.cpu() for k, v in pipeline.net.state_dict().items()}
-        pipeline.net.load_state_dict(state)
-        pipeline.net.dropout = _FixedDropout(keep)
-        pipeline.optimizer, pipeline.scheduler = model.get_optimizer(
-            pipeline.cfg, pipeline.net)
-        t0 = time.perf_counter()
-        loss, _ = pipeline._train_step(pipeline._device_batch(batch),
-                                       SemSegLoss(pipeline, model, dataset))
-        seconds = time.perf_counter() - t0
-        net = pipeline.net
-        out[device] = {
-            "loss": loss.double().cpu(),
-            "grad": torch.cat([p.grad.reshape(-1).cpu()
-                               for p in net.parameters()]),
-            "stats": torch.cat([b.reshape(-1).cpu()
-                                for k, b in net.state_dict().items()
-                                if k.endswith(("running_mean",
-                                               "running_var"))]),
-            "params": torch.cat([p.detach().reshape(-1).cpu()
-                                 for p in net.parameters()]),
-            "seconds": seconds}
+    with _SameBranches(same_branches) as branches:
+        for device in (DEVICE, "cpu"):
+            pipeline = SemanticSegmentation(model, dataset=dataset,
+                                            device=device, seed=SEED,
+                                            main_log_dir=str(root),
+                                            **TRAIN_PIPELINE)
+            if state is None:
+                state = {k: v.cpu().clone()
+                         for k, v in pipeline.net.state_dict().items()}
+            pipeline.net.load_state_dict(state)
+            pipeline.net.dropout = _FixedDropout(keep)
+            pipeline.optimizer, pipeline.scheduler = model.get_optimizer(
+                pipeline.cfg, pipeline.net)
+            t0 = time.perf_counter()
+            loss, _ = pipeline._train_step(
+                pipeline._device_batch(batch),
+                SemSegLoss(pipeline, model, dataset))
+            seconds = time.perf_counter() - t0
+            net = pipeline.net
+            out[device] = {
+                "loss": loss.double().cpu(),
+                "grad": torch.cat([p.grad.reshape(-1).cpu()
+                                   for p in net.parameters()]),
+                "stats": torch.cat([b.reshape(-1).cpu()
+                                    for k, b in net.state_dict().items()
+                                    if k.endswith(("running_mean",
+                                                   "running_var"))]),
+                "params": torch.cat([p.detach().reshape(-1).cpu()
+                                     for p in net.parameters()]),
+                "seconds": seconds}
+            if device == DEVICE:
+                branches.replay()
+        if branches.recorded:
+            raise AssertionError("train: the CPU step took fewer branches "
+                                 "than the card's")
     gpu, cpu = out[DEVICE], out["cpu"]
     return ((abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])).item(),
             _rel_l2(gpu["grad"], cpu["grad"]),
             _rel_l2(gpu["stats"], cpu["stats"]),
-            _rel_l2(gpu["params"], cpu["params"]), cpu["seconds"])
+            _rel_l2(gpu["params"], cpu["params"]), cpu["seconds"], branches)
 
 
 def phase_train(card):
@@ -781,9 +1008,12 @@ def phase_train(card):
         say("train", f"10 steps on one batch: loss {losses[0]:.4f} -> "
             f"{losses[-1]:.4f} ({[round(x, 4) for x in losses]})")
 
-        loss_rel, grad_rel, stats_rel, param_rel, cpu_s = _step_vs_cpu(
-            dataset, root / "cpu")
-        say("train", f"one float32 step B=1 N=11264, card vs CPU: loss "
+        (loss_rel, grad_rel, stats_rel, param_rel, cpu_s,
+         branches) = _step_vs_cpu(dataset, root / "cpu")
+        say("train", f"one float32 step B=1 N=11264, card vs CPU on the "
+            f"card's branches ({branches.differ} of {branches.total} "
+            f"max-pool and LeakyReLU choices the CPU would have made "
+            f"otherwise): loss "
             f"relative difference {loss_rel:.3e} (bound 1e-5), gradient "
             f"relative L2 {grad_rel:.3e} (bound 1e-4), running statistics "
             f"relative L2 {stats_rel:.3e} (bound 1e-4); parameters after "
@@ -922,7 +1152,353 @@ def phase_inference(model, state, card):
     return launches
 
 
+def scu_scene(extent_m, n):
+    """A request for SparseConvUnet: ``make_semseg_scene(n, seed)`` rebased
+    to 0 and scaled to ``extent_m`` metres along its longest axis, RGB
+    uniform in 0-255."""
+    pts = make_semseg_scene(n, seed=SEED)[0].astype(np.float64)
+    pts -= pts.min(0)
+    pts *= extent_m / pts.max()
+    rgb = np.random.default_rng(SEED).uniform(0, 255, (n, 3))
+    return {"point": pts.astype(np.float32), "feat": rgb.astype(np.float32),
+            "label": None}
+
+
+def _scu_inputs(model, data):
+    """preprocess (test split) -> transform -> DefaultBatcher: (the numpy
+    batch, its network inputs on the card)."""
+    attr = {"split": "test"}
+    sample = model.transform(model.preprocess(data, attr), attr)
+    batch = DefaultBatcher().collate_fn([sample])
+    return batch, {key: torch.from_numpy(batch[key]).to(DEVICE)
+                   for key in ("point", "feat", "point_mask")}
+
+
+def _capture_stencil_calls(net, inputs):
+    """The arguments of every stencil_conv call of one forward."""
+    calls = []
+    real = tscu.stencil_conv
+
+    def capture(values, keys, qkeys, seg_ids, w, **kw):
+        calls.append({"values": values, "keys": keys, "qkeys": qkeys,
+                      "seg_ids": seg_ids, "w": w, **kw})
+        return real(values, keys, qkeys, seg_ids, w, **kw)
+
+    tscu.stencil_conv = capture
+    with torch.no_grad():
+        net(inputs)
+    tscu.stencil_conv = real
+    return calls
+
+
+def _stencil_check(label, call, gen):
+    """stencil_conv against its plain version on one convolution of the
+    path: the path's keys, tap keys and tables, new values and weights;
+    beside it, how many of the taps whose site exists the tables find.
+    Dyadic ones (values k/8 in [-4, 4], weights k/16 in [-2, 2]: every
+    product and partial sum is a multiple of 1/128 below 2^17, exact in
+    float32 and unchanged by bfloat16 rounding) must give the same bits
+    at float32 and bfloat16. On normal ones each output must lie within
+    n * 2^-24 * sum |x w| (n = K * Cin terms) of a float64 reference of the
+    same (rounded) inputs: float32 summation in any order. Returns its
+    record at bfloat16 (error: max |kernel - plain| on normal inputs).
+    Bound: values, keys, tap keys, tables and weights read, the output
+    written; 2 * Cin * Cout bf16 operations per tap that finds a row."""
+    values, w = call["values"], call["w"]
+    keys, qkeys, seg_ids = call["keys"], call["qkeys"], call["seg_ids"]
+    k, cin, cout = w.shape
+    tabs = dict(seg=call["seg"], qblock=call["qblock"])
+    dev = values.device
+
+    def both(v, ww, dtype):
+        return (cs.stencil_conv(v, keys, qkeys, seg_ids, ww, **tabs,
+                                compute_dtype=dtype),
+                cs.stencil_conv_plain(v, keys, qkeys, seg_ids, ww, **tabs,
+                                      compute_dtype=dtype))
+
+    dy_v = torch.randint(-32, 33, values.shape, generator=gen,
+                         device=dev).float() / 8
+    dy_w = torch.randint(-32, 33, w.shape, generator=gen,
+                         device=dev).float() / 16
+    nv = torch.randn(values.shape, generator=gen, device=dev)
+    nw = torch.randn(w.shape, generator=gen, device=dev) / (k * cin) ** .5
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        got, ref = both(dy_v, dy_w, dtype)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"stencil_conv {label} {dtype}: differs "
+                                 "from the plain version on dyadic inputs")
+        got, ref = both(nv, nw, dtype)
+        ref64 = cs.stencil_conv_plain(nv.double(), keys, qkeys, seg_ids,
+                                      nw.double(), **tabs,
+                                      compute_dtype=dtype)
+        abs64 = cs.stencil_conv_plain(nv.double().abs(), keys, qkeys,
+                                      seg_ids, nw.double().abs(), **tabs,
+                                      compute_dtype=dtype)
+        limit = k * cin * 2.0 ** -24 * abs64
+        for name, out in (("kernel", got), ("plain", ref)):
+            if ((out.double() - ref64).abs() > limit).any():
+                raise AssertionError(f"stencil_conv {label} {dtype}: {name} "
+                                     "past the float32 summation bound")
+        errs[dtype] = ((got - ref).abs().max().item(),
+                       (got.double() - ref64).abs().max().item())
+    kw = dict(tabs, compute_dtype=torch.bfloat16)
+    ms, plain_ms, span, plain_span = timings(
+        lambda: cs.stencil_conv(nv, keys, qkeys, seg_ids, nw, **kw),
+        lambda: cs.stencil_conv_plain(nv, keys, qkeys, seg_ids, nw, **kw))
+    _, found = cs.stencil_rows(cs._pad_keys(keys, tabs["seg"]), qkeys,
+                               seg_ids, **tabs)
+    hits = int(found.sum())
+    # taps whose site exists anywhere: what exact tables would find
+    exist = sum(int(torch.isin(q, kb).sum()) for q, kb in zip(qkeys, keys))
+    out_bytes = qkeys.shape[0] * qkeys.shape[1] * cout * 4
+    bounds = bound(nbytes(values, keys, qkeys, seg_ids, w) + out_bytes,
+                   2 * hits * cin * cout, "bfloat16")
+    say("kernels", f"stencil_conv {label} B={values.shape[0]} "
+        f"V={values.shape[1]} Q={qkeys.shape[1]} K={k} {cin}->{cout} "
+        f"S={seg_ids.shape[-1]} seg={tabs['seg']} qblock={tabs['qblock']}, "
+        f"{hits} of the {exist} taps whose site exists found in the block "
+        f"tables: equal on dyadic inputs at float32 and bfloat16; "
+        f"normal inputs within n * 2^-24 * sum|xw| of float64 (max |kernel - "
+        f"float64| {errs[torch.float32][1]:.3e} float32, "
+        f"{errs[torch.bfloat16][1]:.3e} bfloat16; max |kernel - plain| "
+        f"{errs[torch.float32][0]:.3e}, {errs[torch.bfloat16][0]:.3e}); "
+        f"bfloat16 device ms: kernel {ms:.4f}, plain {plain_ms:.4f}; call "
+        f"span ms: kernel {span:.4f}, plain {plain_span:.4f}; bound "
+        f"{max(bounds):.4f} ({bounds[0]:.4f} bytes, {bounds[1]:.4f} ops)")
+    return kernel_record(errs[torch.bfloat16][0], ms, plain_ms, bounds)
+
+
+def phase_stencil(net, inputs, other):
+    """The stencil kernel at five convolutions of the room request's
+    forward (``STENCIL_SHAPES``), and at its level-0 block with the
+    ``other`` request's beside it as a batch of 2; returns its record over
+    the five."""
+    calls = _capture_stencil_calls(net, inputs)
+    if len(calls) != SCU_FORWARD_LAUNCHES:
+        raise AssertionError(f"{len(calls)} stencil_conv calls per forward")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    pair = [_capture_stencil_calls(net, x)[1] for x in (inputs, other)]
+    _stencil_check("level-0 block, both requests", {
+        key: (torch.cat([c[key] for c in pair]) if key in
+              ("values", "keys", "qkeys", "seg_ids") else pair[0][key])
+        for key in pair[0]}, gen)
+    records = []
+    for label, k, cin, cout, qblock in STENCIL_SHAPES:
+        call = next(c for c in calls
+                    if tuple(c["w"].shape) == (k, cin, cout) and
+                    c["qblock"] == qblock)
+        records.append(_stencil_check(label, call, gen))
+        if label == "level-0 block":
+            # TPU kernel 7, stencil_match_pallas (to port with training),
+            # at this shape reads the keys, tap keys and tables and writes
+            # rel and found, [B, Q, K] int32 each
+            match = bound(nbytes(call["keys"], call["seg_ids"]) +
+                          3 * nbytes(call["qkeys"]), 0)
+    rec = combine(records)
+    say("kernels", f"stencil_match (TPU kernel 7, not ported) at the "
+        f"level-0 block's shape: bound {max(match):.4f} ms (bytes)")
+    say("kernels", f"stencil_conv, five shapes at bfloat16: device ms: "
+        f"kernel {rec['ms']:.4f}, plain {rec['plain_ms']:.4f}, bound "
+        f"{rec['bound_ms']:.4f} in all")
+    return rec
+
+
+def _stencil_share(net, inputs):
+    """Device ms of the stencil_conv calls of one forward (CUDA events
+    around each call), and the forward's synchronised wall ms."""
+    events = []
+    real = tscu.stencil_conv
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    tscu.stencil_conv = timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        net(inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tscu.stencil_conv = real
+    return sum(s.elapsed_time(e) for s, e in events), wall * 1e3
+
+
+def _profile_forward(net, inputs, top=8):
+    """One forward under ``torch.profiler``: the kernels' device time
+    (kernel rows only), their launches, the profiled wall time, and the
+    ``top`` kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net(inputs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    head = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms"
+                     f" ({e.count})" for e in rows[:top])
+    return device_ms, sum(e.count for e in rows), wall_ms, head
+
+
+def _counts_line(counts):
+    return (f"voxel_overflow_points {counts['voxel_overflow_points']}, "
+            f"down_overflow_children "
+            f"{[counts[f'l{i}_down_overflow_children'] for i in range(6)]}, "
+            f"table_overflow_blocks {counts['table_overflow_blocks']}")
+
+
+def phase_scu(card):
+    """SparseConvUnet at the ScanNet config: two requests served through
+    preprocess -> transform -> batch -> the stencil forward ->
+    update_probs, the stencil kernel checks, the card against the CPU and
+    the hash path, and the forward's time. Returns (launch counts of the
+    two served forwards, the stencil kernel's record)."""
+    model = MODEL.get("SparseConvUnet")(seed=SEED)
+    cfg = model.cfg
+    n, classes = cfg.num_points, cfg.num_classes
+    net = model.get_net()
+    state = random_weights(net, SEED).state_dict()
+    net = net.eval().to(DEVICE)
+    scenes = {"room": scu_scene(SCU_ROOM_EXTENT_M, n),
+              "bench": scu_scene(SCU_BENCH_EXTENT_M, n)}
+    inputs = {}
+    for name, data in scenes.items():
+        inputs[name] = _scu_inputs(model, data)
+        with torch.no_grad():
+            net(inputs[name][1])  # warm-up
+    stencil = phase_stencil(net, inputs["room"][1], inputs["bench"][1])
+
+    torch.cuda.synchronize()
+    reset_counts()
+    served = {}
+    for name, data in scenes.items():
+        batch, x = _scu_inputs(model, data)
+        with torch.no_grad():
+            logits = net(x)
+        counts = net.overflow_counts()
+        probs = model.update_probs(batch, logits.cpu().numpy(),
+                                   np.zeros((n, classes), np.float32))
+        served[name] = (batch, x, logits, counts, probs)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_counts("scu", launches, dict(
+        EXPECTED_LAUNCHES, bucket_knn=0, bucket_gather=0,
+        stencil_conv=SCU_FORWARD_LAUNCHES * len(scenes)))
+
+    for name, (batch, x, logits, counts, probs) in served.items():
+        if tuple(logits.shape) != (1, n, classes):
+            raise AssertionError(f"scu {name}: logits {tuple(logits.shape)}")
+        if not (torch.isfinite(logits).all() and np.isfinite(probs).all()):
+            raise AssertionError(f"scu {name}: non-finite output")
+        rows = probs.sum(1)
+        if not np.allclose(rows[batch["point_inds"][0]], 1.0, atol=1e-5):
+            raise AssertionError(f"scu {name}: probabilities do not sum to 1")
+        # occupied voxels before the cap
+        voxels = int(voxelize(x["point"][0], (1.0,) * 3, (0.0,) * 3,
+                              (1024.0,) * 3, n, 1).num_voxels)
+        say("scu", f"{name} request ({int(batch['point_mask'].sum())} points,"
+            f" {voxels} voxels, cap {cfg.max_voxels}): logits "
+            f"{tuple(logits.shape)} finite, update_probs rows sum to 1; "
+            f"counters: {_counts_line(counts)}")
+
+        # the card against the CPU, float32 (gated) and the config's bf16
+        for dtype in ("float32", cfg.compute_dtype):
+            gpu = logits[0]
+            if dtype == "float32":
+                net32 = model.get_net(compute_dtype="float32")
+                net32.load_state_dict(state)
+                with torch.no_grad():
+                    gpu = net32.eval().to(DEVICE)(x)[0]
+                served[name] = served[name] + (gpu,)
+            cpu_net = model.get_net(compute_dtype=dtype)
+            cpu_net.load_state_dict(state)
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                ref = cpu_net.eval()({k: v.cpu() for k, v in x.items()})[0]
+                cpu_s = time.perf_counter() - t0
+            rel_l2, agree = _compare(gpu, ref)
+            say("scu", f"{name}, compute_dtype={dtype}: card vs CPU relative "
+                f"L2 {rel_l2:.3e}, argmax agreement {agree:.6f} (CPU forward "
+                f"{cpu_s:.1f} s)")
+            if dtype == "float32" and not rel_l2 <= 1e-4:
+                raise AssertionError(f"scu {name}: float32 relative L2 "
+                                     f"{rel_l2} > 1e-4")
+
+    # bucket against the exact hash path on the card, float32, room scene
+    batch, x, _, counts, _, gpu32 = served["room"]
+    hash_net = model.get_eval_net()
+    hash_net.load_state_dict(state)
+    with torch.no_grad():
+        hashed = hash_net.eval().to(DEVICE)(x)[0]
+    rel_l2, agree = _compare(gpu32, hashed.cpu())
+    exact = not (counts["voxel_overflow_points"] or
+                 counts["table_overflow_blocks"] or
+                 any(counts[f"l{i}_down_overflow_children"]
+                     for i in range(6)))
+    say("scu", f"room, float32 on the card: bucket vs hash relative L2 "
+        f"{rel_l2:.3e}, argmax disagreement {1 - agree:.6f}; counters "
+        f"{'all 0: gated at 1e-4' if exact else 'not all 0: not gated'} "
+        f"({_counts_line(counts)})")
+    if exact and not rel_l2 <= 1e-4:
+        raise AssertionError(f"scu: bucket vs hash relative L2 {rel_l2}")
+
+    for name in scenes:
+        x = served[name][1]
+        torch.cuda.reset_peak_memory_stats()
+        fwd, times = median_forward_s(net, x)
+        peak = torch.cuda.max_memory_allocated()
+        st_ms, wall_ms = _stencil_share(net, x)
+        say("scu", f"{name} forward B=1 N={n} {cfg.compute_dtype}: median "
+            f"{fwd * 1e3:.2f} ms over {len(times)} runs (min "
+            f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
+            f"{n / fwd:.0f} points/s, peak device memory "
+            f"{peak / 2**30:.2f} GiB; one timed forward {wall_ms:.2f} ms, "
+            f"of it stencil_conv calls {st_ms:.2f} ms device time "
+            f"({st_ms / wall_ms:.1%}) on {card}")
+    device_ms, kernels, wall_ms, head = _profile_forward(net,
+                                                         served["room"][1])
+    say("scu", f"room forward under torch.profiler: {kernels} kernels, "
+        f"{device_ms:.2f} ms device time in a {wall_ms:.2f} ms forward "
+        f"(busy {device_ms / wall_ms:.1%}); by device time: {head}")
+    return launches, stencil
+
+
+def step_branches():
+    """The float32 card-vs-CPU step on the patches of model seeds 0-3, with
+    the CPU on its own branches and then on the card's."""
+    card = phase_device()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        dataset = _train_dataset(root)
+        for seed in range(4):
+            for same in (False, True):
+                loss_rel, grad_rel, stats_rel, _, _, branches = _step_vs_cpu(
+                    dataset, root / f"cpu{seed}{same:d}", seed, same)
+                which = (f"the card's branches ({branches.differ} of "
+                         f"{branches.total} choices the CPU would have "
+                         "made otherwise)" if same else "its own branches")
+                say("step-branches", f"model seed {seed}, the CPU on "
+                    f"{which}: gradient relative L2 {grad_rel:.3e}, loss "
+                    f"relative difference {loss_rel:.3e}, running "
+                    f"statistics relative L2 {stats_rel:.3e} on {card}")
+
+
 def main():
+    if sys.argv[1:] == ["--step-branches"]:
+        return step_branches()
     card = phase_device()
     model = MODEL.get("RandLANet")()
     phase_build()
@@ -934,6 +1510,8 @@ def main():
     state = phase_eval(model, card)
     # knn_exact's launches are run_inference's, the main path of its slice
     launches["knn_exact"] = phase_inference(model, state, card)["knn_exact"]
+    scu_launches, measured["stencil_conv"] = phase_scu(card)
+    launches["stencil_conv"] = scu_launches["stencil_conv"]
     sources = {"bucket_knn": ("open3d_ml_tpu_torch/csrc/bucket_knn.cu",
                               f"{TPU_KERNELS}:261"),
                "bucket_gather": ("open3d_ml_tpu_torch/csrc/bucket_gather.cu",
@@ -942,13 +1520,11 @@ def main():
                    "open3d_ml_tpu_torch/csrc/bucket_gather_bwd.cu",
                    f"{TPU_KERNELS}:563, {TPU_KERNELS}:539"),
                "knn_exact": ("open3d_ml_tpu_torch/csrc/knn_exact.cu",
-                             "open3d_ml_tpu/ops/pallas/knn.py:116")}
-    kernels = []
-    for name, (err, ms, plain_ms) in measured.items():
-        source, replaces = sources[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                             "open3d_ml_tpu/ops/pallas/knn.py:116"),
+               "stencil_conv": ("open3d_ml_tpu_torch/csrc/stencil_conv.cu",
+                                "open3d_ml_tpu/ops/pallas/stencil.py:264")}
+    kernels = [json_entry(name, *sources[name], launches[name], rec)
+               for name, rec in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("bucket_knn.cu", "bucket_gather.cu", "bucket_gather_bwd.cu",
-           "knn_exact.cu")
+           "knn_exact.cu", "stencil_conv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -40,6 +40,10 @@ ENTRY_POINTS = {
                                  _I, _I, _I, _P),
     # points, queries, mask (or NULL), idx, d2, B, N, Q, k, stream
     "knn_exact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # values, keys, qkeys, seg_ids, w, out, B, V, npad, Q, K, Cin, Cout, nqb,
+    # S, seg, qblock, round_bf16, stream
+    "stencil_conv_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _P),
 }
 
 

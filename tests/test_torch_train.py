@@ -294,6 +294,52 @@ def test_train_step_launches_one_backward_per_gather(reference,
         "bucket_gather_bwd": 16, "knn_exact": 0}
 
 
+def test_chip_smoke_step_patch_is_the_same_every_run(tmp_path):
+    """``chip_smoke.py`` holds the card's float32 step to the CPU's on one
+    fixed patch: two runs, each with a dataset and a model of its own, crop
+    and augment the same points."""
+    import chip_smoke
+    batches = [chip_smoke._step_model_and_batch(
+        chip_smoke._train_dataset(tmp_path / run), n=2048)[1]["data"]
+        for run in ("a", "b")]
+    arrays = [k for k, v in batches[0].items() if isinstance(v, np.ndarray)]
+    assert "coords" in arrays and "features" in arrays
+    for key in arrays:
+        np.testing.assert_array_equal(batches[0][key], batches[1][key])
+
+
+def test_chip_smoke_same_branches_replays_the_recorded_choices(tmp_path):
+    """``chip_smoke._SameBranches``: a replayed forward of the fused net on
+    the recorded inputs equals the recorded one with no choice taken
+    otherwise; on other inputs it counts the choices it overrides; on exit
+    the net's own pool and LeakyReLU are back."""
+    import chip_smoke
+    from open3d_ml_tpu_torch.models import randlanet as trl
+    model, batch = chip_smoke._step_model_and_batch(
+        chip_smoke._train_dataset(tmp_path), n=2048)
+    net = model.get_net().train()
+    net.dropout = chip_smoke._FixedDropout(
+        torch.rand((1, 2048, 32),
+                   generator=torch.Generator().manual_seed(0)) >= 0.5)
+    inputs = {k: torch.from_numpy(v) for k, v in batch["data"].items()
+              if isinstance(v, np.ndarray)}
+    other = dict(inputs, features=inputs["features"].flip(1))
+    own = trl._BucketLevel.pool_max, trl.F
+    with torch.no_grad():
+        for replayed, expect_same in ((inputs, True), (other, False)):
+            with chip_smoke._SameBranches() as branches:
+                first = net(inputs)
+                branches.replay()
+                second = net(replayed)
+            assert not branches.recorded and branches.total > 0
+            if expect_same:
+                assert branches.differ == 0
+                torch.testing.assert_close(second, first, rtol=0, atol=0)
+            else:
+                assert branches.differ > 0
+            assert (trl._BucketLevel.pool_max, trl.F) == own
+
+
 # ----------------------------------------------------------- BN and dropout
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
