@@ -18,7 +18,13 @@ from a seeded generator:
 * SparseConvUnet serving: two requests of 65,536 points (a synthetic room
   of 6 m, and the same scene at the bench's 20 m) through ``preprocess``
   -> ``transform`` -> ``DefaultBatcher`` -> the stencil forward
-  (``get_net``, bf16, 39 ``stencil_conv`` launches) -> ``update_probs``.
+  (``get_net``, bf16, 39 ``stencil_conv`` launches) -> ``update_probs``;
+* SparseConvUnet training: ``SemanticSegmentation.run_train`` on
+  ``Custom3D`` rooms, batches of 8 x 65,536 points through the stencil
+  net with the ScanNet augmentations, forward and backward (each
+  convolution's backward launches ``stencil_match``, ``bucket_gather`` and,
+  but for the input convolution, ``bucket_gather_bwd``), with validation,
+  checkpoints and a resume.
 
 The models are the port's ``RandLANet()`` and ``SparseConvUnet()`` at their
 defaults, which equal the model sections of
@@ -70,7 +76,25 @@ Phases, one line each (or more), in this order:
    bf16 reported); on the room request the stencil path against the hash
    path on the card (gated at 1e-4 only when every counter is 0); the
    median forward, points/s, peak memory and the stencil calls' share of
-   one forward.
+   one forward. Beside the stencil kernel, at the same five convolutions:
+   ``stencil_match`` against its plain version (rel and found bit-equal,
+   misses included; its time, the plain version's, one batched
+   ``torch.searchsorted`` as the library call, and its bound), and the
+   convolution's backward on the kernels against the same backward on the
+   plain versions (dvalues and dw bit-equal on dyadic inputs at float32
+   and bf16; dw within the float32 summation bound of a float64
+   reference).
+10. scu_train: ``run_train`` for one epoch of 6 steps of 8 x 65,536
+   points and 2 validation steps, on 8 + 2 synthetic rooms of 6 m with
+   RGB, written as ``Custom3D`` files; the launch counts of every step;
+   finite losses; a checkpoint and a resumed ``run_train`` in a fresh
+   pipeline with equal weights, BN statistics and Adam state; 10 steps on
+   one batch, whose loss must fall; one float32 step at B = 1 on the room
+   request against the CPU on the card's ReLU branches (loss within 1e-5,
+   gradient and running statistics within 1e-4 relative L2); the median
+   step time, points trained per second, the host's share, the peak memory
+   and the device time of the backward's rulebook, gather and scatter
+   calls in one step.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is not 0. The
@@ -94,7 +118,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from open3d_ml_tpu_torch import MODEL
+from open3d_ml_tpu_torch import DATASET, MODEL
 from open3d_ml_tpu_torch.dataloaders import (BatchLoader, DefaultBatcher,
                                              PointCloudDataloader)
 from open3d_ml_tpu_torch.datasets import SyntheticShapes
@@ -140,6 +164,20 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 SCU_ROOM_EXTENT_M = 6.0
 SCU_BENCH_EXTENT_M = 1000 * 0.02
 SCU_FORWARD_LAUNCHES = 39  # stencil convolutions per 7-level forward
+# per SparseConvUnet training step at 7 levels: the forward's stencil
+# convolutions, and in the backward one rulebook and one gather per
+# convolution and one scatter per convolution but the input one (whose
+# values, voxel averages of the inputs, need no gradient)
+SCU_TRAIN_STEP_LAUNCHES = {"stencil_conv": SCU_FORWARD_LAUNCHES,
+                           "stencil_match": SCU_FORWARD_LAUNCHES,
+                           "bucket_gather": SCU_FORWARD_LAUNCHES,
+                           "bucket_gather_bwd": SCU_FORWARD_LAUNCHES - 1}
+# pipeline section of open3d_ml_tpu/configs/sparseconvunet_scannet.yml (a
+# CPU test pins it)
+SCU_TRAIN_PIPELINE = {"batch_size": 8, "val_batch_size": 8,
+                      "optimizer": {"lr": 0.001, "betas": [0.9, 0.999]},
+                      "save_ckpt_freq": 5, "num_workers": 2}
+SCU_TRAIN_ROOMS = {"train": 8, "val": 2}
 # the stencil kernel's checks: (label, K, Cin, Cout, qblock) of five
 # convolutions of the room scene's forward
 STENCIL_SHAPES = (("level-0 block", 27, 32, 32, 32),
@@ -725,13 +763,14 @@ def _train_dataset(root):
         class_weights=SEMANTICKITTI_CLASS_WEIGHTS)
 
 
-def _check_steps(record, first, last):
-    """Launch counts and finite losses of every step in record[first:last];
-    returns the train steps' times (s)."""
+def _check_steps(record, first, last, train=TRAIN_STEP_LAUNCHES,
+                 valid=EXPECTED_LAUNCHES):
+    """Launch counts (``train`` per train step, ``valid`` per validation
+    step) and finite losses of every step in record[first:last]; returns
+    the train steps' times (s)."""
     train_s = []
     for kind, t0, t1, launches, loss in record[first:last]:
-        expected = every_count(TRAIN_STEP_LAUNCHES if kind == "train" else
-                               EXPECTED_LAUNCHES)
+        expected = every_count(train if kind == "train" else valid)
         if launches != expected:
             raise AssertionError(f"train: a {kind} step launched {launches}, "
                                  f"expected {expected}")
@@ -770,7 +809,7 @@ def _resume_check(pipeline, saved):
     pipeline.load_ckpt = checked
 
 
-def _overfit(pipeline, dataset):
+def _overfit(pipeline, dataset, batch_size=4):
     """10 training steps on one fixed batch of the train split; returns the
     losses."""
     model = pipeline.model
@@ -779,8 +818,8 @@ def _overfit(pipeline, dataset):
                                   transform=model.transform,
                                   sampler=split.sampler, use_cache=True)
     model.trans_point_sampler = split.sampler.get_point_sampler()
-    batch = next(iter(BatchLoader(loader, 4, DefaultBatcher(), num_workers=0,
-                                  sampler=split.sampler)))
+    batch = next(iter(BatchLoader(loader, batch_size, DefaultBatcher(),
+                                  num_workers=0, sampler=split.sampler)))
     inputs = pipeline._device_batch(batch)
     loss_fn = SemSegLoss(pipeline, model, dataset)
     return [float(pipeline._train_step(inputs, loss_fn)[0])
@@ -804,14 +843,17 @@ class _SameBranches:
     float32 sums differ (``--step-branches`` measures it).
 
     While it is entered, the fused net's pools gather the neighbour that
-    ``argmax`` picks and its LeakyReLUs apply a sign mask: the first run
-    records its choices, the run after ``replay()`` takes them and counts
-    in ``differ`` the choices its own values would have made otherwise.
-    Like the fixed dropout mask, this gives both runs one function. With
-    ``active`` false it changes nothing."""
+    ``argmax`` picks and its LeakyReLUs apply a sign mask (with ``net``
+    "scu": SparseConvUnet's ReLUs, whose inputs near 0 after BatchNorm
+    route the gradient the same way): the first run records its choices,
+    the run after ``replay()`` takes them and counts in ``differ`` the
+    choices its own values would have made otherwise. Like the fixed
+    dropout mask, this gives both runs one function. With ``active`` false
+    it changes nothing."""
 
-    def __init__(self, active=True):
+    def __init__(self, active=True, net="randla"):
         self.active = active
+        self.module = trl if net == "randla" else tscu
         self.recorded, self.replaying, self.differ = [], False, 0
         self.total = 0  # choices recorded
 
@@ -841,7 +883,8 @@ class _SameBranches:
             return torch.gather(rows, -2, pick).squeeze(-2)
 
         class Functional:
-            """``torch.nn.functional`` with a LeakyReLU of chosen signs."""
+            """``torch.nn.functional`` with a LeakyReLU and a ReLU of
+            chosen signs."""
 
             def __getattr__(self, name):
                 return getattr(torch.nn.functional, name)
@@ -850,13 +893,19 @@ class _SameBranches:
             def leaky_relu(x, slope=0.01):
                 return torch.where(choose(x > 0), x, x * slope)
 
-        self._saved = trl._BucketLevel.pool_max, trl.F
-        trl._BucketLevel.pool_max, trl.F = pool_max, Functional()
+            @staticmethod
+            def relu(x):
+                return torch.where(choose(x > 0), x, 0.0)
+
+        self._saved = trl._BucketLevel.pool_max, self.module.F
+        self.module.F = Functional()
+        if self.module is trl:
+            trl._BucketLevel.pool_max = pool_max
         return self
 
     def __exit__(self, *exc):
         if self.active:
-            trl._BucketLevel.pool_max, trl.F = self._saved
+            trl._BucketLevel.pool_max, self.module.F = self._saved
 
 
 def _step_model_and_batch(dataset, n=11_264, seed=SEED):
@@ -1152,16 +1201,17 @@ def phase_inference(model, state, card):
     return launches
 
 
-def scu_scene(extent_m, n):
-    """A request for SparseConvUnet: ``make_semseg_scene(n, seed)`` rebased
-    to 0 and scaled to ``extent_m`` metres along its longest axis, RGB
-    uniform in 0-255."""
-    pts = make_semseg_scene(n, seed=SEED)[0].astype(np.float64)
+def scu_scene(extent_m, n, seed=SEED):
+    """A room for SparseConvUnet: ``make_semseg_scene(n, seed)`` (points and
+    labels) rebased to 0 and scaled to ``extent_m`` metres along its
+    longest axis, RGB uniform in 0-255."""
+    pts, labels = make_semseg_scene(n, seed=seed)
+    pts = pts.astype(np.float64)
     pts -= pts.min(0)
     pts *= extent_m / pts.max()
-    rgb = np.random.default_rng(SEED).uniform(0, 255, (n, 3))
+    rgb = np.random.default_rng(seed).uniform(0, 255, (n, 3))
     return {"point": pts.astype(np.float32), "feat": rgb.astype(np.float32),
-            "label": None}
+            "label": labels}
 
 
 def _scu_inputs(model, data):
@@ -1270,39 +1320,170 @@ def _stencil_check(label, call, gen):
     return kernel_record(errs[torch.bfloat16][0], ms, plain_ms, bounds)
 
 
+def _match_check(label, call):
+    """stencil_match against its plain version on one convolution's
+    rulebook (the path's keys, tap keys and tables): rel and found equal
+    bit for bit, misses' 0x7F000000 included. Returns its record (error 0
+    when equal). Bound: the keys, tap keys and tables read, rel (int32)
+    and found (one byte) written; no arithmetic to speak of. Library call:
+    one batched ``torch.searchsorted`` of each block's tap keys into its
+    table's keys, sorted ahead."""
+    seg, qblock = call["seg"], call["qblock"]
+    keys = cs._pad_keys(call["keys"], seg)
+    qkeys, seg_ids = call["qkeys"], call["seg_ids"]
+    tabs = dict(seg=seg, qblock=qblock)
+    rel, found = cs.stencil_match(keys, qkeys, seg_ids, **tabs)
+    rel_p, found_p = cs.stencil_match_plain(keys, qkeys, seg_ids, **tabs)
+    torch.cuda.synchronize()
+    if not (torch.equal(rel, rel_p) and torch.equal(found, found_p)):
+        raise AssertionError(f"stencil_match {label}: differs from the plain "
+                             "version")
+    b, q, k = qkeys.shape
+    nqb, s = seg_ids.shape[1:]
+    cand = (seg_ids.long()[..., None] * seg +
+            torch.arange(seg, device=keys.device)).reshape(b, -1)
+    tabk = torch.gather(keys, 1, cand).reshape(b, nqb, s * seg).sort(-1)[0]
+    qk = torch.nn.functional.pad(qkeys, (0, 0, 0, nqb * qblock - q),
+                                 value=-1).reshape(b, nqb, qblock * k)
+    library_ms = device_ms(lambda: torch.searchsorted(tabk, qk))
+    ms, plain_ms, span, plain_span = timings(
+        lambda: cs.stencil_match(keys, qkeys, seg_ids, **tabs),
+        lambda: cs.stencil_match_plain(keys, qkeys, seg_ids, **tabs))
+    bounds = bound(nbytes(keys, qkeys, seg_ids, rel, found), 0)
+    say("kernels", f"stencil_match {label} B={b} Vp={keys.shape[1]} Q={q} "
+        f"K={k} S={s} seg={seg} qblock={qblock}: rel and found equal "
+        f"({int(found.sum())} found, {int((~found).sum())} misses); device "
+        f"ms: kernel {ms:.4f}, plain {plain_ms:.4f}, torch.searchsorted "
+        f"{library_ms:.4f}; call span ms: kernel {span:.4f}, plain "
+        f"{plain_span:.4f}; bound {max(bounds):.4f} (bytes)")
+    return kernel_record(0.0, ms, plain_ms, bounds, library_ms)
+
+
+class _PlainStencilBackward:
+    """While entered, ``stencil_conv_bwd`` runs on the plain versions of
+    the rulebook, the gather and the scatter instead of their kernels."""
+
+    names = ("stencil_match", "gather_bucket", "gather_bucket_bwd")
+
+    def __enter__(self):
+        self._saved = [getattr(cs, name) for name in self.names]
+        for name, plain in zip(self.names, (cs.stencil_match_plain,
+                                            cb.gather_bucket_plain,
+                                            cb.gather_bucket_bwd_plain)):
+            setattr(cs, name, plain)
+
+    def __exit__(self, *exc):
+        for name, fn in zip(self.names, self._saved):
+            setattr(cs, name, fn)
+
+
+def _stencil_bwd_check(label, call, gen):
+    """The stencil convolution's backward (``stencil_conv_bwd``) on the
+    kernels against the same backward on the plain versions, at one
+    convolution of the path. On dyadic inputs (values k/8 in [-4, 4],
+    weights k/16 in [-1, 1], cotangents k/64 in [-1, 1]) every dG entry and
+    every value row's sum of them is exact in float32 in any order, so
+    dvalues must be bit-equal, at float32 and bf16 (where dG is rounded
+    once, the same on both sides). dw is the same product of G rows that
+    must be bit-equal, so it must be bit-equal too; and, a sum over B * Q
+    rows, it must lie within n * 2^-24 * sum |G g| (n = B * Q) of a float64
+    reference, and at bf16 within that plus its one rounding (2^-8 of it).
+    Returns the device ms of the kernels' and the plain versions' backward
+    at bf16."""
+    values, w = call["values"], call["w"]
+    keys, qkeys, seg_ids = call["keys"], call["qkeys"], call["seg_ids"]
+    tabs = dict(seg=call["seg"], qblock=call["qblock"])
+    dev = values.device
+    b, q = qkeys.shape[:2]
+    dy_v = torch.randint(-32, 33, values.shape, generator=gen,
+                         device=dev).float() / 8
+    dy_w = torch.randint(-16, 17, w.shape, generator=gen,
+                         device=dev).float() / 16
+    dy_g = torch.randint(-64, 65, (b, q, w.shape[2]), generator=gen,
+                         device=dev).float() / 64
+
+    def bwd(g, v, ww, dtype):
+        return cs.stencil_conv_bwd(g, v, keys, qkeys, seg_ids, ww, **tabs,
+                                   compute_dtype=dtype)
+
+    with _PlainStencilBackward():
+        ref64 = bwd(dy_g.double(), dy_v.double(), dy_w.double(),
+                    torch.float32)[1]
+        abs64 = bwd(dy_g.double().abs(), dy_v.double().abs(),
+                    dy_w.double().abs(), torch.float32)[1]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        got = bwd(dy_g, dy_v, dy_w, dtype)
+        with _PlainStencilBackward():
+            ref = bwd(dy_g, dy_v, dy_w, dtype)
+        torch.cuda.synchronize()
+        for i, name in enumerate(("dvalues", "dw")):
+            if not torch.equal(got[i], ref[i]):
+                raise AssertionError(f"stencil_conv backward {label} {dtype}:"
+                                     f" {name} differ from the plain "
+                                     "backward's on dyadic inputs")
+        limit = b * q * 2.0 ** -24 * abs64
+        if dtype == torch.bfloat16:
+            limit = limit + 2.0 ** -8 * ref64.abs()
+        for name, dw in (("kernels", got[1]), ("plain", ref[1])):
+            err = (dw.double() - ref64).abs()
+            if (err > limit).any():
+                raise AssertionError(f"stencil_conv backward {label} {dtype}:"
+                                     f" dw of the {name} past its bound")
+        errs[dtype] = (got[1].double() - ref64).abs().max().item()
+    ms = device_ms(lambda: bwd(dy_g, dy_v, dy_w, torch.bfloat16), iters=5)
+    with _PlainStencilBackward():
+        plain_ms = device_ms(lambda: bwd(dy_g, dy_v, dy_w, torch.bfloat16),
+                             iters=5)
+    say("kernels", f"stencil_conv backward {label} B={b} Q={q}: dvalues "
+        f"and dw equal to the plain backward's on dyadic inputs at float32 "
+        f"and bfloat16; dw within its bound of float64 (max |err| "
+        f"{errs[torch.float32]:.3e} "
+        f"float32, {errs[torch.bfloat16]:.3e} bfloat16); bfloat16 device "
+        f"ms: kernels {ms:.4f}, plain versions {plain_ms:.4f} (both with "
+        f"the two products)")
+    return ms, plain_ms
+
+
 def phase_stencil(net, inputs, other):
-    """The stencil kernel at five convolutions of the room request's
-    forward (``STENCIL_SHAPES``), and at its level-0 block with the
-    ``other`` request's beside it as a batch of 2; returns its record over
-    the five."""
+    """The stencil kernel, the rulebook kernel and the convolution's
+    backward at five convolutions of the room request's forward
+    (``STENCIL_SHAPES``), and at its level-0 block with the ``other``
+    request's beside it as a batch of 2 (the second row's offsets into
+    keys, tables and values). Returns the records of ``stencil_conv`` and
+    ``stencil_match`` over the five."""
     calls = _capture_stencil_calls(net, inputs)
     if len(calls) != SCU_FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} stencil_conv calls per forward")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     pair = [_capture_stencil_calls(net, x)[1] for x in (inputs, other)]
-    _stencil_check("level-0 block, both requests", {
-        key: (torch.cat([c[key] for c in pair]) if key in
-              ("values", "keys", "qkeys", "seg_ids") else pair[0][key])
-        for key in pair[0]}, gen)
-    records = []
+    both = {key: (torch.cat([c[key] for c in pair]) if key in
+                  ("values", "keys", "qkeys", "seg_ids") else pair[0][key])
+            for key in pair[0]}
+    label = "level-0 block, both requests"
+    _stencil_check(label, both, gen)
+    _match_check(label, both)
+    _stencil_bwd_check(label, both, gen)
+    records, matches, bwds = [], [], []
     for label, k, cin, cout, qblock in STENCIL_SHAPES:
         call = next(c for c in calls
                     if tuple(c["w"].shape) == (k, cin, cout) and
                     c["qblock"] == qblock)
         records.append(_stencil_check(label, call, gen))
-        if label == "level-0 block":
-            # TPU kernel 7, stencil_match_pallas (to port with training),
-            # at this shape reads the keys, tap keys and tables and writes
-            # rel and found, [B, Q, K] int32 each
-            match = bound(nbytes(call["keys"], call["seg_ids"]) +
-                          3 * nbytes(call["qkeys"]), 0)
-    rec = combine(records)
-    say("kernels", f"stencil_match (TPU kernel 7, not ported) at the "
-        f"level-0 block's shape: bound {max(match):.4f} ms (bytes)")
+        matches.append(_match_check(label, call))
+        bwds.append(_stencil_bwd_check(label, call, gen))
+    rec, match = combine(records), combine(matches)
     say("kernels", f"stencil_conv, five shapes at bfloat16: device ms: "
         f"kernel {rec['ms']:.4f}, plain {rec['plain_ms']:.4f}, bound "
         f"{rec['bound_ms']:.4f} in all")
-    return rec
+    say("kernels", f"stencil_match, five shapes: device ms: kernel "
+        f"{match['ms']:.4f}, plain {match['plain_ms']:.4f}, "
+        f"torch.searchsorted {match['library_ms']:.4f}, bound "
+        f"{match['bound_ms']:.4f} in all")
+    say("kernels", f"stencil_conv backward, five shapes at bfloat16: device "
+        f"ms: kernels {sum(m for m, _ in bwds):.4f}, plain versions "
+        f"{sum(p for _, p in bwds):.4f} in all")
+    return rec, match
 
 
 def _stencil_share(net, inputs):
@@ -1364,7 +1545,8 @@ def phase_scu(card):
     preprocess -> transform -> batch -> the stencil forward ->
     update_probs, the stencil kernel checks, the card against the CPU and
     the hash path, and the forward's time. Returns (launch counts of the
-    two served forwards, the stencil kernel's record)."""
+    two served forwards, the records of the stencil and rulebook
+    kernels)."""
     model = MODEL.get("SparseConvUnet")(seed=SEED)
     cfg = model.cfg
     n, classes = cfg.num_points, cfg.num_classes
@@ -1378,7 +1560,8 @@ def phase_scu(card):
         inputs[name] = _scu_inputs(model, data)
         with torch.no_grad():
             net(inputs[name][1])  # warm-up
-    stencil = phase_stencil(net, inputs["room"][1], inputs["bench"][1])
+    stencil, match = phase_stencil(net, inputs["room"][1],
+                                   inputs["bench"][1])
 
     torch.cuda.synchronize()
     reset_counts()
@@ -1472,7 +1655,258 @@ def phase_scu(card):
     say("scu", f"room forward under torch.profiler: {kernels} kernels, "
         f"{device_ms:.2f} ms device time in a {wall_ms:.2f} ms forward "
         f"(busy {device_ms / wall_ms:.1%}); by device time: {head}")
-    return launches, stencil
+    return launches, stencil, match
+
+
+def _scu_rooms(root, n):
+    """``SCU_TRAIN_ROOMS`` synthetic rooms of ``n`` points, 6 m, RGB 0-255
+    and ``make_semseg_scene``'s labels, as ``Custom3D`` files under
+    ``root``: one epoch is 6 training and 2 validation steps of 8."""
+    seed = SEED
+    for split, count in SCU_TRAIN_ROOMS.items():
+        (root / "rooms" / split).mkdir(parents=True)
+        for i in range(count):
+            seed += 1
+            np.save(root / "rooms" / split / f"room_{i}.npy",
+                    scu_scene(SCU_ROOM_EXTENT_M, n, seed))
+    batch = SCU_TRAIN_PIPELINE["batch_size"]
+    return DATASET.get("Custom3D")(
+        dataset_path=str(root / "rooms"), cache_dir=str(root / "cache"),
+        test_result_folder=str(root / "test"), seed=SEED,
+        steps_per_epoch_train=6 * batch, steps_per_epoch_valid=2 * batch)
+
+
+def _step_breakdown(pipeline, dataset):
+    """One training step on a batch of the train split, timed on the card
+    by CUDA events: its synchronised wall ms, and the device ms of the
+    forward, of the backward (from the gradients' reset to the optimizer
+    step), of the backward's stencil_match, gather and scatter calls
+    (events around each) with their count, and of the Adam step."""
+    model = pipeline.model
+    split = dataset.get_split("train")
+    loader = PointCloudDataloader(split, preprocess=model.preprocess,
+                                  transform=model.transform,
+                                  sampler=split.sampler)
+    batch = next(iter(BatchLoader(loader, SCU_TRAIN_PIPELINE["batch_size"],
+                                  DefaultBatcher(), num_workers=0,
+                                  sampler=split.sampler)))
+    inputs = pipeline._device_batch(batch)
+    spans = collections.defaultdict(list)
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[key].append((start, end))
+            return out
+        return wrapper
+
+    marks = {}
+
+    def mark(fn, name, after):
+        def wrapper(*args, **kwargs):
+            event = torch.cuda.Event(enable_timing=True)
+            if not after:
+                event.record()
+            out = fn(*args, **kwargs)
+            if after:
+                event.record()
+            marks[name] = event
+            return out
+        return wrapper
+
+    saved = {name: getattr(cs, name) for name in _PlainStencilBackward.names}
+    net, opt = pipeline.net, pipeline.optimizer
+    for name, fn in saved.items():
+        setattr(cs, name, timed(fn, "bwd kernels"))
+    net.forward = timed(net.forward, "forward")
+    opt.zero_grad = mark(opt.zero_grad, "backward start", after=True)
+    opt.step = timed(mark(opt.step, "backward end", after=False), "adam")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline._train_step(inputs, SemSegLoss(pipeline, model, dataset))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(cs, name, fn)
+        for obj, name in ((net, "forward"), (opt, "zero_grad"),
+                          (opt, "step")):
+            delattr(obj, name)
+    ms = {key: sum(s.elapsed_time(e) for s, e in pairs)
+          for key, pairs in spans.items()}
+    ms["backward"] = marks["backward start"].elapsed_time(
+        marks["backward end"])
+    return wall * 1e3, ms, len(spans["bwd kernels"])
+
+
+def _scu_step_vs_cpu(dataset, root):
+    """One float32 training step of SparseConvUnet at the shipped widths,
+    B = 1 on the room request (the test split's preprocess and transform:
+    no augmentation), on the card and on the CPU from the same weights,
+    the CPU on the card's ReLU branches (``_SameBranches``). Returns (loss
+    relative difference, gradient relative L2, running statistics relative
+    L2, CPU step seconds, the ``_SameBranches`` used)."""
+    model = MODEL.get("SparseConvUnet")(compute_dtype="float32", seed=SEED)
+    batch, _ = _scu_inputs(model, scu_scene(SCU_ROOM_EXTENT_M,
+                                            model.cfg.num_points))
+    out, state = [], None
+    with _SameBranches(net="scu") as branches:
+        for device in (DEVICE, "cpu"):  # the card first
+            pipeline = SemanticSegmentation(model, dataset=dataset,
+                                            device=device, seed=SEED,
+                                            main_log_dir=str(root),
+                                            **SCU_TRAIN_PIPELINE)
+            if state is None:
+                state = {k: v.cpu().clone()
+                         for k, v in pipeline.net.state_dict().items()}
+            pipeline.net.load_state_dict(state)
+            pipeline.optimizer, pipeline.scheduler = model.get_optimizer(
+                pipeline.cfg, pipeline.net)
+            t0 = time.perf_counter()
+            loss, _ = pipeline._train_step(
+                {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+                 if isinstance(v, np.ndarray)},
+                SemSegLoss(pipeline, model, dataset))
+            seconds = time.perf_counter() - t0
+            net = pipeline.net
+            out.append({
+                "loss": loss.double().cpu(),
+                "grad": torch.cat([p.grad.reshape(-1).cpu()
+                                   for p in net.parameters()]),
+                "stats": torch.cat([b.reshape(-1).cpu()
+                                    for k, b in net.state_dict().items()
+                                    if k.endswith(("running_mean",
+                                                   "running_var"))]),
+                "seconds": seconds})
+            if len(out) == 1:
+                branches.replay()
+        if branches.recorded:
+            raise AssertionError("scu_train: the CPU step took fewer "
+                                 "branches than the card's")
+    gpu, cpu = out
+    return ((abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])).item(),
+            _rel_l2(gpu["grad"], cpu["grad"]),
+            _rel_l2(gpu["stats"], cpu["stats"]), cpu["seconds"], branches)
+
+
+def phase_scu_train(card):
+    """run_train of SparseConvUnet at the shipped ScanNet config on
+    synthetic rooms, a resume from its checkpoint, an overfit batch, the
+    backward kernels' device time in one step and one float32 step against
+    the CPU; returns the first run's launch counts."""
+    model = MODEL.get("SparseConvUnet")(seed=SEED)
+    b, n = SCU_TRAIN_PIPELINE["batch_size"], model.cfg.num_points
+    valid = {"stencil_conv": SCU_FORWARD_LAUNCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        dataset = _scu_rooms(root, n)
+        rooms_s = time.perf_counter() - t0
+        pipeline = SemanticSegmentation(model, dataset=dataset, device=DEVICE,
+                                        seed=SEED, max_epoch=0,
+                                        main_log_dir=str(root / "logs"),
+                                        **SCU_TRAIN_PIPELINE)
+        record = []
+        _instrument(pipeline, record)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        pipeline.run_train()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps = _check_steps(record, 0, len(record), SCU_TRAIN_STEP_LAUNCHES,
+                             valid)
+        kinds = [r[0] for r in record]
+        if kinds != ["train"] * 6 + ["eval"] * 2:
+            raise AssertionError(f"scu_train: ran steps {kinds}, expected 6 "
+                                 "train and 2 eval")
+        step = statistics.median(steps[1:])
+        loop = record[-1][2] - record[0][1]
+        busy = sum(t1 - t0 for _, t0, t1, _, _ in record)
+        say("scu_train", f"run_train max_epoch=0 on "
+            f"{SCU_TRAIN_ROOMS['train']} + {SCU_TRAIN_ROOMS['val']} "
+            f"Custom3D rooms of "
+            f"{SCU_ROOM_EXTENT_M:g} m (written in {rooms_s:.2f} s): 6 train "
+            f"steps of {b} x {n} points with the ScanNet augmentations and "
+            f"2 validation steps, each with the expected launches "
+            f"({SCU_TRAIN_STEP_LAUNCHES} per train step, {valid} per "
+            f"validation step); losses {[round(r[4], 4) for r in record]}, "
+            "finite")
+        say("scu_train", f"step B={b} N={n} {model.cfg.compute_dtype}: median "
+            f"{step * 1e3:.2f} ms over steps 2..6 (min "
+            f"{min(steps[1:]) * 1e3:.2f}, max {max(steps[1:]) * 1e3:.2f}, "
+            f"first {steps[0] * 1e3:.2f}), {b * n / step:.0f} points "
+            f"trained/s on {card}")
+        say("scu_train", f"wall {wall:.3f} s, of it set-up (splits, "
+            f"optimizer) {record[0][1] - t0:.3f} s and the step loop "
+            f"{loop:.3f} s: steps (synchronised) {busy / loop:.1%}, host "
+            f"between steps (loader wait, copies, metrics) "
+            f"{1 - busy / loop:.1%}; peak device memory "
+            f"{peak / 2**30:.2f} GiB on {card}")
+        ckpt = Path(pipeline.cfg.logs_dir) / "checkpoint" / "ckpt_00000.pth"
+        if not ckpt.exists():
+            raise AssertionError(f"scu_train: no checkpoint at {ckpt}")
+
+        saved = {"model": {k: v.clone()
+                           for k, v in pipeline.net.state_dict().items()},
+                 "adam": {idx: {k: v.clone() for k, v in moments.items()}
+                          for idx, moments in
+                          pipeline.optimizer.state_dict()["state"].items()}}
+        resumed = SemanticSegmentation(model, dataset=dataset, device=DEVICE,
+                                       seed=SEED + 1, max_epoch=1,
+                                       main_log_dir=str(root / "logs"),
+                                       **SCU_TRAIN_PIPELINE)
+        _resume_check(resumed, saved)
+        record2 = []
+        _instrument(resumed, record2)
+        resumed.run_train()
+        _check_steps(record2, 0, len(record2), SCU_TRAIN_STEP_LAUNCHES,
+                     valid)
+        if saved.get("first_epoch") != 1 or len(record2) != 8:
+            raise AssertionError(f"scu_train resume: started at epoch "
+                                 f"{saved.get('first_epoch')} with "
+                                 f"{len(record2)} steps")
+        say("scu_train", f"{ckpt.name} written; a fresh pipeline resumed "
+            "from it at epoch 1 with equal weights, BN statistics and Adam "
+            f"state (step, moments), and ran 6 + 2 steps with finite losses "
+            f"{[round(r[4], 4) for r in record2]}")
+
+        losses = _overfit(resumed, dataset, b)
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"scu_train overfit: loss did not fall: "
+                                 f"{losses}")
+        say("scu_train", f"10 steps on one batch: loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} ({[round(x, 4) for x in losses]})")
+
+        step_ms, ms, calls = _step_breakdown(resumed, dataset)
+        say("scu_train", f"one train step {step_ms:.2f} ms (synchronised), "
+            f"by CUDA events: forward {ms['forward']:.2f} ms, backward "
+            f"{ms['backward']:.2f} ms, of it its {calls} stencil_match, "
+            f"bucket_gather and bucket_gather_bwd calls "
+            f"{ms['bwd kernels']:.2f} ms ({ms['bwd kernels'] / step_ms:.1%} "
+            f"of the step), Adam {ms['adam']:.2f} ms, the rest (loss, "
+            f"confusion matrix, host) "
+            f"{step_ms - ms['forward'] - ms['backward'] - ms['adam']:.2f} "
+            f"ms on {card}")
+
+        loss_rel, grad_rel, stats_rel, cpu_s, branches = _scu_step_vs_cpu(
+            dataset, root / "cpu")
+        say("scu_train", f"one float32 step B=1 N={n} on the room request, "
+            f"card vs CPU on the card's ReLU branches ({branches.differ} of "
+            f"{branches.total} choices the CPU would have made otherwise): "
+            f"loss relative difference {loss_rel:.3e} (bound 1e-5), gradient "
+            f"relative L2 {grad_rel:.3e} (bound 1e-4), running statistics "
+            f"relative L2 {stats_rel:.3e} (bound 1e-4); CPU step "
+            f"{cpu_s:.1f} s")
+        if not (loss_rel <= 1e-5 and grad_rel <= 1e-4 and stats_rel <= 1e-4):
+            raise AssertionError("scu_train: card and CPU steps disagree")
+    return launches
 
 
 def step_branches():
@@ -1510,8 +1944,12 @@ def main():
     state = phase_eval(model, card)
     # knn_exact's launches are run_inference's, the main path of its slice
     launches["knn_exact"] = phase_inference(model, state, card)["knn_exact"]
-    scu_launches, measured["stencil_conv"] = phase_scu(card)
+    scu_launches, measured["stencil_conv"], measured["stencil_match"] = (
+        phase_scu(card))
     launches["stencil_conv"] = scu_launches["stencil_conv"]
+    # stencil_match's launches are SCU training's, the main path of its
+    # slice
+    launches["stencil_match"] = phase_scu_train(card)["stencil_match"]
     sources = {"bucket_knn": ("open3d_ml_tpu_torch/csrc/bucket_knn.cu",
                               f"{TPU_KERNELS}:261"),
                "bucket_gather": ("open3d_ml_tpu_torch/csrc/bucket_gather.cu",
@@ -1522,7 +1960,9 @@ def main():
                "knn_exact": ("open3d_ml_tpu_torch/csrc/knn_exact.cu",
                              "open3d_ml_tpu/ops/pallas/knn.py:116"),
                "stencil_conv": ("open3d_ml_tpu_torch/csrc/stencil_conv.cu",
-                                "open3d_ml_tpu/ops/pallas/stencil.py:264")}
+                                "open3d_ml_tpu/ops/pallas/stencil.py:264"),
+               "stencil_match": ("open3d_ml_tpu_torch/csrc/stencil_match.cu",
+                                 "open3d_ml_tpu/ops/pallas/stencil.py:147")}
     kernels = [json_entry(name, *sources[name], launches[name], rec)
                for name, rec in measured.items()]
     print(json.dumps({"kernels": kernels}))

@@ -30,9 +30,10 @@
 // 1. The table's keys (at most 1024) go to shared memory. Keys ascend
 //    within each segment (the sites are Morton-sorted and pad keys are
 //    INT32_MAX at the end), so each tap is resolved by a range check and a
-//    binary search per segment; its value row, or -1, goes to shared
-//    memory, and a mask records which taps found a row anywhere in the
-//    block. A tap that no query of the block found is skipped below.
+//    binary search per segment (stencil_taps.cuh, shared with
+//    stencil_match.cu); its value row, or -1, goes to shared memory, and a
+//    mask records which taps found a row anywhere in the block. A tap that
+//    no query of the block found is skipped below.
 // 2. For each live tap and each chunk of 32 input channels, the matched
 //    value rows (0 for a miss) and the weight tile go to shared memory,
 //    and each thread accumulates a RQ x 4 tile of outputs in float32
@@ -42,6 +43,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "stencil_taps.cuh"
 
 namespace {
 
@@ -76,36 +79,20 @@ __global__ void __launch_bounds__(kThreads)
   const long long b = blockIdx.z;
   const int tid = threadIdx.x;
   const int q0 = blk * qblock;
-  const int table = s * seg;
   const int* sids = seg_ids + (b * nqb + blk) * s;
   const int* kb = keys + b * npad;
 
   if (tid == 0) tap_mask = 0u;
-  for (int t = tid; t < table; t += kThreads)
-    key_s[t] = kb[(long long)sids[t / seg] * seg + t % seg];
+  stencil::load_table(key_s, kb, sids, s, seg);
   __syncthreads();
 
   unsigned found = 0u;
   for (int e = tid; e < qblock * k; e += kThreads) {
     const int qi = e / k, kk = e % k;
-    int row = -1;
     const int key =
         q0 + qi < q ? qkeys[(b * q + q0 + qi) * k + kk] : -1;
-    if (key >= 0) {
-      for (int si = 0; si < s; ++si) {
-        const int* sk = key_s + si * seg;
-        if (key < sk[0] || key > sk[seg - 1]) continue;
-        int lo = 0, hi = seg - 1;  // first position with sk[pos] >= key
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (sk[mid] < key) lo = mid + 1; else hi = mid;
-        }
-        if (sk[lo] == key) {
-          row = sids[si] * seg + lo;
-          break;
-        }
-      }
-    }
+    const int pos = stencil::find_tap(key_s, s, seg, key);
+    const int row = pos >= 0 ? sids[pos / seg] * seg + pos % seg : -1;
     row_s[e] = row;
     if (row >= 0) found |= 1u << kk;
   }

@@ -2,8 +2,10 @@
 
 from . import augment, samplers, utils
 from .base_dataset import BaseDataset, BaseDatasetSplit
+from .customdataset import Custom3D
 from .inference_dummy import InferenceDummySplit
 from .synthetic import SyntheticShapes, make_semseg_scene
 
 __all__ = ["augment", "samplers", "utils", "BaseDataset", "BaseDatasetSplit",
-           "InferenceDummySplit", "SyntheticShapes", "make_semseg_scene"]
+           "Custom3D", "InferenceDummySplit", "SyntheticShapes",
+           "make_semseg_scene"]

@@ -20,7 +20,7 @@ from os.path import exists, join
 
 import numpy as np
 
-from ..utils import make_dir
+from ..utils import DATASET, make_dir
 from .base_dataset import BaseDataset, BaseDatasetSplit
 
 _SPLIT_SEEDS = {"train": 0, "training": 0, "val": 1, "validation": 1,
@@ -178,6 +178,7 @@ class _SyntheticSplit(BaseDatasetSplit):
                 "path": self.path_list[idx], "split": self.split}
 
 
+@DATASET.register_module()
 class SyntheticShapes(BaseDataset):
     """Procedural semseg dataset; no files, fully seeded. Scene ``idx`` of
     a split is ``make_semseg_scene(num_points_per_cloud, seed * 100003 +

@@ -27,9 +27,15 @@ sum in float32; BatchNorm, the shortcut and the head stay float32.
 Site caps and segment tables can fall short of a scene: the net keeps the
 counts of its last forward in ``overflow`` (device tensors, read without a
 synchronisation inside ``forward``) and logs the JAX package's warning when
-one is not 0 and ``warn_on_overflow`` is set. Training (masked batch
-statistics, the stencil backward) is not ported yet: ``train()`` mode
-raises in BatchNorm.
+one is not 0 and ``warn_on_overflow`` is set.
+
+Training runs on the stencil path: BatchNorm takes the masked statistics
+of the whole [B, V] batch, and each ``stencil_conv`` whose values or weight
+need a gradient goes through ``StencilConv`` (the rulebook, the bucket
+gather and its backward). The hash path runs one sample at a time, so its
+batch statistics would be per sample where the JAX net's are the batch's:
+it raises in train mode. ``get_loss`` and ``get_optimizer`` are the
+training step's loss and its Adam.
 """
 
 import logging
@@ -40,6 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..datasets.augment import SemsegAugmentation
+from ..modules.losses import filter_valid_label
+from ..modules.schedulers import exponential_lr
 from ..ops.cuda.stencil import stencil_conv
 from ..ops.sparse import (SiteHash, apply_sparse_conv,
                           apply_sparse_conv_transpose, build_rulebook,
@@ -62,9 +70,17 @@ UP_QBLOCK = 128  # the up convolution's own query block (one live tap)
 
 
 def _stencil_weight(taps, cin, cout):
-    """[K, Cin, Cout] weight drawn as flax's variance_scaling(1, fan_in,
-    normal) draws it."""
-    return nn.Parameter(torch.randn(taps, cin, cout) / (taps * cin) ** 0.5)
+    """A [K, Cin, Cout] stencil weight, 0 until ``_draw_stencil`` draws it."""
+    return nn.Parameter(torch.zeros(taps, cin, cout))
+
+
+def _draw_stencil(weight, gen):
+    """Draw a [K, Cin, Cout] stencil weight from ``gen`` as flax's
+    variance_scaling(1, fan_in, normal) draws it: normal, std
+    1 / sqrt(K * Cin)."""
+    taps, cin = weight.shape[:2]
+    with torch.no_grad():
+        weight.normal_(0.0, (taps * cin) ** -0.5, generator=gen)
 
 
 class SubmanifoldConv(nn.Module):
@@ -75,10 +91,14 @@ class SubmanifoldConv(nn.Module):
     the tap order are the same on both.
     """
 
-    def __init__(self, cin, filters, compute_dtype=None):
+    def __init__(self, cin, filters, compute_dtype):
         super().__init__()
         self.weight = _stencil_weight(len(_OFFS27), cin, filters)
         self.compute_dtype = compute_dtype
+
+    def reset_parameters(self, gen):
+        """Draw the weight from ``gen``."""
+        _draw_stencil(self.weight, gen)
 
     def forward(self, feat, ctx, mask):
         if isinstance(ctx, StencilCtx):
@@ -129,7 +149,11 @@ class SparseConvUnetNet(nn.Module):
     ``forward({"point": [B, N, 3] voxel-unit coordinates (>= 0, < 1024),
     "feat": [B, N, in_channels], "point_mask": [B, N] bool})`` returns
     logits [B, N, num_classes]; a point in no kept voxel gets 0.
-    ``bn_momentum`` is flax's (0.99), as in the JAX net.
+    ``bn_momentum`` is flax's (0.99), as in the JAX net. The stencil
+    weights are 0 until ``reset_parameters(gen)`` of the net (its down and
+    up kernels) and of each ``SubmanifoldConv`` draws them, as flax's
+    ``init`` draws a net's variables from a key; ``SemanticSegmentation``
+    draws every weight from its seeded generator.
     """
 
     def __init__(self, in_channels, num_classes, multiplier=16,
@@ -183,6 +207,12 @@ class SparseConvUnetNet(nn.Module):
         self.final_bn = MaskedBatchNorm(planes[0], bn_eps, 1.0 - bn_momentum)
         self.linear = nn.Linear(planes[0], num_classes)
 
+    def reset_parameters(self, gen):
+        """Draw the net's own stencil weights (the down and up kernels,
+        in registration order) from ``gen``."""
+        for weight in self.parameters(recurse=False):
+            _draw_stencil(weight, gen)
+
     def _blocks(self, kind, level, feat, ctx, mask):
         for r in range(self.conv_block_reps):
             feat = getattr(self, f"l{level}_{kind}{r}")(feat, ctx, mask)
@@ -200,6 +230,11 @@ class SparseConvUnetNet(nn.Module):
         if self.conv_method == "bucket":
             logits, counters = self._forward_bucket(points, inputs["feat"],
                                                     pmask)
+        elif self.training:
+            raise NotImplementedError(
+                "SparseConvUnet hash path in train mode: it runs one sample "
+                "at a time, so its BatchNorm statistics would be per sample; "
+                "train on the stencil path (conv_method='bucket')")
         else:
             outs = [self._forward_hash(points[i], inputs["feat"][i],
                                        pmask[i])
@@ -577,6 +612,34 @@ class SparseConvUnet(BaseModel):
             "point_mask": mask,
             "point_inds": sel.astype(np.int32),
         }
+
+    def get_loss(self, loss, results, inputs):
+        """(loss, remapped labels [B * N], scores [B * N, num_classes]) of
+        logits ``results`` [B, N, num_classes] against the raw labels
+        ``inputs["label"]`` [B, N], over the valid labels of the points in
+        ``inputs["point_mask"]``; ``loss`` is a ``SemSegLoss``."""
+        cfg = self.cfg
+        labels = inputs["label"].reshape(-1)
+        scores = results.reshape(-1, cfg.num_classes)
+        remapped, valid = filter_valid_label(scores, labels, cfg.num_classes,
+                                             cfg.ignored_label_inds)
+        valid = valid & inputs["point_mask"].reshape(-1)
+        return (loss.weighted_cross_entropy(scores, remapped, valid),
+                remapped, scores)
+
+    def get_optimizer(self, cfg_pipeline, net):
+        """(Adam over ``net``'s parameters, its learning-rate scheduler).
+
+        The JAX package's ``optax.adam``: the learning rate ``optimizer.lr``
+        (else 1e-3), the betas ``optimizer.betas`` (else 0.9 and 0.999),
+        eps 1e-8, and no schedule (the JAX pipeline drops one, so
+        ``scheduler_gamma`` is not read): the scheduler keeps the rate.
+        """
+        opt = dict(cfg_pipeline.get("optimizer") or {})
+        b1, b2 = opt.get("betas", (0.9, 0.999))
+        optimizer = torch.optim.Adam(net.parameters(), lr=opt.get("lr", 1e-3),
+                                     betas=(b1, b2), eps=1e-8)
+        return optimizer, exponential_lr(optimizer, 1.0)
 
     def update_probs(self, inputs, results, test_probs):
         """Write each sample's class probabilities (softmax of its logits)

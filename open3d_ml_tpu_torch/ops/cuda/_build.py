@@ -3,8 +3,9 @@
 The sources under ``open3d_ml_tpu_torch/csrc/`` have a plain C interface.
 At first use each is compiled for ``sm_90a`` by its own ``nvcc``, all
 started together, and the objects are linked into one shared library under
-``csrc/build/``, named by a hash of the sources and flags, so an edited
-source builds anew and an unchanged one is loaded as it is.
+``csrc/build/``, named by a hash of the sources, their headers and the
+flags, so an edited source builds anew and an unchanged one is loaded as
+it is.
 """
 
 import ctypes
@@ -17,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("bucket_knn.cu", "bucket_gather.cu", "bucket_gather_bwd.cu",
-           "knn_exact.cu", "stencil_conv.cu")
+           "knn_exact.cu", "stencil_conv.cu", "stencil_match.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -44,6 +45,10 @@ ENTRY_POINTS = {
     # S, seg, qblock, round_bf16, stream
     "stencil_conv_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _P),
+    # keys, qkeys, seg_ids, rel, found, B, npad, Q, K, nqb, S, seg, qblock,
+    # stream
+    "stencil_match_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P),
 }
 
 
@@ -61,8 +66,10 @@ def build():
     Returns (path of the library, seconds spent compiling; 0 when the
     library was already built)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        digest.update((CSRC / name).read_bytes())
+    # the sources and the headers they include
+    paths = [CSRC / name for name in SOURCES] + sorted(CSRC.glob("*.cuh"))
+    for path in paths:
+        digest.update(path.read_bytes())
     out = CSRC / "build" / f"libo3dtorch_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out, 0.0

@@ -19,8 +19,9 @@ Counterpart of ``open3d_ml_tpu/pipelines/semantic_segmentation.py``:
 The two nets share one ``state_dict``: ``net`` holds it (and the
 optimizer updates it), and the eval net takes a copy before each test or
 inference. Both live on ``device``. The weights start from a generator
-seeded by the pipeline's ``seed``, and so does the dropout's generator;
-load trained weights with ``net.load_state_dict`` (for JAX variables,
+seeded by the pipeline's ``seed``, and so does the dropout's generator
+where the net has a dropout; load trained weights with
+``net.load_state_dict`` (for JAX variables,
 ``utils.convert_jax.jax_to_state_dict``) or from a checkpoint.
 
 Checkpoints are ``torch.save`` files ``<logs_dir>/checkpoint/
@@ -39,6 +40,7 @@ import torch
 
 from ..dataloaders import BatchLoader, DefaultBatcher, PointCloudDataloader
 from ..datasets import InferenceDummySplit
+from ..models.common import MaskedBatchNorm
 from ..modules.losses import SemSegLoss
 from ..modules.metrics import SemSegMetric, confusion_matrix_device
 from ..utils import make_dir
@@ -49,17 +51,23 @@ log = logging.getLogger(__name__)
 
 
 def init_weights(net, gen):
-    """Draw ``net``'s weights from ``gen`` as torch's defaults do: a
-    Linear's weight and bias uniform in +-1/sqrt(fan_in), BatchNorm at the
-    identity."""
+    """Draw ``net``'s weights from ``gen``, module by module in registration
+    order: a Linear's weight and bias (where it has one) uniform in
+    +-1/sqrt(fan_in), as torch's defaults draw them; BatchNorm at the
+    identity; any other module with a ``reset_parameters(gen)`` (the
+    SparseConvUnet net and its convolutions, for their stencil weights)
+    draws its own."""
     with torch.no_grad():
         for module in net.modules():
             if isinstance(module, torch.nn.Linear):
                 bound = module.in_features ** -0.5
                 module.weight.uniform_(-bound, bound, generator=gen)
-                module.bias.uniform_(-bound, bound, generator=gen)
-            elif isinstance(module, torch.nn.BatchNorm1d):
+                if module.bias is not None:
+                    module.bias.uniform_(-bound, bound, generator=gen)
+            elif isinstance(module, (torch.nn.BatchNorm1d, MaskedBatchNorm)):
                 module.reset_parameters()
+            elif hasattr(module, "reset_parameters"):
+                module.reset_parameters(gen)
     return net
 
 
@@ -83,7 +91,8 @@ class SemanticSegmentation(BasePipeline):
         top = np.iinfo(np.int32).max
         gen = torch.Generator().manual_seed(int(self.rng.integers(top)))
         self.net = init_weights(model.get_net(), gen).to(self.device)
-        self.net.dropout.manual_seed(int(self.rng.integers(top)))
+        if hasattr(self.net, "dropout"):
+            self.net.dropout.manual_seed(int(self.rng.integers(top)))
         self.eval_net = model.get_eval_net().to(self.device).eval()
         self.optimizer = self.scheduler = None
 

@@ -4,7 +4,8 @@ the port."""
 from .config import Config
 from .convert_jax import load_jax_variables, state_dict_to_jax
 from .dataset_helper import Cache, get_hash, make_dir
-from .registry import MODEL, PIPELINE, SAMPLER
+from .registry import DATASET, MODEL, PIPELINE, SAMPLER
 
-__all__ = ["MODEL", "PIPELINE", "SAMPLER", "Cache", "Config", "get_hash",
+__all__ = ["DATASET", "MODEL", "PIPELINE", "SAMPLER", "Cache", "Config",
+           "get_hash",
            "load_jax_variables", "make_dir", "state_dict_to_jax"]

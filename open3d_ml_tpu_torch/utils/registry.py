@@ -36,5 +36,6 @@ class Registry:
 MODEL = Registry("model")
 PIPELINE = Registry("pipeline")
 SAMPLER = Registry("sampler")
+DATASET = Registry("dataset")
 
-__all__ = ["MODEL", "PIPELINE", "SAMPLER", "Registry"]
+__all__ = ["DATASET", "MODEL", "PIPELINE", "SAMPLER", "Registry"]

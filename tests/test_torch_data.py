@@ -107,8 +107,9 @@ def test_training_augmentations_equal():
             SemsegAugmentation(aniso).augment(pc, None, None, aniso,
                                               seed=gen_p)[0],
             JaxAugment(aniso).augment(pc, None, None, aniso, seed=gen_j)[0])
-    with pytest.raises(NotImplementedError, match="RandomDropout"):
-        SemsegAugmentation({}).augment(pc, None, None, {"RandomDropout": {}})
+    with pytest.raises(NotImplementedError, match="HueSaturation"):
+        SemsegAugmentation({}).augment(pc, None, None,
+                                       {"HueSaturationTranslation": {}})
     with pytest.raises(NotImplementedError, match="all"):
         SemsegAugmentation({}).augment(pc, None, None,
                                        {"rotate": {"method": "all"}})

@@ -154,8 +154,9 @@ def test_augment_recenter_normalize_equal():
     want = JaxAugment(cfg).augment(pc.copy(), feat.copy(), None, cfg)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
-    with pytest.raises(NotImplementedError, match="RandomDropout"):
-        SemsegAugmentation({}).augment(pc, feat, None, {"RandomDropout": {}})
+    with pytest.raises(NotImplementedError, match="HueSaturation"):
+        SemsegAugmentation({}).augment(pc, feat, None,
+                                       {"HueSaturationTranslation": {}})
 
 
 def _cloud(n=1000, seed=7):

@@ -208,8 +208,14 @@ def test_masked_batch_norm_matches_flax():
     got = bn(torch.from_numpy(x), torch.from_numpy(mask)).detach().numpy()
     np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-6, atol=1e-6)
     assert (got[~mask] == 0).all()
-    with pytest.raises(NotImplementedError, match="training"):
-        bn.train()(torch.from_numpy(x), torch.from_numpy(mask))
+    # train mode: the masked batch statistics (gradients and the running
+    # update: tests/test_torch_scu_train.py)
+    ref = JaxMaskedBN(momentum=0.99, epsilon=1e-4, axis_name=None).apply(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x),
+        jnp.asarray(mask), training=True, mutable=["batch_stats"])[0]
+    got = bn.train()(torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_net_bn_constants():
@@ -299,10 +305,17 @@ def test_update_probs_matches_jax():
 
 
 def test_training_split_augmentation_is_not_ported():
-    data = {"point": np.zeros((10, 3), np.float32),
-            "feat": np.zeros((10, 3), np.float32)}
-    with pytest.raises(NotImplementedError, match="RandomDropout"):
-        SparseConvUnet().preprocess(data, {"split": "train"})
+    """The shipped recipe runs on the training split (bit-equal to the JAX
+    package's: tests/test_torch_scu_train.py); the one augmentation still
+    unported, ``HueSaturationTranslation``, raises there."""
+    data = {"point": np.random.default_rng(0).uniform(0, 2, (50, 3)),
+            "feat": np.full((50, 3), 100.0, np.float32)}
+    out = SparseConvUnet(seed=1).preprocess(data, {"split": "train"})
+    assert 0 < len(out["point"]) <= 50
+    augment = dict(SparseConvUnet().cfg.augment,
+                   HueSaturationTranslation={"hue_max": 0.5})
+    with pytest.raises(NotImplementedError, match="HueSaturationTranslation"):
+        SparseConvUnet(augment=augment).preprocess(data, {"split": "train"})
 
 
 def test_defaults_equal_shipped_yaml():
