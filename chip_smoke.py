@@ -83,7 +83,11 @@ Phases, one line each (or more), in this order:
    convolution's backward on the kernels against the same backward on the
    plain versions (dvalues and dw bit-equal on dyadic inputs at float32
    and bf16; dw within the float32 summation bound of a float64
-   reference).
+   reference); and ``bucket_gather`` and ``bucket_gather_bwd`` as that
+   backward calls them (misses reading table position 0, their
+   cotangents 0) at the level-0 post conv1, the deepest block and the
+   level-0 block of both requests as a batch of 2, with their
+   ``torch.gather`` and ``scatter_add_`` times.
 10. scu_train: ``run_train`` for one epoch of 6 steps of 8 x 65,536
    points and 2 validation steps, on 8 + 2 synthetic rooms of 6 m with
    RGB, written as ``Custom3D`` files; the launch counts of every step;
@@ -101,9 +105,11 @@ just after. Any failed check raises, so the exit code is not 0. The
 second-last line is a JSON record of the kernels (each with its bound: the
 larger of its bytes over 3.35 TB/s and its operations over the peak for
 their type, and the time of one PyTorch call that computes the same
-function where there is one), the last one ``{"ok": true, "device":
-...}``. There is no CPU fallback: without CUDA the script
-fails first.
+function where there is one; the gather's and its backward's times sum
+every shape they were checked at, RandLA's and SparseConvUnet's, and a
+line before names the shapes where either is slower than its library
+call), the last one ``{"ok": true, "device": ...}``. There is no CPU
+fallback: without CUDA the script fails first.
 """
 
 import collections
@@ -185,6 +191,10 @@ STENCIL_SHAPES = (("level-0 block", 27, 32, 32, 32),
                   ("level-0 down", 8, 32, 64, 32),
                   ("level-0 up", 8, 64, 32, 128),
                   ("deepest block", 27, 224, 224, 32))
+# the bucket gather and its backward are also checked where the stencil
+# backward calls them at these two, and at the level-0 block of both
+# requests as a batch of 2
+SCU_BUCKET_SHAPES = ("level-0 post conv1", "deepest block")
 
 
 def say(phase, msg):
@@ -386,6 +396,7 @@ def _gather_check(label, values, seg_ids, rel, seg, qblock):
     rows = cb._bucket_rows(seg_ids, rel, seg=seg, qblock=qblock)
     idx = rows.reshape(b, -1, 1).expand(-1, -1, c)
     library_ms = device_ms(lambda: torch.gather(values, 1, idx))
+    bounds = bound(nbytes(values, seg_ids, rel) + b * q * k * c * 4, 0)
     out = {}
     for round_bf16 in (False, True):
         kw = dict(seg=seg, qblock=qblock, round_bf16=round_bf16)
@@ -404,23 +415,25 @@ def _gather_check(label, values, seg_ids, rel, seg, qblock):
             f"S={seg_ids.shape[-1]} qblock={qblock} round_bf16={round_bf16}:"
             f" equal; device ms: kernel {ms:.4f}, plain {plain_ms:.4f}; call "
             f"span ms: kernel {span:.4f}, plain {plain_span:.4f}; "
-            f"torch.gather {library_ms:.4f}")
+            f"torch.gather {library_ms:.4f}; bound {bounds[0]:.4f} (bytes)")
         out[round_bf16] = kernel_record(
-            (got - ref).abs().max().item(), ms, plain_ms,
-            bound(nbytes(values, seg_ids, rel, got), 0), library_ms)
+            (got - ref).abs().max().item(), ms, plain_ms, bounds, library_ms)
     return out[True]
 
 
-def _gather_bwd_check(label, seg_ids, rel, npad, c, seg, qblock, gen):
+def _gather_bwd_check(label, seg_ids, rel, npad, c, seg, qblock, gen,
+                      mask=None):
     """bucket_gather_bwd against its plain version at one shape, rounding
     off and on: bit-equal on dyadic cotangents (integers in [-4096, 4096]
     over 64, whose sums are exact in float32 in any order), and on random
     normal ones within the bound of float32 summation in any order,
     |err| <= n * 2^-24 * sum |g| over a row's n readers, of a float64
-    reference. Returns its record with rounding on (error on normal
-    cotangents). Bound: the cotangents and tables read, the [B, npad, C]
-    gradient written, one float32 add per cotangent value. Library call:
-    ``scatter_add_`` of the same rows, their indices computed ahead."""
+    reference. Cotangent rows where the [B, Q, K] ``mask`` is False are 0,
+    as ``stencil_conv_bwd`` masks its misses. Returns its record with
+    rounding on (error on normal cotangents). Bound: the cotangents and
+    tables read, the [B, npad, C] gradient written, one float32 add per
+    cotangent value. Library call: ``scatter_add_`` of the same rows, their
+    indices computed ahead."""
     dev = rel.device
     shape = (*rel.shape, c)
     rows = cb._bucket_rows(seg_ids, rel, seg=seg, qblock=qblock)
@@ -428,9 +441,14 @@ def _gather_bwd_check(label, seg_ids, rel, npad, c, seg, qblock, gen):
     dyadic = torch.randint(-4096, 4097, shape, generator=gen,
                            device=dev).float() / 64
     normal = torch.randn(shape, generator=gen, device=dev)
+    if mask is not None:
+        dyadic = dyadic * mask[..., None]
+        normal = normal * mask[..., None]
     readers = cb.gather_bucket_bwd_plain(
         torch.ones(shape, dtype=torch.float64, device=dev), seg_ids, rel,
         npad, seg=seg, qblock=qblock, round_bf16=False)
+    bounds = bound(nbytes(normal, seg_ids, rel) + rel.shape[0] * npad * c * 4,
+                   normal.numel())
     out = {}
     for round_bf16 in (False, True):
         kw = dict(seg=seg, qblock=qblock, round_bf16=round_bf16)
@@ -466,11 +484,10 @@ def _gather_bwd_check(label, seg_ids, rel, npad, c, seg, qblock, gen):
             f"{err.max().item():.3e} vs float64, within n * 2^-24 * sum|g| "
             f"(max readers per row {int(readers.max().item())}); device ms: "
             f"kernel {ms:.4f}, plain {plain_ms:.4f}; call span ms: kernel "
-            f"{span:.4f}, plain {plain_span:.4f}")
-        out[round_bf16] = kernel_record(
-            err.max().item(), ms, plain_ms,
-            bound(nbytes(normal, seg_ids, rel) +
-                  rel.shape[0] * npad * c * 4, normal.numel()))
+            f"{span:.4f}, plain {plain_span:.4f}; bound {max(bounds):.4f} "
+            "(bytes)")
+        out[round_bf16] = kernel_record(err.max().item(), ms, plain_ms,
+                                        bounds)
     dv = torch.zeros((rel.shape[0], npad, c), device=dev)
     rows_g = normal.reshape(rel.shape[0], -1, c)
     out[True]["library_ms"] = device_ms(lambda: dv.scatter_add_(1, idx,
@@ -485,7 +502,9 @@ def phase_kernels(model_cfg):
     the level-0 search at the inference and the training budget; one
     neighbour, pool and upsample gather from the inference pyramid of the
     same batch and the level-0 neighbour gather from its training pyramid;
-    the gather backward at four shapes of the training step."""
+    the gather backward at four shapes of the training step. Returns the
+    search's record and the (label, record) pairs of the gather and of its
+    backward."""
     dev = torch.device(DEVICE)
     b, n = 4, model_cfg.num_points
     seg, qblock = model_cfg.seg, model_cfg.block
@@ -521,17 +540,20 @@ def phase_kernels(model_cfg):
     # gather (2 * 64 channels) and the decoder's first upsample (level 4's
     # 2 * 256 channels onto level 3)
     gathers = [
-        _gather_check(label, values(rows, c), *tables(pyr, name, level))
+        (f"RandLA level-{level} {label}",
+         _gather_check(label, values(rows, c), *tables(pyr, name, level)))
         for label, level, name, rows, c in (
             ("neighbour", 1, "nbr", n1, 35), ("pool", 1, "pool", n1, 128),
             ("upsample", 3, "up", n3 // 4, 512))]
-    gather = combine(gathers)
+    # the sum over these three shapes, printed on its own for comparison
+    gather = combine([rec for _, rec in gathers])
     say("kernels", f"bucket_gather, three shapes at round_bf16=True: device "
         f"ms: kernel {gather['ms']:.4f}, plain {gather['plain_ms']:.4f}, "
         f"torch.gather {gather['library_ms']:.4f}, bound "
         f"{gather['bound_ms']:.4f} in all")
-    _gather_check("training level-0 neighbour", values(n, 11),
-                  *tables(train_pyr, "nbr", 0))
+    gathers.append(("RandLA training level-0 neighbour", _gather_check(
+        "training level-0 neighbour", values(n, 11),
+        *tables(train_pyr, "nbr", 0))))
 
     # the largest gather of a training step (3 coords + 8 features at level
     # 0) and the three shapes above, at the training budget
@@ -542,15 +564,33 @@ def phase_kernels(model_cfg):
             ("level-1 pool", "pool", 1, n1, 128),
             ("level-3 upsample", "up", 3, n3 // 4, 512)):
         sids, rel, _, qb = tables(train_pyr, name, level)
-        bwds.append(_gather_bwd_check(label, sids, rel, -(-rows // seg) * seg,
-                                      c, seg, qb, gen))
-    bwd = combine(bwds)
+        bwds.append((f"RandLA training {label}", _gather_bwd_check(
+            label, sids, rel, -(-rows // seg) * seg, c, seg, qb, gen)))
+    # the sum over these four shapes, printed on its own for comparison
+    bwd = combine([rec for _, rec in bwds])
     say("kernels", f"bucket_gather_bwd, four shapes at round_bf16=True: "
         f"device ms: kernel {bwd['ms']:.4f}, plain {bwd['plain_ms']:.4f}, "
         f"scatter_add_ {bwd['library_ms']:.4f}, bound "
         f"{bwd['bound_ms']:.4f} in all")
-    return {"bucket_knn": knn, "bucket_gather": gather,
-            "bucket_gather_bwd": bwd}
+    return knn, gathers, bwds
+
+
+def bucket_summary(name, records, library):
+    """One kernel's (label, record) pairs at every checked shape as one
+    entry of the closing JSON line, and a line that names the shapes where
+    the kernel is slower than its library call."""
+    rec = combine([r for _, r in records])
+    slower = [f"{label} ({r['ms']:.4f} vs {r['library_ms']:.4f})"
+              for label, r in records if r["ms"] > r["library_ms"]]
+    say("kernels", f"{name}, {len(records)} shapes at round_bf16=True: "
+        f"device ms: kernel {rec['ms']:.4f}, plain {rec['plain_ms']:.4f}, "
+        f"{library} {rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} in "
+        f"all; kernel / {library} by shape: " +
+        ", ".join(f"{label} {r['ms'] / r['library_ms']:.3f}"
+                  for label, r in records) +
+        f"; share of bound: {rec['bound_ms'] / rec['ms']:.1%} in all; "
+        f"slower than {library} at: {'; '.join(slower) or 'no shape'}")
+    return rec
 
 
 def phase_knn_exact(model_cfg):
@@ -1445,13 +1485,37 @@ def _stencil_bwd_check(label, call, gen):
     return ms, plain_ms
 
 
+def _scu_bucket_checks(label, call, gen):
+    """bucket_gather and bucket_gather_bwd at one convolution, as its
+    backward (``stencil_conv_bwd``) calls them: the path's tables, the
+    rulebook from ``stencil_match`` with misses reading position 0, the
+    values padded to a multiple of seg, the cotangents of misses 0.
+    Returns their (label, record) pairs."""
+    seg, qblock = call["seg"], call["qblock"]
+    tabs = dict(seg=seg, qblock=qblock)
+    rel, found = cs.stencil_match(cs._pad_keys(call["keys"], seg),
+                                  call["qkeys"], call["seg_ids"], **tabs)
+    rel = torch.where(found, rel, 0)
+    values = call["values"]
+    vals = torch.nn.functional.pad(values, (0, 0, 0, (-values.shape[1]) % seg))
+    label = f"SCU {label}"
+    return ((label, _gather_check(label, vals, call["seg_ids"], rel, seg,
+                                  qblock)),
+            (label, _gather_bwd_check(label, call["seg_ids"], rel,
+                                      vals.shape[1], values.shape[2], seg,
+                                      qblock, gen, mask=found)))
+
+
 def phase_stencil(net, inputs, other):
     """The stencil kernel, the rulebook kernel and the convolution's
     backward at five convolutions of the room request's forward
     (``STENCIL_SHAPES``), and at its level-0 block with the ``other``
     request's beside it as a batch of 2 (the second row's offsets into
-    keys, tables and values). Returns the records of ``stencil_conv`` and
-    ``stencil_match`` over the five."""
+    keys, tables and values); the bucket gather and its backward as that
+    backward calls them at the batch of 2, the level-0 post conv1 and the
+    deepest block (``SCU_BUCKET_SHAPES``). Returns the records of
+    ``stencil_conv`` and ``stencil_match`` over the five, and the (label,
+    record) pairs of the gather and of its backward."""
     calls = _capture_stencil_calls(net, inputs)
     if len(calls) != SCU_FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} stencil_conv calls per forward")
@@ -1464,6 +1528,7 @@ def phase_stencil(net, inputs, other):
     _stencil_check(label, both, gen)
     _match_check(label, both)
     _stencil_bwd_check(label, both, gen)
+    buckets = [_scu_bucket_checks(label, both, gen)]
     records, matches, bwds = [], [], []
     for label, k, cin, cout, qblock in STENCIL_SHAPES:
         call = next(c for c in calls
@@ -1472,6 +1537,8 @@ def phase_stencil(net, inputs, other):
         records.append(_stencil_check(label, call, gen))
         matches.append(_match_check(label, call))
         bwds.append(_stencil_bwd_check(label, call, gen))
+        if label in SCU_BUCKET_SHAPES:
+            buckets.append(_scu_bucket_checks(label, call, gen))
     rec, match = combine(records), combine(matches)
     say("kernels", f"stencil_conv, five shapes at bfloat16: device ms: "
         f"kernel {rec['ms']:.4f}, plain {rec['plain_ms']:.4f}, bound "
@@ -1483,7 +1550,7 @@ def phase_stencil(net, inputs, other):
     say("kernels", f"stencil_conv backward, five shapes at bfloat16: device "
         f"ms: kernels {sum(m for m, _ in bwds):.4f}, plain versions "
         f"{sum(p for _, p in bwds):.4f} in all")
-    return rec, match
+    return rec, match, [g for g, _ in buckets], [b for _, b in buckets]
 
 
 def _stencil_share(net, inputs):
@@ -1545,8 +1612,9 @@ def phase_scu(card):
     preprocess -> transform -> batch -> the stencil forward ->
     update_probs, the stencil kernel checks, the card against the CPU and
     the hash path, and the forward's time. Returns (launch counts of the
-    two served forwards, the records of the stencil and rulebook
-    kernels)."""
+    two served forwards, the records of the stencil and rulebook kernels,
+    the (label, record) pairs of the bucket gather and of its backward at
+    SparseConvUnet's shapes)."""
     model = MODEL.get("SparseConvUnet")(seed=SEED)
     cfg = model.cfg
     n, classes = cfg.num_points, cfg.num_classes
@@ -1560,8 +1628,8 @@ def phase_scu(card):
         inputs[name] = _scu_inputs(model, data)
         with torch.no_grad():
             net(inputs[name][1])  # warm-up
-    stencil, match = phase_stencil(net, inputs["room"][1],
-                                   inputs["bench"][1])
+    stencil, match, gathers, bwds = phase_stencil(net, inputs["room"][1],
+                                                  inputs["bench"][1])
 
     torch.cuda.synchronize()
     reset_counts()
@@ -1655,7 +1723,7 @@ def phase_scu(card):
     say("scu", f"room forward under torch.profiler: {kernels} kernels, "
         f"{device_ms:.2f} ms device time in a {wall_ms:.2f} ms forward "
         f"(busy {device_ms / wall_ms:.1%}); by device time: {head}")
-    return launches, stencil, match
+    return launches, stencil, match, gathers, bwds
 
 
 def _scu_rooms(root, n):
@@ -1936,16 +2004,20 @@ def main():
     card = phase_device()
     model = MODEL.get("RandLANet")()
     phase_build()
-    measured = phase_kernels(model.cfg)
-    measured["knn_exact"] = phase_knn_exact(model.cfg)
+    knn, gathers, bwds = phase_kernels(model.cfg)
+    measured = {"bucket_knn": knn, "knn_exact": phase_knn_exact(model.cfg)}
     launches = phase_slice(model, card)
     # bucket_gather_bwd's launches are the training run's
     launches["bucket_gather_bwd"] = phase_train(card)["bucket_gather_bwd"]
     state = phase_eval(model, card)
     # knn_exact's launches are run_inference's, the main path of its slice
     launches["knn_exact"] = phase_inference(model, state, card)["knn_exact"]
-    scu_launches, measured["stencil_conv"], measured["stencil_match"] = (
-        phase_scu(card))
+    (scu_launches, measured["stencil_conv"], measured["stencil_match"],
+     scu_gathers, scu_bwds) = phase_scu(card)
+    measured["bucket_gather"] = bucket_summary(
+        "bucket_gather", gathers + scu_gathers, "torch.gather")
+    measured["bucket_gather_bwd"] = bucket_summary(
+        "bucket_gather_bwd", bwds + scu_bwds, "scatter_add_")
     launches["stencil_conv"] = scu_launches["stencil_conv"]
     # stencil_match's launches are SCU training's, the main path of its
     # slice

@@ -17,46 +17,68 @@
 // with each value rounded to bfloat16 (and widened back) when round_bf16
 // is set, as the TPU kernel's bf16 one-hot product rounded it.
 //
-// Bounds on the H100: device memory. The kernel reads one row of C floats
-// and writes one per output row, and the [B, Q, K, C] float32 output is
-// the largest tensor it touches.
+// Bounds on the H100: device memory. There is no arithmetic; the
+// [B, Q, K, C] float32 output goes through HBM once and is by far the
+// largest tensor (127 MB at RandLA's training level 0, 2.2 GB at the
+// SparseConvUnet level-0 convolutions of a batch of 8), while the values
+// (8 MB at RandLA level 0) are read from L2 about K times each.
 //
-// Design: one warp per output row (b, i, j), its lanes over the channels,
-// so a row is read and written by neighbouring lanes at neighbouring
-// addresses. The warp computes the row's source index once. Rows whose C
-// is much below 32 leave lanes idle; packing several rows into a warp is
-// left for later.
+// Design (bucket_walk.cuh): threads over the flat [B * Q * K, C] output in
+// memory order, so each warp stores 32 consecutive units and every line of
+// the output is written whole whatever C is; each row's source row is
+// computed once, by one lane, and handed to the row's other lanes by
+// shuffle; each warp takes one tile, and the grid holds every tile. Two
+// variants, both kernels: float4 units (16-byte loads and stores) where
+// C % 4 == 0 and both pointers are 16-byte aligned (SCU's 32 to 224
+// channels, RandLA's pool and upsample gathers), float units otherwise
+// (RandLA's 11 and 35 channels). The output is stored with the
+// streaming hint (__stcs): nothing reads it before the next operation, and
+// at the sizes that matter it does not fit in L2. Shared memory would
+// gain nothing: a query block reads about as many rows (qblock * K) as its
+// table holds, so there is no reuse to stage, and the loads are served
+// from L1 and L2 as they are.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "bucket_walk.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+// One warp per tile; the grid holds every tile.
+template <typename T, bool kRound>
+__global__ void __launch_bounds__(bucket::kThreads)
+    bucket_gather_kernel(const T* __restrict__ values, T* __restrict__ out,
+                         bucket::Tables t, int cu, int tile) {
+  const int lane = threadIdx.x & 31;
+  const long long r0 =
+      (((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * tile;
+  if (r0 >= t.rows) return;  // the whole warp
+  const int nrows = (int)min((long long)tile, t.rows - r0);
+  const int vrow = lane < nrows ? bucket::value_row(t, (int)r0 + lane) : 0;
+  bucket::walk_tile(r0, nrows, cu, bucket::Steps(lane, cu), vrow,
+                    [&](long long o, int v, int col, bool live) {
+                      if (!live) return;
+                      T x = __ldg(values + (long long)v * cu + col);
+                      if (kRound) x = bucket::round_bf16(x);
+                      __stcs(out + o, x);
+                    });
+}
 
-__global__ void bucket_gather_kernel(const float* __restrict__ values,
-                                     const int* __restrict__ seg_ids,
-                                     const int* __restrict__ rel,
-                                     float* __restrict__ out, long long rows,
-                                     int npad, int q, int k, int c, int nqb,
-                                     int s, int seg, int qblock,
-                                     int round_bf16) {
-  const long long r =
-      (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  if (r >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const long long bq = r / k;  // b * q + i
-  const int i = (int)(bq % q);
-  const long long b = bq / q;
-  const int rv = rel[r];
-  const long long sid = seg_ids[(b * nqb + i / qblock) * s + rv / seg];
-  const float* src = values + (b * npad + sid * seg + rv % seg) * c;
-  float* dst = out + r * c;
-  for (int ch = lane; ch < c; ch += 32) {
-    float v = src[ch];
-    if (round_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
-    dst[ch] = v;
-  }
+template <typename T, bool kRound>
+int launch(const float* values, float* out, const bucket::Tables& t, int cu,
+           cudaStream_t stream) {
+  const long long warps =
+      bucket::resident_blocks<bucket_gather_kernel<T, kRound>>(0) *
+      bucket::kWarpsPerBlock;
+  const int tile = bucket::tile_rows(t.rows, cu, warps);
+  const long long tiles = ((long long)t.rows + tile - 1) / tile;
+  const unsigned blocks =
+      (unsigned)((tiles + bucket::kWarpsPerBlock - 1) /
+                 bucket::kWarpsPerBlock);
+  bucket_gather_kernel<T, kRound><<<blocks, bucket::kThreads, 0, stream>>>(
+      reinterpret_cast<const T*>(values), reinterpret_cast<T*>(out), t, cu,
+      tile);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -65,12 +87,14 @@ extern "C" int bucket_gather_launch(const float* values, const int* seg_ids,
                                     const int* rel, float* out, int b,
                                     int npad, int q, int k, int c, int nqb,
                                     int s, int seg, int qblock,
-                                    int round_bf16, void* stream) {
-  const long long rows = (long long)b * q * k;
-  const long long blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  bucket_gather_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      values, seg_ids, rel, out, rows, npad, q, k, c, nqb, s, seg, qblock,
-      round_bf16);
-  return cudaGetLastError();
+                                    int round_bf16, int vec4, void* stream) {
+  const bucket::Tables t{seg_ids, rel, b * q * k, npad, q, k, nqb, s, seg,
+                         qblock};
+  if (t.rows == 0 || c == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec4)
+    return round_bf16 ? launch<float4, true>(values, out, t, c / 4, st)
+                      : launch<float4, false>(values, out, t, c / 4, st);
+  return round_bf16 ? launch<float, true>(values, out, t, c, st)
+                    : launch<float, false>(values, out, t, c, st);
 }

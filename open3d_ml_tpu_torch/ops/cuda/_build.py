@@ -32,13 +32,13 @@ ENTRY_POINTS = {
     "bucket_knn_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P),
     # values, seg_ids, rel, out, B, npad, Q, K, C, nqb, S, seg, qblock,
-    # round_bf16, stream
+    # round_bf16, vec4, stream
     "bucket_gather_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _P),
+                             _I, _I, _I, _P),
     # g, seg_ids, rel, dvalues, B, npad, Q, K, C, nqb, S, seg, qblock,
-    # round_bf16, stream
+    # round_bf16, vec4, stream
     "bucket_gather_bwd_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _I, _P),
+                                 _I, _I, _I, _I, _P),
     # points, queries, mask (or NULL), idx, d2, B, N, Q, k, stream
     "knn_exact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # values, keys, qkeys, seg_ids, w, out, B, V, npad, Q, K, Cin, Cout, nqb,

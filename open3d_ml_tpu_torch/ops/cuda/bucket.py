@@ -8,6 +8,10 @@ other route. ``LAUNCHES`` counts the kernel launches each wrapper made, so
 a run can show that it went through them. ``BucketGather`` is the gather
 with its gradient: its forward is ``gather_bucket`` and its backward
 ``gather_bucket_bwd``, on either route.
+
+The gather and its backward each have two kernel variants, chosen per call
+by ``float4_units``: 16-byte units where C is a multiple of 4 and the
+row-strided tensors are 16-byte aligned, 4-byte units otherwise.
 """
 
 import torch
@@ -20,6 +24,8 @@ KNN_KS = (1, 16)
 # bucket_knn stages its table (S * seg points, 12 bytes each) in the 48 KB
 # of shared memory a block gets without opting in
 KNN_TABLE_BYTES = 48 * 1024
+# the gather kernels index rows and value rows with 32-bit integers
+GATHER_MAX_ROWS = 2**31 - 1
 
 
 # ----------------------------------------------------------------- bucket KNN
@@ -136,6 +142,17 @@ def _check_gather(values_shape, seg_ids, rel, seg, qblock):
     if npad % seg or nqb * qblock < q:
         raise ValueError(f"bad bucket shapes: npad {npad}, seg {seg}, Q {q}, "
                          f"qblock {qblock}, nqb {nqb}")
+    if max(rel.numel(), b * npad) > GATHER_MAX_ROWS:
+        raise ValueError(f"{rel.numel()} gathered rows or {b * npad} value "
+                         f"rows: more than {GATHER_MAX_ROWS}")
+
+
+def float4_units(c, *tensors):
+    """Whether the gather kernels move rows of ``c`` float32 channels in
+    16-byte units: ``c`` a multiple of 4 and every tensor's data 16-byte
+    aligned (a view at a storage offset may not be). Otherwise they move
+    4-byte units."""
+    return c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def gather_bucket(values, seg_ids, rel, *, seg, qblock, round_bf16):
@@ -161,7 +178,7 @@ def gather_bucket(values, seg_ids, rel, *, seg, qblock, round_bf16):
     err = library().bucket_gather_launch(
         values.data_ptr(), seg_ids.data_ptr(), rel.data_ptr(),
         out.data_ptr(), b, npad, q, k, c, nqb, s, seg, qblock,
-        int(round_bf16), stream())
+        int(round_bf16), int(float4_units(c, values, out)), stream())
     raise_on(err, "bucket_gather")
     LAUNCHES["bucket_gather"] += 1
     return out
@@ -211,7 +228,8 @@ def gather_bucket_bwd(g, seg_ids, rel, npad, *, seg, qblock, round_bf16):
     dvalues = torch.zeros((b, npad, c), dtype=torch.float32, device=dev)
     err = library().bucket_gather_bwd_launch(
         g.data_ptr(), seg_ids.data_ptr(), rel.data_ptr(), dvalues.data_ptr(),
-        b, npad, q, k, c, nqb, s, seg, qblock, int(round_bf16), stream())
+        b, npad, q, k, c, nqb, s, seg, qblock, int(round_bf16),
+        int(float4_units(c, g, dvalues)), stream())
     raise_on(err, "bucket_gather_bwd")
     LAUNCHES["bucket_gather_bwd"] += 1
     return dvalues

@@ -301,22 +301,67 @@ def _jax_gather_bwd(monkeypatch, g, seg_ids, rel, npad, seg, qblock, dtype,
     return np.asarray(vjp(jnp.asarray(g))[0])
 
 
+def _kernel_cases(kernels):
+    """Cases (kernel, qblock, Q, K, C) of a gather kernel test: the two
+    TPU kernels at K 4 and C 8, then the channel counts where the CUDA
+    kernels change variant (11 and 35: float units; 64 and 128: float4
+    units) at both table layouts, with Q not a multiple of qblock. The
+    first two cases' ids name only the kernel, qblock and Q."""
+    wide, flat = kernels
+    cases = [pytest.param(wide, 128, 256, 4, 8, id=f"{wide}-128-256"),
+             pytest.param(flat, 32, 128, 4, 8, id=f"{flat}-32-128")]
+    for c in (11, 35, 64, 128):
+        for path, qblock, q, k in ((wide, 128, 200, 16), (flat, 32, 100, 27)):
+            cases.append(pytest.param(path, qblock, q, k, c,
+                                      id=f"{path}-{qblock}-{q}-K{k}-C{c}"))
+    return cases
+
+
+@pytest.mark.parametrize("round_bf16", [False, True])
+@pytest.mark.parametrize("path, qblock, q, k, c", _kernel_cases(
+    ("_gather_kernel", "_gather_flat_kernel")))
+def test_gather_plain_matches_tpu_kernels(monkeypatch, path, qblock, q, k,
+                                          c, round_bf16):
+    """TPU kernel 2 (qblock 128: K one-hot products per block) and kernel
+    3 (qblock 32: one flat product over grouped blocks) in Mosaic
+    interpret mode against the plain gather: equal bits, the values
+    rounded to bf16 exactly where the kernel's bf16 product rounds them
+    (``round_bf16``), exact at float32."""
+    seg_ids, rel, _, npad, seg = _bwd_case(qblock, q, s=4, k=k, c=c, seed=23)
+    values = np.random.default_rng(24).standard_normal(
+        (B, npad, c)).astype(np.float32)
+    called = []
+    kern = getattr(pb, path)
+    monkeypatch.setattr(pb, path, lambda *a, **kw: called.append(1) or
+                        kern(*a, **kw))
+    monkeypatch.setattr(pb, "_INTERPRET_KERNEL", True)
+    jax.clear_caches()
+    want = pb.gather_pallas(jnp.asarray(values), jnp.asarray(seg_ids),
+                            jnp.asarray(rel), seg, qblock,
+                            jnp.bfloat16 if round_bf16 else jnp.float32, True)
+    assert called, f"{path} did not run"
+    got = cb.gather_bucket(torch.from_numpy(values),
+                           torch.from_numpy(seg_ids), torch.from_numpy(rel),
+                           seg=seg, qblock=qblock, round_bf16=round_bf16)
+    assert got.shape == (B, q, k, c)
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
 @pytest.mark.parametrize("cotangent", ["dyadic", "normal"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("path, qblock, q", [
-    ("_gather_bwd_kernel", 128, 256),
-    ("_gather_bwd_flat_kernel", 32, 128)])
+@pytest.mark.parametrize("path, qblock, q, k, c", _kernel_cases(
+    ("_gather_bwd_kernel", "_gather_bwd_flat_kernel")))
 def test_gather_bwd_plain_matches_tpu_kernels(monkeypatch, path, qblock, q,
-                                              dtype, cotangent):
+                                              k, c, dtype, cotangent):
     """TPU kernel 4 (qblock >= 128: K one-hot products per block) and
-    kernel 5 (qblock 32 < 128: one flat product over group = 4 blocks)
+    kernel 5 (qblock 32 < 128: one flat product over grouped blocks)
     in Mosaic interpret mode against the plain backward, rounding the
     cotangents to bf16 exactly where the kernel's bf16 product does.
     Dyadic cotangents: equal bits. Normal ones: the sums run in other
     orders, each within the float32 summation bound n * 2^-24 * sum |g|
     of the exact sum over a value row's n readers, so the two are within
     twice that of each other."""
-    seg_ids, rel, gs, npad, seg = _bwd_case(qblock, q)
+    seg_ids, rel, gs, npad, seg = _bwd_case(qblock, q, k=k, c=c)
     g = gs[cotangent]
     round_bf16 = dtype == "bfloat16"
     called = []
@@ -416,6 +461,76 @@ def test_gather_bwd_checks_its_shapes(search):
     with pytest.raises(ValueError, match="bad bucket shapes"):
         cb.gather_bucket_bwd(torch.zeros((B, N, K, 3)), seg_ids, rel, N + 1,
                              seg=SEG, qblock=QBLOCK, round_bf16=False)
+
+
+def test_float4_units_choice():
+    """The gather kernels move 16-byte units only where C is a multiple of
+    4 and every row-strided tensor is 16-byte aligned; a view at a storage
+    offset of one float is not, and gets 4-byte units."""
+    aligned = torch.zeros((B, 64, 64))
+    assert cb.float4_units(64, aligned, torch.zeros((B, 8, 4, 64)))
+    assert cb.float4_units(128, aligned)
+    assert not cb.float4_units(11, torch.zeros((B, 64, 11)))
+    assert not cb.float4_units(35, torch.zeros((B, 64, 35)))
+    shifted = torch.zeros(B * 64 * 64 + 1)[1:].view(B, 64, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    assert not cb.float4_units(64, shifted)
+    assert not cb.float4_units(64, aligned, shifted)
+    # a storage offset of a whole row keeps the alignment
+    assert cb.float4_units(64, torch.zeros((B + 1, 64, 64))[1:])
+
+
+def test_gather_wrappers_pass_the_variant(monkeypatch, search):
+    """On the kernel route each wrapper hands its entry point the variant
+    that ``float4_units`` picks for its own tensors (values and out, g and
+    dvalues), and counts one launch per call."""
+    from open3d_ml_tpu_torch.ops.cuda import _build
+    calls = []
+
+    class Library:
+        def bucket_gather_launch(self, *args):
+            calls.append(("gather", args))
+            return 0
+
+        def bucket_gather_bwd_launch(self, *args):
+            calls.append(("bwd", args))
+            return 0
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(cb, "route", lambda t, family: "kernel")
+    monkeypatch.setattr(cb, "stream", lambda: 0)
+    monkeypatch.setattr(cb, "LAUNCHES", dict.fromkeys(cb.LAUNCHES, 0))
+    seg_ids, rel = search["seg_ids"], torch.from_numpy(search["rel"])
+    kw = dict(seg=SEG, qblock=QBLOCK, round_bf16=True)
+    shifted = torch.zeros(B * N * 64 + 1)[1:].view(B, N, 64)
+    for values, vec4 in ((torch.zeros((B, N, 64)), 1),
+                         (torch.zeros((B, N, 11)), 0), (shifted, 0)):
+        c = values.shape[2]
+        cb.gather_bucket(values, seg_ids, rel, **kw)
+        g = (torch.zeros((B, N, K, c)) if vec4 or c % 4 else
+             torch.zeros(B * N * K * c + 1)[1:].view(B, N, K, c))
+        cb.gather_bucket_bwd(g, seg_ids, rel, N, **kw)
+        for kind, args in calls[-2:]:
+            # ..., C at 8, ..., round_bf16, vec4, stream
+            assert (args[8], args[-3], args[-2]) == (c, 1, vec4), kind
+    assert cb.LAUNCHES == {"bucket_knn": 0, "bucket_gather": 3,
+                           "bucket_gather_bwd": 3}
+
+
+def test_gather_refuses_rows_past_32_bits():
+    """The kernels index rows and value rows with 32-bit integers: more
+    than 2^31 - 1 gathered rows are refused on either route."""
+    meta = dict(device="meta")
+    values = torch.empty((1, 64, 4), **meta)
+    seg_ids = torch.empty((1, 2**31 // 128 + 1, 1), dtype=torch.int32,
+                          **meta)
+    rel = torch.empty((1, 2**31, 1), dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="2147483647"):
+        cb.gather_bucket(values, seg_ids, rel, seg=64, qblock=128,
+                         round_bf16=False)
+    with pytest.raises(ValueError, match="2147483647"):
+        cb.gather_bucket_bwd(torch.empty((1, 2**31, 1, 4), **meta), seg_ids,
+                             rel, 64, seg=64, qblock=128, round_bf16=False)
 
 
 def test_knn_refuses_a_table_past_shared_memory():
