@@ -38,7 +38,10 @@ Run from the root of the repository, with one card:
 
 ``python3 chip_smoke.py --step-branches`` runs only that float32 training
 step against the CPU, on the patches of model seeds 0-3, with the CPU on
-its own branches and on the card's.
+its own branches and on the card's. ``python3 chip_smoke.py
+--stencil-calls`` times only the room request's 39 stencil convolutions,
+alone and inside a forward; copied into a checkout of another version of
+the port, it times that version the same way.
 
 Phases, one line each (or more), in this order:
 
@@ -67,19 +70,27 @@ Phases, one line each (or more), in this order:
    wall time and where it went, and points labelled per second.
 8. kernels (stencil_conv): the stencil kernel against its plain version at
    five convolutions of the room request's forward (its keys and tables,
-   new values and weights): bit-equal on dyadic inputs at float32 and
-   bf16, within the float32 summation bound of a float64 reference on
-   normal ones; its time, the plain version's and its bound.
+   new values and weights), after a check of the kernels' precondition
+   (the keys of each batch row ascend): bit-equal on dyadic inputs at
+   float32 and bf16, within the float32 summation bound of a float64
+   reference on normal ones; its time, the plain version's and its bound.
+   Then each of the forward's 39 convolutions timed alone, by level,
+   form, K, Cin -> Cout and Q; the two heaviest, the input convolution
+   (Cin 3) and the level-0 block with tables of S = 32 and 48 (2,048 and
+   3,072 rows) checked as the five are; both stencil kernels bit-equal on
+   synthetic rulebooks the request does not make (repeated table ids,
+   all-pad segments, pad-key taps, seg 16, S 3-40, odd widths).
 9. scu: the two requests served, with 39 ``stencil_conv`` launches each
    and no other kernel; their overflow counters; finite logits and
    probabilities; the card against the CPU (float32: relative L2 <= 1e-4;
    bf16 reported); on the room request the stencil path against the hash
    path on the card (gated at 1e-4 only when every counter is 0); the
-   median forward, points/s, peak memory and the stencil calls' share of
-   one forward. Beside the stencil kernel, at the same five convolutions:
+   median forward, points/s, peak memory and the stencil calls' device
+   time in one forward. Beside the stencil kernel, at the same shapes:
    ``stencil_match`` against its plain version (rel and found bit-equal,
    misses included; its time, the plain version's, one batched
-   ``torch.searchsorted`` as the library call, and its bound), and the
+   ``torch.searchsorted`` as the library call, and its bound; a line
+   names any shape where it is slower than the library call), and the
    convolution's backward on the kernels against the same backward on the
    plain versions (dvalues and dw bit-equal on dyadic inputs at float32
    and bf16; dw within the float32 summation bound of a float64
@@ -133,6 +144,8 @@ from open3d_ml_tpu_torch.models import randlanet as trl
 from open3d_ml_tpu_torch.models import sparseconvunet as tscu
 from open3d_ml_tpu_torch.modules.losses import SemSegLoss
 from open3d_ml_tpu_torch.ops import bucket as tb
+from open3d_ml_tpu_torch.ops import sparse as tsp
+from open3d_ml_tpu_torch.ops import sparse_bucket as tsb
 from open3d_ml_tpu_torch.ops.cuda import _build
 from open3d_ml_tpu_torch.ops.cuda import bucket as cb
 from open3d_ml_tpu_torch.ops.cuda import knn as ck
@@ -195,6 +208,20 @@ STENCIL_SHAPES = (("level-0 block", 27, 32, 32, 32),
 # backward calls them at these two, and at the level-0 block of both
 # requests as a batch of 2
 SCU_BUCKET_SHAPES = ("level-0 post conv1", "deepest block")
+# the level-0 block is also checked with wider tables than the config's
+# S = 16: how many more taps they find, and the kernels past 32 slots
+SCU_WIDE_SEGS = (32, 48)
+# both stencil kernels on synthetic rulebooks that reach cases the room
+# request does not: (form, seg, qblock, S), seg 16 taking the kernels'
+# run-time seg and 64 the compiled one, S past 32 ordering a table in
+# shared memory; every other rulebook repeats ids inside its tables
+STENCIL_EDGE_CASES = (("sub", 64, 32, 16), ("sub", 64, 32, 32),
+                      ("sub", 16, 32, 8), ("down", 64, 32, 16),
+                      ("up", 64, 128, 16), ("up", 16, 128, 4),
+                      ("sub", 64, 64, 3), ("sub", 16, 32, 40))
+# their convolutions' Cin -> Cout; 3 -> 32 and 35 -> 37 take the bf16
+# kernel's 4-byte copies
+STENCIL_EDGE_WIDTHS = ((3, 32), (32, 32), (64, 96), (224, 224), (35, 37))
 
 
 def say(phase, msg):
@@ -1281,6 +1308,15 @@ def _capture_stencil_calls(net, inputs):
     return calls
 
 
+def _keys_ascend(label, keys, seg):
+    """The stencil kernels' precondition on one shape of the path: the keys
+    of each batch row ascend, pad keys INT32_MAX at the end."""
+    padded = cs._pad_keys(keys, seg)
+    if not bool((padded[:, 1:] >= padded[:, :-1]).all()):
+        raise AssertionError(f"stencil {label}: the keys of a batch row do "
+                             "not ascend, the kernels' precondition")
+
+
 def _stencil_check(label, call, gen):
     """stencil_conv against its plain version on one convolution of the
     path: the path's keys, tap keys and tables, new values and weights;
@@ -1299,6 +1335,7 @@ def _stencil_check(label, call, gen):
     k, cin, cout = w.shape
     tabs = dict(seg=call["seg"], qblock=call["qblock"])
     dev = values.device
+    _keys_ascend(label, keys, tabs["seg"])
 
     def both(v, ww, dtype):
         return (cs.stencil_conv(v, keys, qkeys, seg_ids, ww, **tabs,
@@ -1506,16 +1543,160 @@ def _scu_bucket_checks(label, call, gen):
                                       qblock, gen, mask=found)))
 
 
-def phase_stencil(net, inputs, other):
+def _edge_sites(b, cap, box, seed):
+    """[b, cap] distinct random sites in a box, uneven valid counts,
+    Morton-sorted by ``sort_sites``: (coords, mask, key, inv_perm)."""
+    rng = np.random.default_rng(seed)
+    coords = np.zeros((b, cap, 3), np.int32)
+    mask = np.zeros((b, cap), bool)
+    for i in range(b):
+        c = np.unique(rng.integers(0, box, (cap * 2, 3)), axis=0)
+        rng.shuffle(c)
+        n = min(len(c), cap - 7 + i)
+        coords[i, :n] = c[:n]
+        mask[i, :n] = True
+    return tsb.sort_sites(torch.from_numpy(coords), torch.from_numpy(mask))
+
+
+def _edge_rulebook(form, seg, qblock, s, b=2, cap=3000, box=24):
+    """(keys, tap keys, tables) of one synthetic convolution of the given
+    form, the tables ranked by ``rank_site_segments`` as the net ranks
+    them."""
+    coords, mask, mkey, _ = _edge_sites(b, cap, box, SEED)
+    nv = mask.sum(1).to(torch.int32)
+    sup = tsb.support_points(coords, mask, seg)
+    child = torch.arange(8, dtype=torch.int32)
+    pc, pm, pk, off, _ = tsb.bucket_downsample(coords, mask, mkey, cap // 2)
+    npar = pm.sum(1).to(torch.int32)
+    rank = dict(seg=seg, qblock=qblock, num_segs=s)
+    if form == "sub":
+        qkeys = tsb.stencil_query_keys(coords, mask,
+                                       tsp.kernel_offsets(3, centered=True))
+        sids, _ = tsb.rank_site_segments(sup, nv, coords.float(), nv,
+                                         reach=1.74, **rank)
+        return mkey, qkeys, sids
+    if form == "down":
+        qkeys = torch.where(pm[..., None], (pk[..., None] << 3) | child, -1)
+        pq = torch.where(pm[..., None], (pc * 2).float(), 2e9)
+        sids, _ = tsb.rank_site_segments(sup, nv, pq, npar, reach=1.74,
+                                         **rank)
+        return mkey, qkeys, sids
+    qkeys = torch.where(mask[..., None] & (off[..., None] == child),
+                        (mkey >> 3)[..., None], -1)
+    fq = torch.where(mask[..., None], (coords >> 1).float(), 2e9)
+    sids, _ = tsb.rank_site_segments(tsb.support_points(pc, pm, seg), npar,
+                                     fq, nv, reach=0.1, **rank)
+    return pk, qkeys, sids
+
+
+def _stencil_edges(gen):
+    """Both stencil kernels against their plain versions on the synthetic
+    rulebooks of ``STENCIL_EDGE_CASES`` at B = 2: ``stencil_match`` with an
+    all-pad segment in some tables and pad-key taps (INT32_MAX: the least
+    position among the pads of several segments), ``stencil_conv`` at each
+    of ``STENCIL_EDGE_WIDTHS``, float32 and bf16, on dyadic inputs (any
+    summation order gives the same bits). Each must be bit-equal."""
+    convs = 0
+    for n, (form, seg, qblock, s) in enumerate(STENCIL_EDGE_CASES):
+        keys, qkeys, sids = (t.to(DEVICE)
+                             for t in _edge_rulebook(form, seg, qblock, s))
+        if n % 2:  # repeated ids
+            sids = sids.clone()
+            sids[..., -1] = sids[..., 0]
+            sids[..., 1] = sids[..., 0]
+        label = f"{form} seg {seg} qblock {qblock} S {sids.shape[-1]}"
+        tabs = dict(seg=seg, qblock=qblock)
+        padded = torch.nn.functional.pad(cs._pad_keys(keys, seg), (0, seg),
+                                         value=cs._I32MAX)
+        mq = qkeys.clone()
+        mq[:, ::5, 0] = cs._I32MAX
+        ms = sids.clone()
+        ms[:, 1::3, 0] = padded.shape[1] // seg - 1  # an all-pad segment
+        got = cs.stencil_match(padded, mq, ms, **tabs)
+        ref = cs.stencil_match_plain(padded, mq, ms, **tabs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"stencil_match {label}: differs from the "
+                                 "plain version")
+        k = qkeys.shape[-1]
+        for cin, cout in STENCIL_EDGE_WIDTHS:
+            v = torch.randint(-32, 33, (*keys.shape, cin), generator=gen,
+                              device=DEVICE).float() / 8
+            w = torch.randint(-32, 33, (k, cin, cout), generator=gen,
+                              device=DEVICE).float() / 16
+            for dtype in (torch.float32, torch.bfloat16):
+                got = cs.stencil_conv(v, keys, qkeys, sids, w, **tabs,
+                                      compute_dtype=dtype)
+                ref = cs.stencil_conv_plain(v, keys, qkeys, sids, w, **tabs,
+                                            compute_dtype=dtype)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"stencil_conv {label} {cin}->"
+                                         f"{cout} {dtype}: differs from the "
+                                         "plain version on dyadic inputs")
+                convs += 1
+    say("kernels", f"stencil kernels on {len(STENCIL_EDGE_CASES)} synthetic "
+        f"rulebooks (seg 16 and 64, qblock 32-128, S 3-40, repeated ids, "
+        f"all-pad segments, pad-key taps): stencil_match and {convs} "
+        f"convolutions ({', '.join(f'{i}->{o}' for i, o in STENCIL_EDGE_WIDTHS)}"
+        f"; float32 and bfloat16) equal to their plain versions")
+
+
+def _conv_table(net, calls):
+    """Device ms of each stencil_conv call of one forward, run again on its
+    captured arguments, by level, form (sub: 27 taps; down; up), K, Cin ->
+    Cout and Q. Returns [(label, call, ms)] in call order."""
+    rows = []
+    for call in calls:
+        k, cin, cout = call["w"].shape
+        q = call["qkeys"].shape[1]
+        form = ("sub" if k == 27 else
+                "down" if call["qblock"] == net.qblock else "up")
+        level = net.caps.index(q) - (form == "down")
+        args = [call[key] for key in ("values", "keys", "qkeys", "seg_ids",
+                                      "w")]
+        kw = {key: call[key] for key in ("seg", "qblock", "compute_dtype")}
+        ms = device_ms(lambda: cs.stencil_conv(*args, **kw))
+        rows.append((f"level-{level} {form} K={k} {cin}->{cout} Q={q}", call,
+                     ms))
+    return rows
+
+
+def _say_conv_table(table):
+    for i, (label, _, ms) in enumerate(table):
+        say("scu", f"stencil_conv {i:2d} {label}: {ms:.4f} device ms")
+    say("scu", f"stencil_conv, the {len(table)} calls of one room forward "
+        f"run one by one: {sum(ms for *_, ms in table):.4f} device ms")
+
+
+def _slower_line(name, records, library):
+    """One line naming the shapes where ``name`` is slower than its library
+    call, or saying it is slower at none; records are (label, record)."""
+    slow = [f"{label} ({r['ms']:.4f} vs {r['library_ms']:.4f})"
+            for label, r in records if r["ms"] > r["library_ms"]]
+    say("kernels", f"{name} slower than {library} at: {'; '.join(slow)}"
+        if slow else f"{name} no slower than {library} at any of the "
+        f"{len(records)} shapes")
+
+
+def phase_stencil(net, inputs, other, wides):
     """The stencil kernel, the rulebook kernel and the convolution's
     backward at five convolutions of the room request's forward
     (``STENCIL_SHAPES``), and at its level-0 block with the ``other``
     request's beside it as a batch of 2 (the second row's offsets into
     keys, tables and values); the bucket gather and its backward as that
     backward calls them at the batch of 2, the level-0 post conv1 and the
-    deepest block (``SCU_BUCKET_SHAPES``). Returns the records of
-    ``stencil_conv`` and ``stencil_match`` over the five, and the (label,
-    record) pairs of the gather and of its backward."""
+    deepest block (``SCU_BUCKET_SHAPES``). Then every convolution of the
+    forward timed by level and form; the kernel and the rulebook at the
+    two heaviest and at those whose Cin or Cout is not a multiple of 4
+    (the input convolution), where they are not among the five, and at
+    the level-0 block with the tables of each of ``wides`` (the same net
+    at num_segs 32 and 48, tables of 2,048 and 3,072 rows; past 32 slots
+    the kernels order a table in shared memory, not in one warp), whose
+    found taps stand beside S = 16's; then both kernels on synthetic
+    rulebooks (``_stencil_edges``). Returns the records
+    of ``stencil_conv`` and ``stencil_match`` over the five, and the
+    (label, record) pairs of the gather and of its backward."""
     calls = _capture_stencil_calls(net, inputs)
     if len(calls) != SCU_FORWARD_LAUNCHES:
         raise AssertionError(f"{len(calls)} stencil_conv calls per forward")
@@ -1526,16 +1707,19 @@ def phase_stencil(net, inputs, other):
             for key in pair[0]}
     label = "level-0 block, both requests"
     _stencil_check(label, both, gen)
-    _match_check(label, both)
+    searched = [(label, _match_check(label, both))]
     _stencil_bwd_check(label, both, gen)
     buckets = [_scu_bucket_checks(label, both, gen)]
     records, matches, bwds = [], [], []
+    five = []
     for label, k, cin, cout, qblock in STENCIL_SHAPES:
         call = next(c for c in calls
                     if tuple(c["w"].shape) == (k, cin, cout) and
                     c["qblock"] == qblock)
+        five.append(call)
         records.append(_stencil_check(label, call, gen))
         matches.append(_match_check(label, call))
+        searched.append((label, matches[-1]))
         bwds.append(_stencil_bwd_check(label, call, gen))
         if label in SCU_BUCKET_SHAPES:
             buckets.append(_scu_bucket_checks(label, call, gen))
@@ -1550,33 +1734,74 @@ def phase_stencil(net, inputs, other):
     say("kernels", f"stencil_conv backward, five shapes at bfloat16: device "
         f"ms: kernels {sum(m for m, _ in bwds):.4f}, plain versions "
         f"{sum(p for _, p in bwds):.4f} in all")
+
+    table = _conv_table(net, calls)
+    _say_conv_table(table)
+    heavy = sorted(table, key=lambda row: -row[2])[:2]
+    # widths not a multiple of 4 (the input convolution's Cin 3): the bf16
+    # kernel's 4-byte copies
+    narrow = [row for row in table
+              if any(n % 4 for n in row[1]["w"].shape[1:])]
+    checked = list(five)
+    for tag, rows in (("heaviest", heavy), ("4-byte copies", narrow)):
+        for label, call, _ in rows:
+            if any(call is c for c in checked):
+                continue
+            checked.append(call)
+            label = f"{tag} {label}"
+            _stencil_check(label, call, gen)
+            searched.append((label, _match_check(label, call)))
+    for wide in wides:
+        level0 = next(c for c in _capture_stencil_calls(wide, inputs)
+                      if tuple(c["w"].shape) == tuple(five[0]["w"].shape))
+        label = f"level-0 block, S={level0['seg_ids'].shape[-1]}"
+        _stencil_check(label, level0, gen)
+        searched.append((label, _match_check(label, level0)))
+    _slower_line("stencil_match", searched, "torch.searchsorted")
+    _stencil_edges(gen)
     return rec, match, [g for g, _ in buckets], [b for _, b in buckets]
 
 
 def _stencil_share(net, inputs):
-    """Device ms of the stencil_conv calls of one forward (CUDA events
-    around each call), and the forward's synchronised wall ms."""
-    events = []
+    """Device ms of the stencil_conv calls of one forward, and the wall ms
+    of another, synchronised forward. Each call is timed by CUDA events
+    with the card held asleep while the host queues it, so that the events
+    hold the kernel and not the host's work before its launch (the forward
+    is host-bound: without the sleep the card waits inside the span)."""
     real = tscu.stencil_conv
+    cycles = 10**6  # about 0.5 ms, longer than the host's work per call
+    for _ in range(4):
+        events = []
 
-    def timed(*args, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = real(*args, **kw)
-        end.record()
-        events.append((start, end))
-        return out
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            start.record()
+            out = real(*args, **kw)
+            end.record()
+            events.append((start, end, not start.query()))
+            return out
 
-    tscu.stencil_conv = timed
-    torch.cuda.synchronize()
+        tscu.stencil_conv = timed
+        try:
+            with torch.no_grad():
+                net(inputs)
+        finally:
+            tscu.stencil_conv = real
+        torch.cuda.synchronize()
+        if all(ahead for *_, ahead in events):
+            break
+        cycles *= 4
+    else:
+        raise AssertionError("the host could not queue the stencil calls "
+                             "ahead of the card")
+    device = sum(start.elapsed_time(end) for start, end, _ in events)
     t0 = time.perf_counter()
     with torch.no_grad():
         net(inputs)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    tscu.stencil_conv = real
-    return sum(s.elapsed_time(e) for s, e in events), wall * 1e3
+    return device, (time.perf_counter() - t0) * 1e3
 
 
 def _profile_forward(net, inputs, top=8):
@@ -1628,8 +1853,14 @@ def phase_scu(card):
         inputs[name] = _scu_inputs(model, data)
         with torch.no_grad():
             net(inputs[name][1])  # warm-up
-    stencil, match, gathers, bwds = phase_stencil(net, inputs["room"][1],
-                                                  inputs["bench"][1])
+    wides = []
+    for segs in SCU_WIDE_SEGS:
+        wide = MODEL.get("SparseConvUnet")(seed=SEED,
+                                           bucket_segs=segs).get_net()
+        wide.load_state_dict(net.state_dict())
+        wides.append(wide.eval().to(DEVICE))
+    stencil, match, gathers, bwds = phase_stencil(
+        net, inputs["room"][1], inputs["bench"][1], wides)
 
     torch.cuda.synchronize()
     reset_counts()
@@ -1715,9 +1946,9 @@ def phase_scu(card):
             f"{fwd * 1e3:.2f} ms over {len(times)} runs (min "
             f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
             f"{n / fwd:.0f} points/s, peak device memory "
-            f"{peak / 2**30:.2f} GiB; one timed forward {wall_ms:.2f} ms, "
-            f"of it stencil_conv calls {st_ms:.2f} ms device time "
-            f"({st_ms / wall_ms:.1%}) on {card}")
+            f"{peak / 2**30:.2f} GiB; the {SCU_FORWARD_LAUNCHES} "
+            f"stencil_conv calls of one forward {st_ms:.2f} ms device time, "
+            f"{st_ms / wall_ms:.1%} of a {wall_ms:.2f} ms forward on {card}")
     device_ms, kernels, wall_ms, head = _profile_forward(net,
                                                          served["room"][1])
     say("scu", f"room forward under torch.profiler: {kernels} kernels, "
@@ -1998,9 +2229,28 @@ def step_branches():
                     f"statistics relative L2 {stats_rel:.3e} on {card}")
 
 
+def stencil_calls():
+    """The stencil kernel's yardstick across versions of the port: each
+    stencil_conv call of the room request's forward timed alone, their
+    sum, and their device time inside one forward (``_stencil_share``)."""
+    card = phase_device()
+    phase_build()
+    model = MODEL.get("SparseConvUnet")(seed=SEED)
+    net = random_weights(model.get_net(), SEED).eval().to(DEVICE)
+    x = _scu_inputs(model, scu_scene(SCU_ROOM_EXTENT_M,
+                                     model.cfg.num_points))[1]
+    _say_conv_table(_conv_table(net, _capture_stencil_calls(net, x)))
+    st_ms, wall_ms = _stencil_share(net, x)
+    say("scu", f"the {SCU_FORWARD_LAUNCHES} stencil_conv calls inside one "
+        f"room forward: {st_ms:.4f} device ms, in a {wall_ms:.2f} ms "
+        f"forward on {card}")
+
+
 def main():
     if sys.argv[1:] == ["--step-branches"]:
         return step_branches()
+    if sys.argv[1:] == ["--stencil-calls"]:
+        return stencil_calls()
     card = phase_device()
     model = MODEL.get("RandLANet")()
     phase_build()

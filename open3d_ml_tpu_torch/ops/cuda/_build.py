@@ -24,8 +24,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argument types of each C entry point; every entry returns the
-# cudaError_t of its launch as an int
+# name -> argument types of each C entry point; each returns an int: the
+# cudaError_t of its launch, or for the *_shared ones a kernel's shared
+# memory in bytes
 ENTRY_POINTS = {
     # points, queries, seg_ids, rel, d2, B, npad, Q, nqb, S, seg, qblock, k,
     # stream
@@ -42,13 +43,17 @@ ENTRY_POINTS = {
     # points, queries, mask (or NULL), idx, d2, B, N, Q, k, stream
     "knn_exact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # values, keys, qkeys, seg_ids, w, out, B, V, npad, Q, K, Cin, Cout, nqb,
-    # S, seg, qblock, round_bf16, stream
+    # S, seg, qblock, route, ct, mw, stages, shared, stream
     "stencil_conv_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _P),
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # keys, qkeys, seg_ids, rel, found, B, npad, Q, K, nqb, S, seg, qblock,
-    # stream
+    # shared, stream
     "stencil_match_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _P),
+                             _I, _I, _P),
+    # route, ct, mw, stages, qblock, K, S, seg
+    "stencil_conv_shared": (_I, _I, _I, _I, _I, _I, _I, _I),
+    # S, seg
+    "stencil_match_shared": (_I, _I),
 }
 
 

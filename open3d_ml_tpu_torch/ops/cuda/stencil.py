@@ -13,6 +13,8 @@ package's custom VJP: its backward recomputes the rulebook with
 ``stencil_conv`` hands values or weights that need a gradient to it.
 """
 
+import functools
+
 import torch
 
 from ._launch import check, raise_on, route, stream
@@ -23,14 +25,16 @@ LAUNCHES = {"stencil_conv": 0, "stencil_match": 0}
 _I32MAX = torch.iinfo(torch.int32).max
 BIGPOS = 0x7F000000  # the rulebook's miss: past any table position
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
-# what the kernels are built for: a query block of 32, 64 or 128 rows, at
-# most 32 taps, a candidate table of at most 1024 rows and a
-# qblock * K rulebook of at most 4096 entries, so that the convolution's
-# shared memory stays within the 48 KB a block gets without opting in
+# what the kernels are built for: a query block of 32, 64 or 128 rows and
+# at most 32 taps; their shared memory (the table of S * seg keys, the
+# tiles) is what the kernel library's ``stencil_*_shared`` give for a
+# launch (``match_shared``, ``conv_plan``) and may reach the H100's opt-in
+# limit
 KERNEL_QBLOCKS = (32, 64, 128)
 KERNEL_MAX_TAPS = 32
-KERNEL_MAX_TABLE = 1024
-KERNEL_MAX_TAP_ROWS = 4096
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may opt in to
+_SMEM_HALF_SM = 115_712  # the most each of two blocks on one SM may have
+_ROWS = 32  # queries per row tile of the bf16 convolution kernel
 
 
 def _pad_keys(keys, seg):
@@ -103,10 +107,76 @@ def _check_tables(b, v, seg, q, qblock, seg_ids):
                          f"qblock {qblock}, seg_ids {tuple(seg_ids.shape)}")
 
 
+def _fits(name, shared):
+    if not 0 < shared <= SMEM_LIMIT:
+        raise ValueError(f"{name} kernel: {shared} bytes of shared memory, "
+                         f"not in (0, {SMEM_LIMIT}], what a block can have")
+    return shared
+
+
+def match_shared(s, seg):
+    """Shared memory of the ``stencil_match`` kernel in bytes, as the
+    kernel library computes it (``stencil_match_shared``: its sorted table
+    and the sorted place of each slot); raises past ``SMEM_LIMIT``, naming
+    the size."""
+    from ._build import library
+    return _fits("stencil_match", library().stencil_match_shared(s, seg))
+
+
+def conv_plan(b, q, k, cin, cout, s, seg, qblock, *, bf16, sms):
+    """How the ``stencil_conv`` kernel runs one call: {"route": 1 for the
+    bf16 tensor-core kernel, 0 for the float32 FMA kernel; "ct": output
+    channels per block; "mw": row tiles of 32 queries per block and
+    "stages": the depth of its copy ring (bf16); "shared": its shared
+    memory in bytes, as the kernel library computes it for the plan
+    (``stencil_conv_shared``)}. Raises past ``SMEM_LIMIT``.
+
+    ct is 32 where Cout <= 32, else 64. At bf16, mw is the largest of 4
+    and 2 that still gives two blocks per SM (``sms`` of them; the weight
+    tiles are shared by more rows), else 1, where the block's 4 warps
+    split the taps; where even that leaves SMs without a block, ct falls
+    to 32. The ring has 3 stages where two blocks fit on an SM, else 2:
+    a deeper ring did not help on the H100 (the copies' issue, not their
+    latency, sets the pace), a second block on the SM does."""
+    from ._build import library
+    lib = library()
+
+    def size(route, ct, mw, stages):
+        return lib.stencil_conv_shared(route, ct, mw, stages, qblock, k, s,
+                                       seg)
+
+    ct = 32 if cout <= 32 else 64
+    if not bf16:
+        return {"route": 0, "ct": ct, "mw": 1, "stages": 0,
+                "shared": _fits("stencil_conv", size(0, ct, 1, 0))}
+
+    def blocks(mw, ct):
+        return -(-(-(-q // _ROWS)) // mw) * b * -(-cout // ct)
+
+    mw = next((m for m in (4, 2) if blocks(m, ct) >= 2 * sms), 1)
+    if mw == 1 and blocks(1, ct) < sms:
+        ct = 32
+    stages = 3 if size(1, ct, mw, 3) <= _SMEM_HALF_SM else 2
+    return {"route": 1, "ct": ct, "mw": mw, "stages": stages,
+            "shared": _fits("stencil_conv", size(1, ct, mw, stages))}
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def stencil_match(keys, qkeys, seg_ids, *, seg, qblock):
     """``stencil_match_plain``'s contract, checked for both routes; on a
-    CUDA device it launches the ``stencil_match`` kernel (a table of at
-    most ``KERNEL_MAX_TABLE`` rows there)."""
+    CUDA device it launches the ``stencil_match`` kernel.
+
+    The kernel's precondition: the keys of each batch row ascend (pad keys
+    INT32_MAX at the end), as ``sort_sites`` and ``bucket_downsample``
+    leave them on every path, so that a table's segments in the order of
+    their ids form one sorted array; where they do not, its matches are
+    wrong (it still reads and writes only inside its arrays). The plain
+    version does not need it. Its table of S * seg keys must fit the
+    shared memory (``match_shared``)."""
     dev = keys.device
     check(keys, "keys", torch.int32, 2, dev)
     check(qkeys, "qkeys", torch.int32, 3, dev)
@@ -122,15 +192,13 @@ def stencil_match(keys, qkeys, seg_ids, *, seg, qblock):
     if route(keys, "stencil") == "plain":
         return stencil_match_plain(keys, qkeys, seg_ids, seg=seg,
                                    qblock=qblock)
-    if s * seg > KERNEL_MAX_TABLE:
-        raise ValueError(f"stencil_match kernel: table {s * seg} > "
-                         f"{KERNEL_MAX_TABLE}")
+    shared = match_shared(s, seg)
     from ._build import library
     rel = torch.empty((b, q, k), dtype=torch.int32, device=dev)
     found = torch.empty((b, q, k), dtype=torch.bool, device=dev)
     err = library().stencil_match_launch(
         keys.data_ptr(), qkeys.data_ptr(), seg_ids.data_ptr(), rel.data_ptr(),
-        found.data_ptr(), b, vp, q, k, nqb, s, seg, qblock, stream())
+        found.data_ptr(), b, vp, q, k, nqb, s, seg, qblock, shared, stream())
     raise_on(err, "stencil_match")
     LAUNCHES["stencil_match"] += 1
     return rel, found
@@ -167,8 +235,11 @@ def stencil_conv(values, keys, qkeys, seg_ids, w, *, seg, qblock,
                  compute_dtype):
     """``stencil_conv_plain``'s contract, checked for both routes; on a
     CUDA device it launches the ``stencil_conv`` kernel (float32 values
-    there). Values or weights that need a gradient go through
-    ``StencilConv``, whose forward this is."""
+    there): at ``compute_dtype`` bfloat16 its tensor-core route, at
+    float32 its FMA route, sized by ``conv_plan``. Its precondition is
+    ``stencil_match``'s: the keys of each batch row ascend. Values or
+    weights that need a gradient go through ``StencilConv``, whose forward
+    this is."""
     if (values.requires_grad or w.requires_grad) and torch.is_grad_enabled():
         return StencilConv.apply(values, keys, qkeys, seg_ids, w, seg, qblock,
                                  compute_dtype)
@@ -195,20 +266,20 @@ def stencil_conv(values, keys, qkeys, seg_ids, w, *, seg, qblock,
     if route(values, "stencil") == "plain":
         return stencil_conv_plain(values, keys, qkeys, seg_ids, w, seg=seg,
                                   qblock=qblock, compute_dtype=compute_dtype)
-    if (qblock not in KERNEL_QBLOCKS or k > KERNEL_MAX_TAPS or
-            s * seg > KERNEL_MAX_TABLE or qblock * k > KERNEL_MAX_TAP_ROWS):
+    if qblock not in KERNEL_QBLOCKS or k > KERNEL_MAX_TAPS:
         raise ValueError(f"stencil_conv kernel: qblock {qblock} not in "
-                         f"{KERNEL_QBLOCKS}, or K {k} > {KERNEL_MAX_TAPS}, or "
-                         f"table {s * seg} > {KERNEL_MAX_TABLE}, or qblock * "
-                         f"K {qblock * k} > {KERNEL_MAX_TAP_ROWS}")
+                         f"{KERNEL_QBLOCKS}, or K {k} > {KERNEL_MAX_TAPS}")
+    plan = conv_plan(b, q, k, cin, cout, s, seg, qblock,
+                     bf16=compute_dtype == torch.bfloat16,
+                     sms=_sm_count(dev.index))
     from ._build import library
     keys = _pad_keys(keys, seg)
     out = torch.empty((b, q, cout), dtype=torch.float32, device=dev)
     err = library().stencil_conv_launch(
         values.data_ptr(), keys.data_ptr(), qkeys.data_ptr(),
         seg_ids.data_ptr(), w.data_ptr(), out.data_ptr(), b, v,
-        keys.shape[1], q, k, cin, cout, nqb, s, seg, qblock,
-        int(compute_dtype == torch.bfloat16), stream())
+        keys.shape[1], q, k, cin, cout, nqb, s, seg, qblock, plan["route"],
+        plan["ct"], plan["mw"], plan["stages"], plan["shared"], stream())
     raise_on(err, "stencil_conv")
     LAUNCHES["stencil_conv"] += 1
     return out

@@ -66,14 +66,18 @@ def _match_args(case):
 
 @pytest.mark.parametrize("form, qblock, num_segs", [
     ("sub", 32, 16), ("sub", 32, 2), ("down", 32, 16), ("down", 32, 1),
-    ("up", 128, 16), ("up", 128, 1)])
+    ("up", 128, 16), ("up", 128, 1), ("sub", 32, 72)])
 def test_stencil_match_plain_matches_xla_twin(form, qblock, num_segs):
     """rel and found equal everywhere, the misses' 0x7F000000 and the
     ragged last block included; the S = 1 or 2 tables overflow, so some
-    taps whose site exists miss on both sides."""
+    taps whose site exists miss on both sides; S = 72 makes a table of
+    1,152 rows, past the kernels' former limit of 1,024."""
     rng = np.random.default_rng(qblock + num_segs)
-    case = stencil_case(form, 16, qblock, num_segs, 4, 4, rng, cap=250)
+    big = num_segs > 16  # 1,400 sites: enough segments for S = 72
+    case = stencil_case(form, 16, qblock, num_segs, 4, 4, rng,
+                        cap=1400 if big else 250, box=14 if big else 12)
     keys, qkeys, seg_ids = _match_args(case)
+    assert not big or seg_ids.shape[-1] == num_segs
     rel, found = cs.stencil_match_plain(keys, qkeys, seg_ids, seg=16,
                                         qblock=qblock)
     ref_rel, ref_found = ps.stencil_match_pallas(
@@ -115,6 +119,81 @@ def test_stencil_match_least_position_of_a_repeated_segment():
     rel, found = cs.stencil_match(keys, qkeys, seg_ids, seg=16, qblock=32)
     assert rel.tolist() == [[[1, cs.BIGPOS, 15, cs.BIGPOS]]]
     assert found.tolist() == [[[True, False, True, False]]]
+
+
+def _sorted_table_lookup(keys, qkeys, seg_ids, seg, qblock):
+    """The stencil kernels' lookup (csrc/stencil_taps.cuh) in numpy: each
+    block's slots but those that repeat the id of a lower slot, ordered by
+    id, their keys copied in that order (one sorted array where the keys
+    of a batch row ascend), one left search per tap, and the least table
+    position among equal keys, which later sorted segments can hold only
+    at their row 0."""
+    b, q, k = qkeys.shape
+    nqb = seg_ids.shape[1]
+    rel = np.full((b, q, k), cs.BIGPOS, np.int32)
+    for bi in range(b):
+        for blk in range(nqb):
+            ids, first = np.unique(seg_ids[bi, blk], return_index=True)
+            order, s = first, len(first)  # the least slot of each id
+            table = keys[bi][(ids[:, None] * seg + np.arange(seg)).ravel()]
+            assert (np.diff(table.astype(np.int64)) >= 0).all()
+            taps = qkeys[bi, blk * qblock:(blk + 1) * qblock]
+            pos = np.searchsorted(table, taps, side="left")
+            hit = ((taps >= 0) & (pos < table.size) &
+                   (table[np.minimum(pos, table.size - 1)] == taps))
+            r = np.minimum(pos // seg, s - 1)
+            best = order[r] * seg + pos % seg
+            for r2 in range(1, s):
+                later = np.minimum(r + r2, s - 1)
+                same = (r + r2 < s) & (table[later * seg] == taps)
+                best = np.where(same, np.minimum(best, order[later] * seg),
+                                best)
+            rel[bi, blk * qblock:(blk + 1) * qblock] = np.where(hit, best,
+                                                                cs.BIGPOS)
+    return rel, rel != cs.BIGPOS
+
+
+@pytest.mark.parametrize("form, qblock, num_segs", [
+    ("sub", 32, 16), ("down", 32, 4), ("up", 128, 16)])
+def test_sorted_table_lookup_matches_the_plain_rulebook(form, qblock,
+                                                        num_segs):
+    """The kernels' design against ``stencil_match_plain`` where the keys
+    ascend, as on the path: with ids repeated in a table (the least slot
+    wins), all-pad segments in it, and tap keys equal to the pad key
+    INT32_MAX (the least position among the pads of several segments)."""
+    rng = np.random.default_rng(num_segs + qblock)
+    case = stencil_case(form, 16, qblock, num_segs, 4, 4, rng, cap=250)
+    keys, qkeys, seg_ids = _match_args(case)
+    keys = torch.nn.functional.pad(keys, (0, 16), value=cs._I32MAX)
+    seg_ids = seg_ids.clone()
+    seg_ids[:, ::3, -1] = seg_ids[:, ::3, 0]  # a repeated id
+    seg_ids[:, 1::3, 0] = keys.shape[1] // 16 - 1  # an all-pad segment
+    qkeys = qkeys.clone()
+    qkeys[:, ::7, 0] = cs._I32MAX
+    rel, found = cs.stencil_match_plain(keys, qkeys, seg_ids, seg=16,
+                                        qblock=qblock)
+    got_rel, got_found = _sorted_table_lookup(
+        keys.numpy(), qkeys.numpy(), seg_ids.numpy(), 16, qblock)
+    np.testing.assert_array_equal(got_found, found.numpy())
+    np.testing.assert_array_equal(got_rel, rel.numpy())
+    assert (found & (qkeys == cs._I32MAX)).any()
+
+
+def test_stencil_match_wrapper_passes_its_shared_memory(monkeypatch):
+    """On the kernel route ``stencil_match`` hands its entry point the
+    shared memory of its sorted table (``match_shared``), also for a table
+    past the former 1,024-row limit, and counts one launch."""
+    from test_torch_sparse import _kernel_route
+    calls = _kernel_route(monkeypatch)
+    rng = np.random.default_rng(4)
+    case = stencil_case("sub", 16, 32, 72, 4, 4, rng, cap=1400, box=14)
+    keys, qkeys, seg_ids = _match_args(case)
+    cs.stencil_match(keys, qkeys, seg_ids, seg=16, qblock=32)
+    kind, args = calls[-1]
+    # ..., S, seg, qblock, shared, stream
+    assert kind == "match" and args[-5:-1] == (72, 16, 32,
+                                               cs.match_shared(72, 16))
+    assert cs.LAUNCHES == {"stencil_conv": 0, "stencil_match": 1}
 
 
 @pytest.mark.parametrize("bad", ["pad", "dtype", "tables"])

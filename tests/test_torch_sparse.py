@@ -20,6 +20,8 @@ import jax.numpy as jnp
 from open3d_ml_tpu.ops import sparse as jsp
 from open3d_ml_tpu.ops import sparse_bucket as jsb
 from open3d_ml_tpu.ops.pallas import stencil as ps
+from open3d_ml_tpu_torch.models import SparseConvUnet
+from open3d_ml_tpu_torch.models import sparseconvunet as tscu
 from open3d_ml_tpu_torch.ops import sparse as tsp
 from open3d_ml_tpu_torch.ops import sparse_bucket as tsb
 from open3d_ml_tpu_torch.ops import voxelize as tvox
@@ -202,6 +204,42 @@ def test_path_keys_ascend(scene):
                                                         cap)
 
 
+@pytest.mark.parametrize("levels", [3, 7])
+def test_keys_ascend_at_every_level_of_the_net(monkeypatch, levels):
+    """What the stencil kernels' sorted tables rely on, at every
+    convolution the stencil net runs on synthetic rooms: the keys of each
+    batch row ascend (valid keys distinct, pad keys INT32_MAX at the end),
+    so the segments' key ranges are disjoint and ascend with the segment
+    id."""
+    from test_torch_scu import surface_batch
+    seen = []
+    real = tscu.stencil_conv
+
+    def capture(values, keys, *args, **kwargs):
+        seen.append((keys, kwargs["seg"]))
+        return real(values, keys, *args, **kwargs)
+
+    monkeypatch.setattr(tscu, "stencil_conv", capture)
+    model = SparseConvUnet(multiplier=2, num_levels=levels, max_voxels=4096,
+                           num_points=800, compute_dtype="float32")
+    net = model.get_net().eval()
+    batch = surface_batch(np.random.default_rng(levels), b=2, n=800)
+    with torch.no_grad():
+        net({k: torch.from_numpy(v) for k, v in batch.items()})
+    assert len({keys.shape[1] for keys, _ in seen}) == levels
+    for keys, seg in seen:
+        padded = cs._pad_keys(keys, seg).long()
+        valid = padded < I32MAX
+        assert (padded[:, 1:] >= padded[:, :-1]).all()
+        assert (padded[:, 1:][valid[:, 1:]] >
+                padded[:, :-1][valid[:, 1:]]).all()  # distinct
+        assert (valid[:, 1:] <= valid[:, :-1]).all()  # pads at the end
+        segs = padded.reshape(padded.shape[0], -1, seg)
+        lo, hi = segs.min(-1).values, segs.max(-1).values
+        assert (hi[:, :-1] <= lo[:, 1:]).all()
+        assert (hi[:, :-1] < lo[:, 1:])[lo[:, 1:] < I32MAX].all()
+
+
 # ----------------------------------------------------------------- hash ops
 
 def test_linearize_and_kernel_offsets_match_jax():
@@ -352,14 +390,19 @@ DTYPES = {"float32": (torch.float32, jnp.float32),
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("form, qblock, num_segs", [
     ("sub", 32, 16), ("sub", 32, 2), ("down", 32, 16), ("down", 32, 1),
-    ("up", 128, 16), ("up", 128, 1)])
+    ("up", 128, 16), ("up", 128, 1), ("sub", 32, 72)])
 def test_stencil_conv_plain_matches_xla_twin(form, qblock, num_segs, dtype):
     """The XLA twin of ``stencil_conv_pallas`` and the plain version round
     the same inputs (at bf16) and sum float32 products in other orders:
     1e-5 of the largest output. The S = 1 or 2 cases overflow, so taps
-    whose site lies outside the block's table miss on both sides."""
+    whose site lies outside the block's table miss on both sides; S = 72
+    makes a table of 1,152 rows, past the kernels' former limit of
+    1,024."""
     rng = np.random.default_rng(len(form) + qblock + num_segs)
-    case = stencil_case(form, 16, qblock, num_segs, 12, 10, rng)
+    big = num_segs > 16  # 1,400 sites: enough segments for S = 72
+    case = stencil_case(form, 16, qblock, num_segs, 12, 10, rng,
+                        cap=1400 if big else 256, box=14 if big else 12)
+    assert not big or case["seg_ids"].shape[-1] == num_segs
     if num_segs <= 2:
         assert case["overflow"] > 0
     tdt, jdt = DTYPES[dtype]
@@ -400,6 +443,108 @@ def test_stencil_conv_wrapper_takes_plain_on_cpu():
                           compute_dtype=torch.float32)
     np.testing.assert_array_equal(got.numpy(), _plain(case, torch.float32))
     assert cs.LAUNCHES == before
+
+
+def _kernel_route(monkeypatch):
+    """Send the wrappers of ``ops/cuda/stencil.py`` down the kernel route on
+    CPU tensors, into a fake library that records each launch's arguments
+    and gives stand-in shared-memory sizes (4 bytes per table key, and 8 KB
+    per row tile and ring stage at bf16 or 256 bytes per query at
+    float32)."""
+    from open3d_ml_tpu_torch.ops.cuda import _build
+    calls = []
+
+    class Library:
+        def stencil_conv_launch(self, *args):
+            calls.append(("conv", args))
+            return 0
+
+        def stencil_match_launch(self, *args):
+            calls.append(("match", args))
+            return 0
+
+        def stencil_conv_shared(self, route, ct, mw, stages, qblock, k, s,
+                                seg):
+            return 4 * s * seg + (8192 * mw * stages if route else
+                                  256 * qblock)
+
+        def stencil_match_shared(self, s, seg):
+            return 4 * s * seg
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(cs, "route", lambda t, family: "kernel")
+    monkeypatch.setattr(cs, "stream", lambda: 0)
+    monkeypatch.setattr(cs, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(cs, "LAUNCHES", dict.fromkeys(cs.LAUNCHES, 0))
+    return calls
+
+
+@pytest.mark.parametrize("form, qblock, cin, cout", [
+    ("sub", 32, 32, 32), ("sub", 32, 224, 224), ("up", 128, 64, 32),
+    ("down", 32, 3, 40)])
+def test_stencil_conv_wrapper_passes_the_plan(monkeypatch, form, qblock, cin,
+                                              cout):
+    """On the kernel route ``stencil_conv`` hands its entry point the route
+    (1: the bf16 tensor-core kernel at compute_dtype bfloat16, 0: the
+    float32 FMA kernel), the block's output channels, row tiles and ring
+    depth, and the shared memory that ``conv_plan`` sizes for them; one
+    launch per call."""
+    calls = _kernel_route(monkeypatch)
+    rng = np.random.default_rng(11)
+    case = stencil_case(form, 16, qblock, 16, cin, cout, rng)
+    args = [_t(case[k]) for k in ("values", "keys", "qkeys", "seg_ids", "w")]
+    b, q, k = case["qkeys"].shape
+    s = case["seg_ids"].shape[-1]
+    for dtype, route in ((torch.float32, 0), (torch.bfloat16, 1)):
+        cs.stencil_conv(*args, seg=16, qblock=qblock, compute_dtype=dtype)
+        plan = cs.conv_plan(b, q, k, cin, cout, s, 16, qblock,
+                            bf16=route == 1, sms=132)
+        assert plan["route"] == route
+        kind, got = calls[-1]
+        # ..., B at 6, ..., route, ct, mw, stages, shared, stream
+        assert kind == "conv" and got[6] == b
+        assert got[-6:-1] == (route, plan["ct"], plan["mw"], plan["stages"],
+                              plan["shared"])
+        assert 0 < plan["shared"] <= cs.SMEM_LIMIT
+    assert cs.LAUNCHES == {"stencil_conv": 2, "stencil_match": 0}
+
+
+def test_conv_plan_fills_the_card_and_sizes_its_shared_memory(monkeypatch):
+    """bf16 plans at the room request's shapes: the wide levels share a
+    block's weight tiles among 4 row tiles; the deepest level splits the
+    taps among the warps and narrows the output tile so that every SM gets
+    a block. The shared memory is the kernel library's size of the plan
+    (stand-in sizes here), with a ring of 3 stages where two blocks fit on
+    an SM, else 2; a plan or a rulebook table past the shared memory is
+    refused, naming its size."""
+    from open3d_ml_tpu_torch.ops.cuda import _build
+    _kernel_route(monkeypatch)
+    size = _build.library().stencil_conv_shared
+    level0 = cs.conv_plan(1, 40000, 27, 32, 32, 16, 64, 32, bf16=True,
+                          sms=132)
+    assert level0 == {"route": 1, "ct": 32, "mw": 4, "stages": 3,
+                      "shared": size(1, 32, 4, 3, 32, 27, 16, 64)}
+    deepest = cs.conv_plan(1, 632, 27, 224, 224, 16, 64, 32, bf16=True,
+                           sms=132)
+    assert (deepest["mw"], deepest["ct"]) == (1, 32)  # 20 x 7 blocks
+    # three stages would leave room for one block per SM only
+    wide = cs.conv_plan(1, 40000, 27, 32, 32, 256, 64, 32, bf16=True,
+                        sms=132)
+    assert size(1, 32, 4, 3, 32, 27, 256, 64) > cs._SMEM_HALF_SM
+    assert (wide["stages"], wide["shared"]) == (
+        2, size(1, 32, 4, 2, 32, 27, 256, 64))
+    assert cs.conv_plan(1, 40000, 27, 32, 32, 32, 64, 32, bf16=False,
+                        sms=132) == {"route": 0, "ct": 32, "mw": 1,
+                                     "stages": 0,
+                                     "shared": size(0, 32, 1, 0, 32, 27, 32,
+                                                    64)}
+    for bf16 in (False, True):
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            cs.conv_plan(1, 40000, 27, 32, 32, 1024, 64, 32, bf16=bf16,
+                         sms=132)
+    assert cs.match_shared(32, 64) == 4 * 32 * 64
+    with pytest.raises(ValueError, match="262144 bytes of shared memory"):
+        cs.match_shared(1024, 64)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "qblock", "compute"])
