@@ -40,18 +40,34 @@ Run from the root of the repository, with one card:
 step against the CPU, on the patches of model seeds 0-3, with the CPU on
 its own branches and on the card's. ``python3 chip_smoke.py
 --stencil-calls`` times only the room request's 39 stencil convolutions,
-alone and inside a forward; copied into a checkout of another version of
-the port, it times that version the same way.
+alone and inside a forward; ``python3 chip_smoke.py --knn-calls`` only
+the KNN kernels' launches: the 4 ``knn_exact`` calls of an eval pyramid
+and the 5 ``bucket_knn`` calls of a fused pyramid at the inference and at
+the training budget. Copied into a checkout of another version of the
+port, either times that version the same way.
 
 Phases, one line each (or more), in this order:
 
 1. device: the card's name and power limit; TF32 off for matmuls and
    convolutions.
-2. build: compile the CUDA kernels from ``open3d_ml_tpu_torch/csrc``.
+2. build: compile the CUDA kernels from ``open3d_ml_tpu_torch/csrc``; the
+   KNN kernels' registers and spill bytes, as ptxas reported them (a
+   spill fails the run).
 3. kernels: each kernel against its plain PyTorch version on the card, at
    its path's shapes, and both times: device time per call (CUDA events
    around back-to-back calls queued ahead of the card), and beside it the
    host-inclusive span of one call (median of CUDA-event timings).
+   ``bucket_knn`` at every search of the fused pyramid (each level's
+   neighbour search and level 3's pool search) at S32 and S48 and
+   ``knn_exact`` at the eval pyramid's four levels, d2 bit-equal: indices
+   equal off d2 ties on uniform points and row for row on lattice points
+   (where the plan splits a query block's table over blocks, whose last
+   to finish merges their lists, the search unsplit is checked and timed
+   beside it);
+   ``knn_exact`` also with a mask that leaves a sample five valid points,
+   and beside it the issue floor of its float instructions and the time
+   of ``torch.topk`` over ``torch.cdist`` (a yardstick, not the same
+   function).
 4. slice: the fused forward; the launch counts of one forward; sample 0
    against the same model on the CPU (float32: relative L2 <= 1e-4); the
    median forward time and points/s.
@@ -65,7 +81,9 @@ Phases, one line each (or more), in this order:
    CPU taking the card's max-pool and LeakyReLU branches (relative L2
    <= 1e-4 for the gradient); the median step time, points trained per
    second, the host's share and the peak memory.
-6. eval: the same as slice for the eval net at B = 1.
+6. eval: the same as slice for the eval net at B = 1, and one forward's
+   time on the card's stream split into the 4 ``knn_exact`` launches, the
+   4 k = 1 searches (plain torch) and everything else.
 7. inference: ``run_inference`` on the scan; its launch counts, patches,
    wall time and where it went, and points labelled per second.
 8. kernels (stencil_conv): the stencil kernel against its plain version at
@@ -125,6 +143,7 @@ fallback: without CUDA the script fails first.
 
 import collections
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -144,6 +163,7 @@ from open3d_ml_tpu_torch.models import randlanet as trl
 from open3d_ml_tpu_torch.models import sparseconvunet as tscu
 from open3d_ml_tpu_torch.modules.losses import SemSegLoss
 from open3d_ml_tpu_torch.ops import bucket as tb
+from open3d_ml_tpu_torch.ops import neighbors as tn
 from open3d_ml_tpu_torch.ops import sparse as tsp
 from open3d_ml_tpu_torch.ops import sparse_bucket as tsb
 from open3d_ml_tpu_torch.ops.cuda import _build
@@ -178,6 +198,15 @@ COUNTERS = (cb.LAUNCHES, ck.LAUNCHES, cs.LAUNCHES)
 # and its operations over the peak for their type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+# the H100's float32 pipes: 128 lanes an SM per clock, 132 SMs; the KNN
+# kernels' issue floor is their FP32-pipe instructions per candidate
+# distance over that rate at the card's top SM clock
+FP32_LANES = 128 * 132
+KNN_EXACT_PIPE_OPS = 8  # 3 FMUL, 3 FADD, 1 FFMA, the compare
+BUCKET_KNN_PIPE_OPS = 9  # 3 FSUB, 3 FMUL, 2 FADD, the compare
+# knn_exact's yardstick: torch.topk over torch.cdist, this many queries a
+# call
+CDIST_CHUNK = 4096
 # SparseConvUnet: the room scene's extent, and the bench's scene (1,000
 # voxels of 0.02 m, as bench.py sizes child_sparseconvunet's scene)
 SCU_ROOM_EXTENT_M = 6.0
@@ -361,11 +390,114 @@ def phase_device():
     return card
 
 
+def _kernel_name(mangled):
+    """knn_exact_kernel<2> for the mangled name of a kernel template."""
+    m = re.search(r"([A-Za-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", mangled)
+    if not m:
+        return mangled
+    args = [v if kind == "i" else ("false", "true")[int(v)]
+            for kind, v in re.findall(r"L([ib])(\d+)E", m.group(2) or "")]
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_kernels(text, sources):
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    kernel that ptxas reported on in ``sources``, from a build's log."""
+    out, source, name, spill = [], None, None, (0, 0)
+    for line in text.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif source in sources:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = _kernel_name(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out.append((name, int(m.group(1)), *spill))
+                name = None
+    return out
+
+
 def phase_build():
     path, seconds = _build.build()
     _build.library()
     say("build", f"{path.relative_to(REPO)} built in {seconds:.2f} s "
         "(0 = already built)")
+    log = path.with_suffix(".ptxas.txt")
+    if log.exists():  # an older checkout's build keeps no report
+        kernels = ptxas_kernels(log.read_text(),
+                                ("knn_exact.cu", "bucket_knn.cu"))
+        say("build", "KNN kernels, registers and spill store/load bytes: " +
+            ", ".join(f"{name} {regs} regs {st}/{ld} B"
+                      for name, regs, st, ld in kernels))
+        if any(st or ld for _, _, st, ld in kernels):
+            raise AssertionError("a KNN kernel spills registers")
+
+
+def _sm_clock_hz():
+    """The card's top SM clock, as nvidia-smi reads it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], check=True, capture_output=True, text=True,
+        timeout=60).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def issue_floor_ms(pairs, ops):
+    """The least time ``pairs`` candidate distances of ``ops`` FP32-pipe
+    instructions each take at the card's top clock."""
+    return pairs * ops / (FP32_LANES * _sm_clock_hz()) * 1e3
+
+
+def _captured(module, name, fn):
+    """The (args, kwargs) of each call that ``fn()`` makes to
+    ``module.name``; the calls still run."""
+    calls = []
+    real = getattr(module, name)
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, record)
+    try:
+        fn()
+    finally:
+        setattr(module, name, real)
+    return calls
+
+
+def lattice_points(b, n, seed):
+    """[b, n, 3] distinct points of the 1/32 grid in [-4, 4)^3 on the card:
+    every d2 is exact in float32 and repeats many times, so the kernels'
+    tie order shows."""
+    rng = np.random.default_rng(seed)
+    v = np.stack([rng.choice(256 ** 3, n, replace=False) for _ in range(b)])
+    grid = np.stack([v % 256, (v // 256) % 256, v // 65536], -1)
+    return torch.from_numpy((grid / 32.0 - 4.0).astype(np.float32)).to(DEVICE)
+
+
+def fused_searches(points, model_cfg, num_segs, gather_segs):
+    """The bucket_knn calls of one fused pyramid on ``points`` [B, N, 3]
+    (``build_bucket_pyramid`` as the net builds it), each as (label, args,
+    kwargs): every level's neighbour search and, where a level's points
+    are no whole number of query blocks, its pool search, which reuses the
+    neighbour search's table."""
+    calls = _captured(tb, "knn_bucket", lambda: tb.build_bucket_pyramid(
+        points, model_cfg.num_neighbors, model_cfg.sub_sampling_ratio,
+        seg=model_cfg.seg, qblock=model_cfg.block, num_segs=num_segs,
+        gather_segs=gather_segs))
+    out, level = [], -1
+    for i, (args, kwargs) in enumerate(calls):
+        pool = i > 0 and args[0] is calls[i - 1][0][0]
+        level += not pool
+        out.append((f"level-{level} {'pool' if pool else 'neighbour'}", args,
+                    kwargs))
+    return out
 
 
 def _differ_only_at_ties(name, got, want, d2):
@@ -382,35 +514,93 @@ def _differ_only_at_ties(name, got, want, d2):
     return rows
 
 
-def _knn_check(sp, sids, seg, qblock):
-    """bucket_knn against its plain version on one level; returns its
-    record (error: max |d2 difference|). Bound: the points, queries and
-    tables read and the [B, Q, k] outputs written; 8 float32 operations
-    for each candidate distance."""
-    pcp = tb.pad_seg(sp, seg, fill=1e9)
-    k = 16
-    rel_k, d2_k = cb.knn_bucket(pcp, sp, sids, k, seg=seg, qblock=qblock)
-    rel_p, d2_p = cb.knn_bucket_plain(pcp, sp, sids, k, seg=seg,
+def _unsplit(fn):
+    """``fn()`` with every bucket_knn call planned for a card of one SM,
+    which splits no query block's table over blocks."""
+    real = cb.knn_bucket_plan
+    cb.knn_bucket_plan = lambda *args, sms: real(*args, sms=1)
+    try:
+        return fn()
+    finally:
+        cb.knn_bucket_plan = real
+
+
+def _knn_check(label, pcp, queries, sids, k, *, seg, qblock, lattice=False):
+    """bucket_knn against its plain version on one search: d2 bit-equal;
+    rel equal row for row on lattice points, else off d2 ties only. On
+    lattice points only checks; else returns its record (error: max |d2
+    difference|). Bound: the points, queries and tables read and the
+    [B, Q, k] outputs written; 8 float32 operations for each candidate
+    distance. Where the plan splits a query block's table over blocks,
+    the same search unsplit is checked and timed beside it."""
+    rel_k, d2_k = cb.knn_bucket(pcp, queries, sids, k, seg=seg, qblock=qblock)
+    rel_p, d2_p = cb.knn_bucket_plain(pcp, queries, sids, k, seg=seg,
                                       qblock=qblock)
     torch.cuda.synchronize()
-    if not torch.equal(d2_k, d2_p):
-        raise AssertionError("bucket_knn: d2 differs from the plain version")
-    rows = _differ_only_at_ties("bucket_knn", rel_k, rel_p, d2_p)
+    b, q, _ = queries.shape
+    name = (f"bucket_knn {label} B={b} Q={q} S={sids.shape[-1]} seg={seg} "
+            f"qblock={qblock} k={k}")
+    if not torch.equal(d2_k.view(torch.int32), d2_p.view(torch.int32)):
+        raise AssertionError(f"{name}: d2 differs from the plain version")
+    if lattice:
+        if not torch.equal(rel_k, rel_p):
+            raise AssertionError(f"{name}, lattice: rel differs from the "
+                                 "plain version")
+        return None
+    rows = _differ_only_at_ties(name, rel_k, rel_p, d2_p)
     err = (d2_k - d2_p).abs().max().item()
     ms, plain_ms, span, plain_span = timings(
-        lambda: cb.knn_bucket(pcp, sp, sids, k, seg=seg, qblock=qblock),
-        lambda: cb.knn_bucket_plain(pcp, sp, sids, k, seg=seg,
+        lambda: cb.knn_bucket(pcp, queries, sids, k, seg=seg, qblock=qblock),
+        lambda: cb.knn_bucket_plain(pcp, queries, sids, k, seg=seg,
                                     qblock=qblock))
-    say("kernels", f"bucket_knn B={sp.shape[0]} N={sp.shape[1]} "
-        f"S={sids.shape[-1]} seg={seg} qblock={qblock} k={k}: rel equal on "
-        f"{int((~rows).sum())}/{rows.numel()} rows ({int(rows.sum())} "
-        f"differ at d2 ties), d2 equal; device ms: kernel {ms:.4f}, plain "
-        f"{plain_ms:.4f}; call span ms: kernel {span:.4f}, plain "
-        f"{plain_span:.4f}")
-    b, q, _ = sp.shape
-    return kernel_record(err, ms, plain_ms, bound(
-        nbytes(pcp, sp, sids) + b * q * k * 8,
-        b * q * sids.shape[-1] * seg * 8))
+    pairs = b * q * sids.shape[-1] * seg
+    bounds = bound(nbytes(pcp, queries, sids) + b * q * k * 8, pairs * 8)
+    floor = issue_floor_ms(pairs, BUCKET_KNN_PIPE_OPS)
+    groups = cb.knn_bucket_plan(b, q, sids.shape[-1], seg, qblock,
+                                sms=cb.sm_count(pcp.device.index))["groups"]
+    split = ""
+    if groups > 1:
+        one = _unsplit(lambda: cb.knn_bucket(pcp, queries, sids, k, seg=seg,
+                                             qblock=qblock))
+        if not torch.equal(one[1].view(torch.int32), d2_k.view(torch.int32)):
+            raise AssertionError(f"{name}: the unsplit search's d2 differs")
+        one_ms = _unsplit(lambda: device_ms(lambda: cb.knn_bucket(
+            pcp, queries, sids, k, seg=seg, qblock=qblock)))
+        split = (f"; each query block's table split over {groups} blocks, "
+                 f"unsplit {one_ms:.4f} (d2 bit-equal)")
+    say("kernels", f"{name}: rel equal on {int((~rows).sum())}/{rows.numel()}"
+        f" rows ({int(rows.sum())} differ at d2 ties), d2 bit-equal; device "
+        f"ms: kernel {ms:.4f}, plain {plain_ms:.4f}, bound {max(bounds):.4f},"
+        f" issue floor {floor:.4f}{split}; call span ms: kernel {span:.4f}, "
+        f"plain {plain_span:.4f}")
+    return kernel_record(err, ms, plain_ms, bounds)
+
+
+def _knn_levels(model_cfg, pts, lattice):
+    """bucket_knn at every search of the fused pyramid, at the inference
+    and the training budget, on ``pts`` and (checks only) on ``lattice``;
+    returns the records of the level-0 search at the inference budget and
+    of each budget's searches in all."""
+    seg, qblock = model_cfg.seg, model_cfg.block
+    out = {}
+    for num_segs, gather_segs in (
+            (model_cfg.infer_num_segs, model_cfg.infer_gather_segs),
+            (model_cfg.num_segs, model_cfg.gather_segs)):
+        for label, args, kwargs in fused_searches(lattice, model_cfg,
+                                                  num_segs, gather_segs):
+            _knn_check(label, *args, **kwargs, lattice=True)
+        say("kernels", f"bucket_knn S{num_segs}, lattice points: every search"
+            " of the fused pyramid bit-equal, rel row for row")
+        recs = [_knn_check(label, *args, **kwargs) for label, args, kwargs in
+                fused_searches(pts, model_cfg, num_segs, gather_segs)]
+        out[num_segs] = recs
+        total = combine(recs)
+        say("kernels", f"bucket_knn S{num_segs}, the fused pyramid's "
+            f"{len(recs)} searches: device ms kernel {total['ms']:.4f}, plain "
+            f"{total['plain_ms']:.4f}, bound {total['bound_ms']:.4f} in all "
+            f"(level 0: kernel {recs[0]['ms']:.4f}, bound "
+            f"{recs[0]['bound_ms']:.4f})")
+    return out[model_cfg.infer_num_segs][0]
 
 
 def _gather_check(label, values, seg_ids, rel, seg, qblock):
@@ -526,7 +716,8 @@ def _gather_bwd_check(label, seg_ids, rel, npad, c, seg, qblock, gen,
 
 def phase_kernels(model_cfg):
     """The kernels against their plain versions at the main paths' shapes:
-    the level-0 search at the inference and the training budget; one
+    every search of the fused pyramid at the inference and the training
+    budget, on uniform and on lattice points; one
     neighbour, pool and upsample gather from the inference pyramid of the
     same batch and the level-0 neighbour gather from its training pyramid;
     the gather backward at four shapes of the training step. Returns the
@@ -537,13 +728,7 @@ def phase_kernels(model_cfg):
     seg, qblock = model_cfg.seg, model_cfg.block
     gen = torch.Generator(device=dev).manual_seed(SEED)
     pts = torch.rand((b, n, 3), generator=gen, device=dev) * 50 - 25
-    _, sp = hilbert_sort(pts)
-    knns = [_knn_check(sp, tb.select_segments(sp, sp, seg=seg, qblock=qblock,
-                                              num_segs=num_segs), seg, qblock)
-            for num_segs in (model_cfg.infer_num_segs, model_cfg.num_segs)]
-    knn = knns[0]
-    say("kernels", f"bucket_knn bound at S{model_cfg.infer_num_segs}: "
-        f"{knn['bound_ms']:.4f} ms")
+    knn = _knn_levels(model_cfg, pts, lattice_points(b, n, SEED))
 
     pyr = tb.build_bucket_pyramid(
         pts, model_cfg.num_neighbors, model_cfg.sub_sampling_ratio, seg=seg,
@@ -620,54 +805,108 @@ def bucket_summary(name, records, library):
     return rec
 
 
+def _cdist_topk(points, queries, k):
+    """knn_exact's yardstick, not the same function (its distances are
+    square roots of another formula, so its rounding and ties differ):
+    ``torch.topk(torch.cdist(q, p), k, largest=False)`` over chunks of
+    ``CDIST_CHUNK`` queries."""
+    return [torch.topk(torch.cdist(queries[:, s:s + CDIST_CHUNK], points), k,
+                       largest=False)
+            for s in range(0, queries.shape[1], CDIST_CHUNK)]
+
+
+def _exact_equal(name, got, want, rows_equal):
+    """Raise unless knn_exact's (idx, d2) has the plain version's d2 bit for
+    bit and its indices row for row (``rows_equal``) or off d2 ties;
+    returns the mask of rows that differ."""
+    torch.cuda.synchronize()
+    if not torch.equal(got[1].view(torch.int32), want[1].view(torch.int32)):
+        raise AssertionError(f"{name}: d2 differs from the plain version")
+    if rows_equal and not torch.equal(got[0], want[0]):
+        raise AssertionError(f"{name}: indices differ from the plain "
+                             "version")
+    return _differ_only_at_ties(name, got[0], want[0], want[1])
+
+
 def phase_knn_exact(model_cfg):
-    """knn_exact against its plain version at the eval pyramid's two
-    largest levels, one sample of seeded uniform points; returns its
-    record at level 0 (error: max |d2 difference| over both levels). The
-    plain version's time is its call span: it launches about 18 kernels
-    per block of queries, more than the host can queue ahead while the
-    card sleeps, and each block's device work outlasts its launches.
-    Bound: points and queries read, [1, N, k] outputs written, 8 float32
-    operations per candidate distance."""
+    """knn_exact against its plain version at every level of the eval
+    pyramid (one sample, queries = points, 45,056 / 11,264 / 2,816 / 704):
+    on seeded uniform points d2 bit-equal and indices equal off d2 ties,
+    on lattice points indices row for row; at level 2 with a mask that
+    leaves one sample of a batch of 2 five valid points (the masked ones
+    follow them in index order). Returns its record at level 0 (error: max
+    |d2 difference| over the levels). The plain version's time is its call
+    span: it launches about 18 kernels per block of queries, more than the
+    host can queue ahead while the card sleeps. Bound: points and queries
+    read, [1, N, k] outputs written, 8 float32 operations per candidate
+    distance; beside it the issue floor of the kernel's 8 FP32-pipe
+    instructions a distance, and the call span of the chunked
+    ``torch.cdist`` + ``topk`` yardstick (its kernels cannot all be queued
+    ahead of the card)."""
     dev = torch.device(DEVICE)
     k = model_cfg.num_neighbors
     gen = torch.Generator(device=dev).manual_seed(SEED)
     pts = torch.rand((1, model_cfg.num_points, 3), generator=gen,
                      device=dev) * 50 - 25
     out = []
-    for level in (0, 1):
+    for level in range(model_cfg.num_layers):
         n = pts.shape[1] // 4 ** level
         sub = pts[:, :n].contiguous()
-        idx_k, d2_k = ck.knn_exact(sub, sub, k)
-        idx_p, d2_p = ck.knn_exact_plain(sub, sub, k)
-        torch.cuda.synchronize()
-        if not torch.equal(d2_k, d2_p):
-            raise AssertionError(f"knn_exact level {level}: d2 differs from "
-                                 "the plain version")
-        rows = _differ_only_at_ties("knn_exact", idx_k, idx_p, d2_p)
+        got = ck.knn_exact(sub, sub, k)
+        want = ck.knn_exact_plain(sub, sub, k)
+        rows = _exact_equal(f"knn_exact level {level}", got, want, False)
+        lat = lattice_points(1, n, SEED + level)
+        _exact_equal(f"knn_exact level {level} lattice", ck.knn_exact(
+            lat, lat, k), ck.knn_exact_plain(lat, lat, k), True)
         note = ""
         if level == 1:
             # the plain version on the CPU gives the same bits
             idx_c, d2_c = ck.knn_exact_plain(sub.cpu(), sub.cpu(), k)
-            if not torch.equal(d2_c, d2_k.cpu()):
+            if not torch.equal(d2_c.view(torch.int32),
+                               got[1].cpu().view(torch.int32)):
                 raise AssertionError("knn_exact: card d2 differs from the "
                                      "CPU's")
-            crows = _differ_only_at_ties("knn_exact CPU", idx_k.cpu(), idx_c,
+            crows = _differ_only_at_ties("knn_exact CPU", got[0].cpu(), idx_c,
                                          d2_c)
-            note = (f"; against the CPU's plain version: d2 equal, indices "
-                    f"differ on {int(crows.sum())} rows at d2 ties")
+            note = (f"; against the CPU's plain version: d2 bit-equal, "
+                    f"indices differ on {int(crows.sum())} rows at d2 ties")
+        if level == 2:
+            both = lattice_points(2, n, SEED)
+            mask = torch.rand((2, n), generator=gen, device=dev) < 0.6
+            mask[1] = False
+            mask[1, torch.randperm(n, generator=gen, device=dev)[:5]] = True
+            want_m = ck.knn_exact_plain(both, both, k, points_mask=mask)
+            _exact_equal("knn_exact masked", ck.knn_exact(
+                both, both, k, points_mask=mask), want_m, True)
+            if not (mask[1][want_m[0][1].long()].sum(-1) == 5).all():
+                raise AssertionError("knn_exact masked: not 5 valid first")
+            note += ("; B=2 with 5 valid points in sample 1: equal row for "
+                     "row, the masked points after the valid ones")
         ms = device_ms(lambda: ck.knn_exact(sub, sub, k))
         span = span_ms(lambda: ck.knn_exact(sub, sub, k))
         plain_span = span_ms(lambda: ck.knn_exact_plain(sub, sub, k),
                              iters=5, warmup=1)
-        say("kernels", f"knn_exact level {level} B=1 N=Q={n} k={k}: d2 equal, "
-            f"indices equal on {int((~rows).sum())}/{rows.numel()} rows "
-            f"({int(rows.sum())} differ at d2 ties){note}; kernel device ms "
-            f"{ms:.4f}, call span ms: kernel {span:.4f}, plain "
-            f"{plain_span:.4f}")
-        out.append(kernel_record(
-            (d2_k - d2_p).abs().max().item(), ms, plain_span,
-            bound(2 * nbytes(sub) + n * k * 8, n * n * 8)))
+        cdist_ms = span_ms(lambda: _cdist_topk(sub, sub, k), iters=3,
+                           warmup=1)
+        bounds = bound(2 * nbytes(sub) + n * k * 8, n * n * 8)
+        floor = issue_floor_ms(n * n, KNN_EXACT_PIPE_OPS)
+        plan = ck.exact_plan(1, n, n, sms=ck.sm_count(dev.index))
+        say("kernels", f"knn_exact level {level} B=1 N=Q={n} k={k} (plan "
+            f"{plan}): d2 bit-equal, indices equal on {int((~rows).sum())}/"
+            f"{rows.numel()} rows ({int(rows.sum())} differ at d2 ties), "
+            f"lattice row for row{note}; device ms: kernel {ms:.4f}, bound "
+            f"{max(bounds):.4f}, issue floor {floor:.4f}; call span ms: "
+            f"kernel {span:.4f}, plain {plain_span:.4f}, torch.cdist + topk "
+            f"{cdist_ms:.4f} (not the same function)")
+        out.append(dict(kernel_record(
+            (got[1] - want[1]).abs().max().item(), ms, plain_span, bounds),
+            floor=floor, cdist_ms=cdist_ms))
+    say("kernels", "knn_exact, the eval pyramid's four levels: device ms "
+        f"kernel {sum(r['ms'] for r in out):.4f}, bound "
+        f"{sum(r['bound_ms'] for r in out):.4f}, issue floor "
+        f"{sum(r['floor'] for r in out):.4f}; call span ms: plain "
+        f"{sum(r['plain_ms'] for r in out):.4f}, torch.cdist + topk "
+        f"{sum(r['cdist_ms'] for r in out):.4f}")
     return dict(out[0], max_abs_err=max(r["max_abs_err"] for r in out))
 
 
@@ -1191,7 +1430,64 @@ def phase_eval(model, card):
     say("eval", f"forward B=1 N={n} float32: median {fwd * 1e3:.2f} ms over "
         f"{len(times)} runs (min {min(times) * 1e3:.2f}, max "
         f"{max(times) * 1e3:.2f}), {n / fwd:.0f} points/s on {card}")
+    split = _eval_split(net, batch, model_cfg.num_layers)
+    say("eval", "one forward on the card's stream, median of 5, ms: "
+        f"{split['forward']:.4f} in all; the {model_cfg.num_layers} knn_exact "
+        f"launches {split['knn_exact']:.4f} "
+        f"({split['knn_exact'] / split['forward']:.1%}), the "
+        f"{model_cfg.num_layers} k = 1 _nearest searches "
+        f"{split['nearest']:.4f} ({split['nearest'] / split['forward']:.1%}),"
+        f" everything else {split['other']:.4f} "
+        f"({split['other'] / split['forward']:.1%})")
     return state
+
+
+def _eval_split(net, batch, layers, runs=5):
+    """One eval forward's time on the card's stream, split three ways: the
+    ``knn_exact`` launches, the k = 1 ``_nearest`` searches (plain torch
+    over [B, chunk, N] distance blocks) and everything else; CUDA events
+    around each call and around the forward (an idle gap of the stream
+    between them counts where it falls). Median of ``runs`` forwards."""
+    spans = {"knn_exact": [], "nearest": []}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[key].append((start, end))
+            return out
+        return wrapper
+
+    real = {"knn_exact": tn.knn_exact, "_nearest": tn._nearest}
+    tn.knn_exact = timed("knn_exact", real["knn_exact"])
+    tn._nearest = timed("nearest", real["_nearest"])
+    parts = collections.defaultdict(list)
+    try:
+        with torch.no_grad():
+            for _ in range(runs):
+                for key in spans:
+                    spans[key].clear()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                net(batch)
+                end.record()
+                end.synchronize()
+                if any(len(v) != layers for v in spans.values()):
+                    raise AssertionError(f"eval split: calls {spans}")
+                parts["forward"].append(start.elapsed_time(end))
+                for key, pairs in spans.items():
+                    parts[key].append(sum(a.elapsed_time(b)
+                                          for a, b in pairs))
+                parts["other"].append(parts["forward"][-1] -
+                                      parts["knn_exact"][-1] -
+                                      parts["nearest"][-1])
+    finally:
+        tn.knn_exact, tn._nearest = real["knn_exact"], real["_nearest"]
+    return {key: statistics.median(v) for key, v in parts.items()}
 
 
 def lidar_scan(n, seed):
@@ -2246,11 +2542,48 @@ def stencil_calls():
         f"forward on {card}")
 
 
+def knn_calls():
+    """The KNN kernels' yardstick across versions of the port: each
+    knn_exact launch of one eval pyramid (1 x 45,056 uniform points, the
+    eval phase's input) and each bucket_knn launch of one fused pyramid (4 x
+    45,056, at the inference and the training budget) timed alone as the
+    kernels phase times them, and their sums."""
+    card = phase_device()
+    phase_build()
+    cfg = MODEL.get("RandLANet")().cfg
+    rng = np.random.default_rng(0)
+    eval_pts = torch.from_numpy(rng.uniform(
+        -25, 25, (1, cfg.num_points, 3)).astype(np.float32)).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    fused_pts = torch.rand((4, cfg.num_points, 3), generator=gen,
+                           device=DEVICE) * 50 - 25
+    eval_calls = _captured(tn, "knn_exact", lambda: tn.build_knn_pyramid(
+        eval_pts, cfg.num_neighbors, cfg.sub_sampling_ratio))
+    groups = [("eval", "knn_exact", [
+        (f"level-{i}", args, kwargs)
+        for i, (args, kwargs) in enumerate(eval_calls)])]
+    for num_segs, gather_segs in ((cfg.infer_num_segs, cfg.infer_gather_segs),
+                                  (cfg.num_segs, cfg.gather_segs)):
+        groups.append((f"fused S{num_segs}", "bucket_knn", fused_searches(
+            fused_pts, cfg, num_segs, gather_segs)))
+    fns = {"knn_exact": ck.knn_exact, "bucket_knn": cb.knn_bucket}
+    for group, kernel, calls in groups:
+        times = []
+        for label, args, kwargs in calls:
+            times.append(device_ms(lambda: fns[kernel](*args, **kwargs)))
+            say("knn-calls", f"{group} {kernel} {label} B={args[1].shape[0]} "
+                f"Q={args[1].shape[1]}: device ms {times[-1]:.4f}")
+        say("knn-calls", f"{group}: the {len(calls)} {kernel} launches, "
+            f"device ms {sum(times):.4f} in all on {card}")
+
+
 def main():
     if sys.argv[1:] == ["--step-branches"]:
         return step_branches()
     if sys.argv[1:] == ["--stencil-calls"]:
         return stencil_calls()
+    if sys.argv[1:] == ["--knn-calls"]:
+        return knn_calls()
     card = phase_device()
     model = MODEL.get("RandLANet")()
     phase_build()

@@ -5,7 +5,9 @@ At first use each is compiled for ``sm_90a`` by its own ``nvcc``, all
 started together, and the objects are linked into one shared library under
 ``csrc/build/``, named by a hash of the sources, their headers and the
 flags, so an edited source builds anew and an unchanged one is loaded as
-it is.
+it is. Beside the library, ``<library>.ptxas.txt`` keeps what ptxas said
+of each kernel (registers, spill bytes, shared memory): ``== <source>``
+and then its lines.
 """
 
 import ctypes
@@ -20,7 +22,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("bucket_knn.cu", "bucket_gather.cu", "bucket_gather_bwd.cu",
            "knn_exact.cu", "stencil_conv.cu", "stencil_match.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -28,10 +30,11 @@ _I = ctypes.c_int
 # cudaError_t of its launch, or for the *_shared ones a kernel's shared
 # memory in bytes
 ENTRY_POINTS = {
-    # points, queries, seg_ids, rel, d2, B, npad, Q, nqb, S, seg, qblock, k,
+    # points, queries, seg_ids, rel, d2, part_i, part_d, tickets, B, npad, Q,
+    # nqb, S, seg_shift, qblock, k, qpt, threads, groups, span, shared,
     # stream
-    "bucket_knn_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _P),
+    "bucket_knn_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # values, seg_ids, rel, out, B, npad, Q, K, C, nqb, S, seg, qblock,
     # round_bf16, vec4, stream
     "bucket_gather_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -40,8 +43,10 @@ ENTRY_POINTS = {
     # round_bf16, vec4, stream
     "bucket_gather_bwd_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _P),
-    # points, queries, mask (or NULL), idx, d2, B, N, Q, k, stream
-    "knn_exact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # points, queries, mask (or NULL), idx, d2, B, N, Q, k, qpt, warps,
+    # chunk, stream
+    "knn_exact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P),
     # values, keys, qkeys, seg_ids, w, out, B, V, npad, Q, K, Cin, Cout, nqb,
     # S, seg, qblock, route, ct, mw, stages, shared, stream
     "stencil_conv_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -54,6 +59,8 @@ ENTRY_POINTS = {
     "stencil_conv_shared": (_I, _I, _I, _I, _I, _I, _I, _I),
     # S, seg
     "stencil_match_shared": (_I, _I),
+    # table rows
+    "bucket_knn_shared": (_I,),
 }
 
 
@@ -81,21 +88,30 @@ def build():
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     objs = [out.with_suffix(f".{os.getpid()}.{name}.o") for name in SOURCES]
+    logs = [obj.with_suffix(".log") for obj in objs]
     nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                                   str(CSRC / name)])
-                 for name, obj in zip(SOURCES, objs)]
+        procs = []
+        for name, obj, log in zip(SOURCES, objs, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                     str(CSRC / name)], stdout=f, stderr=subprocess.STDOUT))
         codes = [proc.wait() for proc in procs]
+        said = [f"== {name}\n{log.read_text()}"
+                for name, log in zip(SOURCES, logs)]
         failed = [name for name, code in zip(SOURCES, codes) if code]
         if failed:
-            raise RuntimeError(f"nvcc failed on {failed}")
+            raise RuntimeError(f"nvcc failed on {failed}:\n" +
+                               "".join(t for t, code in zip(said, codes)
+                                       if code))
         subprocess.run([nvcc, "-shared", "-o", str(tmp),
                         *(str(obj) for obj in objs)], check=True)
+        out.with_suffix(".ptxas.txt").write_text("".join(said))
     finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
+        for path in objs + logs:
+            path.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out, time.perf_counter() - t0
 

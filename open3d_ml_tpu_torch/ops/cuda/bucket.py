@@ -16,14 +16,21 @@ row-strided tensors are 16-byte aligned, 4-byte units otherwise.
 
 import torch
 
-from ._launch import check, raise_on, route, stream
+from ._launch import (check, fits, partials, ptr, raise_on, route, sm_count,
+                      stream)
 
 LAUNCHES = {"bucket_knn": 0, "bucket_gather": 0, "bucket_gather_bwd": 0}
 
+# what bucket_knn is built for: k 1 or 16, seg a power of two, a table of
+# S * seg points that fits one block's shared memory (the kernel library's
+# ``bucket_knn_shared``), and at most 512 threads a block
 KNN_KS = (1, 16)
-# bucket_knn stages its table (S * seg points, 12 bytes each) in the 48 KB
-# of shared memory a block gets without opting in
-KNN_TABLE_BYTES = 48 * 1024
+KNN_MAX_THREADS = 512  # threads a block: 128 registers a thread
+KNN_BATCH = 32  # table rows per hit mask, the least rows a block scans
+# the most blocks a query block's table is split over: the last of them to
+# finish merges the others' lists one after another (on the H100, 8 and
+# 11 tied at level 3's pool search and 16 lost)
+KNN_MAX_GROUPS = 8
 # the gather kernels index rows and value rows with 32-bit integers
 GATHER_MAX_ROWS = 2**31 - 1
 
@@ -58,11 +65,40 @@ def knn_bucket_plain(points, queries, seg_ids, k, *, seg, qblock):
     return rel[:, :q].contiguous(), d2[:, :q].contiguous()
 
 
+def knn_bucket_plan(b, q, s, seg, qblock, *, sms):
+    """How the ``bucket_knn`` kernel runs a call: {"qpt": queries a
+    thread, 1, or 2 where qblock passes ``KNN_MAX_THREADS`` (two a thread
+    halve the block's warps, which its shared-memory table already caps:
+    slower on the H100 at every fused level); "threads": a block's,
+    32 * ceil(qblock / qpt / 32); "groups":
+    blocks per query block, block g scanning table positions [g * span,
+    (g + 1) * span); "span"; "shared": the block's shared memory, as the
+    kernel library computes it (``bucket_knn_shared``)}. Raises where the
+    whole table of S * seg points would not fit one block.
+
+    groups is the most, up to ``KNN_MAX_GROUPS``, that keeps the grid
+    within one block per SM (``sms`` of them) and gives each block a batch
+    of rows: only the deep levels' few query blocks are split, and a grid
+    that would take more than one wave is not (on the H100 a second wave
+    cost more than the split saved)."""
+    from ._build import library
+    lib = library()
+    rows = s * seg
+    fits("bucket_knn", lib.bucket_knn_shared(rows))
+    qpt = -(-qblock // KNN_MAX_THREADS)
+    nqb = -(-q // qblock)
+    groups = max(1, min(KNN_MAX_GROUPS, sms // (b * nqb), rows // KNN_BATCH))
+    span = -(-rows // groups)
+    return {"qpt": qpt, "threads": 32 * -(-qblock // (32 * qpt)),
+            "groups": -(-rows // span), "span": span,
+            "shared": fits("bucket_knn", lib.bucket_knn_shared(span))}
+
+
 def knn_bucket(points, queries, seg_ids, k, *, seg, qblock):
-    """``knn_bucket_plain``'s contract, checked for both routes (a table
-    of S * seg points must fit the kernel's 48 KB of shared memory, 12
-    bytes a point); on a CUDA device it launches the ``bucket_knn`` kernel
-    (k must be 1 or 16 and qblock at most 1024 there)."""
+    """``knn_bucket_plain``'s contract, checked for both routes; on a CUDA
+    device it launches the ``bucket_knn`` kernel, as ``knn_bucket_plan``
+    sizes it: k must be 1 or 16, seg a power of two, qblock at most 1024
+    and the table fit one block's shared memory there."""
     dev = points.device
     check(points, "points", torch.float32, 3, dev)
     check(queries, "queries", torch.float32, 3, dev)
@@ -78,23 +114,27 @@ def knn_bucket(points, queries, seg_ids, k, *, seg, qblock):
     if npad % seg or nqb != -(-q // qblock) or s * seg < k:
         raise ValueError(f"bad bucket shapes: npad {npad}, seg {seg}, Q {q}, "
                          f"qblock {qblock}, nqb {nqb}, S {s}, k {k}")
-    if s * seg * 12 > KNN_TABLE_BYTES:
-        raise ValueError(f"bucket_knn table of S {s} x seg {seg} points "
-                         f"needs {s * seg * 12} bytes of shared memory, more "
-                         f"than {KNN_TABLE_BYTES}")
     if route(points, "bucket") == "plain":
         return knn_bucket_plain(points, queries, seg_ids, k, seg=seg,
                                 qblock=qblock)
     if k not in KNN_KS:
         raise ValueError(f"bucket_knn is built for k in {KNN_KS}, not {k}")
+    if seg & (seg - 1):
+        raise ValueError(f"bucket_knn is built for seg a power of two, not "
+                         f"{seg}")
     if not 0 < qblock <= 1024:
         raise ValueError(f"qblock {qblock} must be in (0, 1024]")
     from ._build import library
+    plan = knn_bucket_plan(b, q, s, seg, qblock, sms=sm_count(dev.index))
     rel = torch.empty((b, q, k), dtype=torch.int32, device=dev)
     d2 = torch.empty((b, q, k), dtype=torch.float32, device=dev)
+    part_i, part_d, tickets = partials(plan["groups"], (b, q, k), b * nqb,
+                                       dev)
     err = library().bucket_knn_launch(
         points.data_ptr(), queries.data_ptr(), seg_ids.data_ptr(),
-        rel.data_ptr(), d2.data_ptr(), b, npad, q, nqb, s, seg, qblock, k,
+        rel.data_ptr(), d2.data_ptr(), ptr(part_i), ptr(part_d), ptr(tickets),
+        b, npad, q, nqb, s, seg.bit_length() - 1, qblock, k, plan["qpt"],
+        plan["threads"], plan["groups"], plan["span"], plan["shared"],
         stream())
     raise_on(err, "bucket_knn")
     LAUNCHES["bucket_knn"] += 1

@@ -3,7 +3,8 @@ wrapper that ``ops/neighbors.py`` calls.
 
 The wrapper takes the plain version for tensors on the CPU and launches
 the ``knn_exact`` kernel (``csrc/knn_exact.cu``) for tensors on a CUDA
-device; it has no other route. ``LAUNCHES`` counts the kernel launches.
+device; it has no other route. ``LAUNCHES`` counts the kernel launches,
+one a call. ``exact_plan`` sizes a call.
 
 The contract is the TPU kernel's: d2 = max(|q|^2 + |p|^2 - 2 q.p, 0),
 masked points carry |p|^2 = 1e30, and the k results come ascending by d2,
@@ -16,11 +17,20 @@ its d2 equals the plain version's bit for bit.
 
 import torch
 
-from ._launch import check, raise_on, route, stream
+from ._launch import check, ptr, raise_on, route, sm_count, stream
 
 LAUNCHES = {"knn_exact": 0}
 
 KNN_K = 16  # the one k the kernel is built for
+# the kernel's plan: warps a block (a power of two up to MAX_WARPS) and
+# tile entries a warp (up to MAX_CHUNK, whole batches of 32)
+MAX_WARPS = 8
+MAX_CHUNK = 128
+BATCH = 32
+# warps per SM the plan fills before it stops adding slices: more slices
+# mean more lists to fill and merge (on the H100, 12 picked the fastest
+# warps a block of a sweep at eval levels 0-2)
+WARPS_PER_SM = 12
 BIG = 1e30  # |p|^2 of a masked point
 # elements of one [B, chunk, N] distance block of the plain versions
 CHUNK_ELEMS = 1 << 24
@@ -81,10 +91,36 @@ def knn_exact_plain(points, queries, k, *, points_mask=None):
     return torch.cat(idx, 1), torch.cat(d2, 1)
 
 
+def exact_plan(b, n, q, *, sms):
+    """How the ``knn_exact`` kernel runs a call: {"qpt": queries a thread,
+    2 where the query groups of 64 alone give every SM (``sms`` of them)
+    four blocks, else 1: each tile entry read from shared memory
+    then serves two distances, which paid at the eval pyramid's level 0 on
+    the H100 and not where it leaves fewer warps; "warps": warps a block,
+    one block a query group of 32 * qpt, each warp a slice of the N
+    candidates, warp w taking entries [w * chunk, (w + 1) * chunk) of each
+    tile of warps * chunk; "chunk"}.
+
+    warps doubles while the grid stays within ``WARPS_PER_SM`` warps per
+    SM and each warp keeps two batches a tile. A query's slices each keep
+    a list, merged at the end, so they are no more than the card needs;
+    at the small levels, where the query groups leave SMs idle, a block
+    takes the most warps."""
+    qpt = 2 if b * -(-q // (2 * BATCH)) >= 4 * sms else 1
+    qgroups = b * -(-q // (BATCH * qpt))
+    warps = 1
+    while (warps < MAX_WARPS and
+           qgroups * warps * 2 <= WARPS_PER_SM * sms and
+           n >= 2 * warps * 2 * BATCH):
+        warps *= 2
+    chunk = min(MAX_CHUNK, BATCH * -(-n // (BATCH * warps)))
+    return {"qpt": qpt, "warps": warps, "chunk": chunk}
+
+
 def knn_exact(points, queries, k, *, points_mask=None):
     """``knn_exact_plain``'s contract, checked for both routes; on a CUDA
     device it launches the ``knn_exact`` kernel, which is built for
-    k = 16 only."""
+    k = 16 only, as ``exact_plan`` sizes it."""
     dev = points.device
     check(points, "points", torch.float32, 3, dev)
     check(queries, "queries", torch.float32, 3, dev)
@@ -107,12 +143,13 @@ def knn_exact(points, queries, k, *, points_mask=None):
         raise ValueError(f"the knn_exact kernel is built for k={KNN_K}, "
                          f"not {k}")
     from ._build import library
+    plan = exact_plan(b, n, q, sms=sm_count(dev.index))
     idx = torch.empty((b, q, k), dtype=torch.int32, device=dev)
     d2 = torch.empty((b, q, k), dtype=torch.float32, device=dev)
-    mask_ptr = None if points_mask is None else points_mask.data_ptr()
     err = library().knn_exact_launch(
-        points.data_ptr(), queries.data_ptr(), mask_ptr, idx.data_ptr(),
-        d2.data_ptr(), b, n, q, k, stream())
+        points.data_ptr(), queries.data_ptr(), ptr(points_mask),
+        idx.data_ptr(), d2.data_ptr(), b, n, q, k, plan["qpt"],
+        plan["warps"], plan["chunk"], stream())
     raise_on(err, "knn_exact")
     LAUNCHES["knn_exact"] += 1
     return idx, d2

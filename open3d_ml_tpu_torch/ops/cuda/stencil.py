@@ -13,11 +13,11 @@ package's custom VJP: its backward recomputes the rulebook with
 ``stencil_conv`` hands values or weights that need a gradient to it.
 """
 
-import functools
-
 import torch
 
-from ._launch import check, raise_on, route, stream
+from ._launch import SMEM_LIMIT, check, raise_on, route, stream
+from ._launch import fits as _fits
+from ._launch import sm_count as _sm_count
 from .bucket import gather_bucket, gather_bucket_bwd
 
 LAUNCHES = {"stencil_conv": 0, "stencil_match": 0}
@@ -32,7 +32,6 @@ COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 # limit
 KERNEL_QBLOCKS = (32, 64, 128)
 KERNEL_MAX_TAPS = 32
-SMEM_LIMIT = 232_448  # bytes of shared memory one block may opt in to
 _SMEM_HALF_SM = 115_712  # the most each of two blocks on one SM may have
 _ROWS = 32  # queries per row tile of the bf16 convolution kernel
 
@@ -107,13 +106,6 @@ def _check_tables(b, v, seg, q, qblock, seg_ids):
                          f"qblock {qblock}, seg_ids {tuple(seg_ids.shape)}")
 
 
-def _fits(name, shared):
-    if not 0 < shared <= SMEM_LIMIT:
-        raise ValueError(f"{name} kernel: {shared} bytes of shared memory, "
-                         f"not in (0, {SMEM_LIMIT}], what a block can have")
-    return shared
-
-
 def match_shared(s, seg):
     """Shared memory of the ``stencil_match`` kernel in bytes, as the
     kernel library computes it (``stencil_match_shared``: its sorted table
@@ -159,11 +151,6 @@ def conv_plan(b, q, k, cin, cout, s, seg, qblock, *, bf16, sms):
     stages = 3 if size(1, ct, mw, 3) <= _SMEM_HALF_SM else 2
     return {"route": 1, "ct": ct, "mw": mw, "stages": stages,
             "shared": _fits("stencil_conv", size(1, ct, mw, stages))}
-
-
-@functools.cache
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stencil_match(keys, qkeys, seg_ids, *, seg, qblock):

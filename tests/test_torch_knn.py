@@ -195,3 +195,217 @@ def test_pyramid_equal_to_jax(batched):
 def test_pyramid_rejects_unported_methods(method):
     with pytest.raises(NotImplementedError, match=method):
         tn.build_knn_pyramid(torch.zeros((64, 3)), K, [4], method=method)
+
+
+# ----------------------------------------------- the kernel's slices and plan
+
+def _keys(d2, index):
+    """int64 (d2 bits, index) keys: ascending d2, the lower index first."""
+    return (d2.view(torch.int32).long() << 32) | index
+
+
+def _best(d2, index, k):
+    """The k best (d2, index) of each row, ascending by key, padded with
+    (inf, 0) where a row has fewer than k."""
+    key = _keys(d2, index)
+    pad = k - key.shape[-1]
+    if pad > 0:
+        fill = _keys(torch.tensor(float("inf")), torch.tensor(0))
+        key = torch.cat([key, fill.expand(*key.shape[:-1], pad)], -1)
+    top = torch.topk(key, k, dim=-1, largest=False).values
+    return (top >> 32).int().view(torch.float32), (top & 0xFFFFFFFF).int()
+
+
+def _merge(lists, k):
+    """Merge (d2, index) lists by key, keeping the k best."""
+    return _best(torch.cat([d for d, _ in lists], -1),
+                 torch.cat([i for _, i in lists], -1).long(), k)
+
+
+def _slices(n, count, strided):
+    index = torch.arange(n)
+    return ([index[p::count] for p in range(count)] if strided else
+            list(torch.tensor_split(index, count)))
+
+
+def _split_and_merge(points, queries, k, mask, count, strided):
+    """Each slice's k best by (d2, index) from the contract's d2, then the
+    slices' lists merged by key: what the kernel's merges compute."""
+    pn = ck.masked_norms(points, mask)
+    d2 = ck.pairwise_d2(queries, ck.sq_norms(queries), points, pn)
+    lists = [_best(d2[..., sl], sl, k)
+             for sl in _slices(points.shape[1], count, strided)]
+    d, i = _merge(lists, k)
+    return i, d
+
+
+def _insert(ld, li, x, xi, ok):
+    """The kernel's insert on [Q, K] lists: x goes after every entry of
+    equal d2 where ok and x < the last entry."""
+    ok = ok & (x < ld[:, -1])
+    pos = (ld <= x[:, None]).sum(1, keepdim=True)
+    j = torch.arange(ld.shape[1])
+    sd = torch.cat([ld[:, :1], ld[:, :-1]], 1)
+    si = torch.cat([li[:, :1], li[:, :-1]], 1)
+    nd = torch.where(j < pos, ld, torch.where(j == pos, x[:, None], sd))
+    ni = torch.where(j < pos, li, torch.where(j == pos, xi, si))
+    return (torch.where(ok[:, None], nd, ld),
+            torch.where(ok[:, None], ni, li))
+
+
+def _warp_chunks(plan, n):
+    """The candidates [a, b) of each tile, warp by warp, as the kernel
+    walks them: tiles of warps * chunk."""
+    ch = plan["chunk"]
+    return [[(min(n, start + w * ch), min(n, start + (w + 1) * ch))
+             for w in range(plan["warps"])]
+            for start in range(0, n, plan["warps"] * ch)]
+
+
+def _emulate_exact(points, queries, mask, plan, k=K):
+    """``knn_exact``'s kernel on one sample as its plan runs it: a block
+    scans the candidates in tiles (``_warp_chunks``), each warp keeping its
+    own list: its first k candidates seed it, the rest go through the
+    strict insert; after each tile the warps' bound (the least of their
+    k-th best and the largest of their ceil(k / warps)-th best) filters
+    every later insert (d2 <= bound); the warps' lists merge by key."""
+    pn = ck.masked_norms(points, mask)[0]
+    qs = queries[0]
+    d2 = ck.pairwise_d2(qs[None], ck.sq_norms(qs)[None], points, pn[None])[0]
+    n, nq = points.shape[1], qs.shape[0]
+    nw = plan["warps"]
+    jpost = -(-k // nw) - 1
+    ld = torch.full((nw, nq, k), float("inf"))
+    li = torch.zeros((nw, nq, k), dtype=torch.int64)
+    bound = torch.full((nq,), float("inf"))
+    seeded = [False] * nw
+    for tile in _warp_chunks(plan, n):
+        for w, (a, b) in enumerate(tile):
+            for c in range(a, b):
+                seed = not seeded[w] and c < a + k
+                ok = torch.full((nq,), True) if seed else d2[:, c] <= bound
+                ld[w], li[w] = _insert(ld[w], li[w], d2[:, c],
+                                       torch.tensor(c), ok)
+            seeded[w] = seeded[w] or b > a
+        if nw > 1:
+            bound = torch.minimum(ld[:, :, -1].min(0).values,
+                                  ld[:, :, jpost].max(0).values)
+    d, i = _merge([(ld[w], li[w]) for w in range(nw)], k)
+    return i[None], d[None]
+
+
+def _cases():
+    """(name, points [B, N, 3], queries, mask): lattice points, whose d2
+    repeat many times; uniform floats; and a mask that leaves one sample
+    fewer than K valid points."""
+    rng = np.random.default_rng(30)
+    lat = torch.from_numpy(lattice_cloud(rng, 2, 300))
+    uni = torch.from_numpy(rng.uniform(-25, 25, (2, 300, 3))
+                           .astype(np.float32))
+    mask = torch.from_numpy(rng.random((2, 300)) < 0.6)
+    mask[1] = False
+    mask[1, rng.choice(300, 5, replace=False)] = True
+    return [("lattice", lat, lat[:, :120], None),
+            ("uniform", uni, uni[:, :120], None),
+            ("masked", lat, lat[:, :120], mask)]
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("count", [1, 3, 8, 32])
+@pytest.mark.parametrize("case", ["lattice", "uniform", "masked"])
+def test_slices_merged_by_key_equal_the_plain_version(case, count, strided):
+    """However the candidates are split (contiguous or strided slices),
+    each slice's k best by (d2, index) merged by the same key equal
+    ``knn_exact_plain`` index for index, ties and masked points (which
+    come after the valid ones, in index order) included."""
+    _, pts, qs, mask = next(c for c in _cases() if c[0] == case)
+    want = ck.knn_exact_plain(pts, qs, K, points_mask=mask)
+    got = _split_and_merge(pts, qs, K, mask, count, strided)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if mask is not None:
+        valid = mask[1][want[0][1].long()]
+        assert valid[:, :5].all() and not valid[:, 5:].any()
+
+
+@pytest.mark.parametrize("n", [300, 1200])
+@pytest.mark.parametrize("case", ["lattice", "uniform", "masked"])
+def test_kernel_emulation_equals_the_plain_version(case, n):
+    """The kernel's algorithm, emulated with its plan for 132 SMs and for
+    plans of more warps and smaller chunks, equals the plain version on
+    each sample: the bound the warps share never drops a candidate the
+    answer needs."""
+    _, pts, _, mask = next(c for c in _cases() if c[0] == case)
+    if n > pts.shape[1]:
+        reps = -(-n // pts.shape[1])
+        pts = (pts.repeat(1, reps, 1)[:, :n] +
+               torch.arange(n)[None, :, None] // pts.shape[1] * 8.0)
+        mask = None if mask is None else mask.repeat(1, reps)[:, :n]
+    qs = pts[:, ::5].contiguous()
+    plans = [ck.exact_plan(1, n, qs.shape[1], sms=132),
+             {"warps": 8, "chunk": 32}, {"warps": 4, "chunk": 64}]
+    for b in range(pts.shape[0]):
+        m = None if mask is None else mask[b:b + 1]
+        want = ck.knn_exact_plain(pts[b:b + 1], qs[b:b + 1], K, points_mask=m)
+        for plan in plans:
+            got = _emulate_exact(pts[b:b + 1], qs[b:b + 1], m, plan)
+            assert torch.equal(got[0], want[0]), plan
+            assert torch.equal(got[1], want[1]), plan
+
+
+EVAL_LEVELS = (45_056, 11_264, 2_816, 704)  # the shipped eval pyramid
+
+
+@pytest.mark.parametrize("n", EVAL_LEVELS)
+def test_exact_plan_slices_cover_each_candidate_once(n):
+    """At every level of the eval pyramid (one sample, queries = points)
+    the plan's slices, tile by tile and warp by warp as the kernel walks
+    them, cover every candidate exactly once, each warp's in index order;
+    the warps stay within 12 an SM of 132, and the small levels, whose
+    query groups leave SMs idle, take the most warps a block."""
+    plan = ck.exact_plan(1, n, n, sms=132)
+    qgroups = -(-n // (32 * plan["qpt"]))
+    nw, chunk = plan["warps"], plan["chunk"]
+    assert nw in (1, 2, 4, 8) and chunk % 32 == 0 and 32 <= chunk <= 128
+    assert qgroups * nw <= ck.WARPS_PER_SM * 132
+    tiles = _warp_chunks(plan, n)
+    seen = []
+    for w in range(nw):
+        mine = [c for tile in tiles for c in range(*tile[w])]
+        assert mine == sorted(mine)
+        seen += mine
+    assert sorted(seen) == list(range(n))
+    assert [(p["qpt"], p["warps"]) for p in (
+        ck.exact_plan(1, m, m, sms=132) for m in EVAL_LEVELS)] == [
+            (2, 2), (1, 4), (1, 8), (1, 8)]
+
+
+def test_knn_exact_wrapper_passes_the_plan(monkeypatch):
+    """On the kernel route ``knn_exact`` hands its entry point the plan
+    (queries a thread, warps, chunk); one launch per call."""
+    from open3d_ml_tpu_torch.ops.cuda import _build
+    calls = []
+
+    class Library:
+        def knn_exact_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(ck, "route", lambda t, family: "kernel")
+    monkeypatch.setattr(ck, "stream", lambda: 0)
+    monkeypatch.setattr(ck, "sm_count", lambda index: 132)
+    monkeypatch.setattr(ck, "LAUNCHES", {"knn_exact": 0})
+    for n in (704, 11_264):
+        pts = torch.zeros((1, n, 3))
+        mask = torch.ones((1, n), dtype=torch.bool)
+        ck.knn_exact(pts, pts, K, points_mask=mask)
+        plan = ck.exact_plan(1, n, n, sms=132)
+        args = calls[-1]
+        # points, queries, mask, idx, d2, B, N, Q, k, qpt, warps, chunk,
+        # stream
+        assert args[2] == mask.data_ptr()
+        assert args[5:] == (1, n, n, K, plan["qpt"], plan["warps"],
+                            plan["chunk"], 0)
+    assert ck.LAUNCHES == {"knn_exact": 2}
+    with pytest.raises(ValueError, match="k=16"):
+        ck.knn_exact(torch.zeros((1, 64, 3)), torch.zeros((1, 64, 3)), 8)

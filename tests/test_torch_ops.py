@@ -533,17 +533,174 @@ def test_gather_refuses_rows_past_32_bits():
                              rel, 64, seg=64, qblock=128, round_bf16=False)
 
 
-def test_knn_refuses_a_table_past_shared_memory():
-    """The kernel stages S * seg points (12 bytes each) in the 48 KB a
-    block gets without opting in: S 48 x seg 64 (the training budget, 36
-    KB) and S 64 x seg 64 (48 KB) pass, S 65 x seg 64 is refused on either
-    route."""
-    pts = torch.zeros((1, 65 * 64, 3))
-    for s, ok in ((48, True), (64, True), (65, False)):
+def _knn_kernel_route(monkeypatch):
+    """Send ``knn_bucket`` down the kernel route on CPU tensors, into a
+    fake library that records each launch's arguments and sizes shared
+    memory as the kernel library's ``bucket_knn_shared`` does (16 bytes a
+    row and a batch of 32 rows of slack)."""
+    from open3d_ml_tpu_torch.ops.cuda import _build
+    calls = []
+
+    class Library:
+        def bucket_knn_launch(self, *args):
+            calls.append(args)
+            return 0
+
+        def bucket_knn_shared(self, rows):
+            return 16 * (rows + 32)
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(cb, "route", lambda t, family: "kernel")
+    monkeypatch.setattr(cb, "stream", lambda: 0)
+    monkeypatch.setattr(cb, "sm_count", lambda index: 132)
+    monkeypatch.setattr(cb, "LAUNCHES", dict.fromkeys(cb.LAUNCHES, 0))
+    return calls
+
+
+def test_knn_refuses_a_table_past_shared_memory(monkeypatch):
+    """The kernel stages S * seg points (16 bytes each) in one block's
+    shared memory, up to the 227 KB a block may opt in to: S 48 x seg 64
+    (the training budget, 48 KB) and S 65 x seg 64, past the old 48 KB
+    limit, pass on both routes; S 226 x seg 64 (231,936 bytes with the
+    slack) is the most the kernel route takes and S 227 is refused
+    there."""
+    pts = torch.zeros((1, 227 * 64, 3))
+    queries = pts[:, :8]
+    for s in (48, 65):
         sids = torch.zeros((1, 1, s), dtype=torch.int32)
-        queries = pts[:, :8]
-        if ok:
-            cb.knn_bucket(pts, queries, sids, 1, seg=64, qblock=8)
-        else:
-            with pytest.raises(ValueError, match="shared memory"):
-                cb.knn_bucket(pts, queries, sids, 1, seg=64, qblock=8)
+        cb.knn_bucket(pts, queries, sids, 1, seg=64, qblock=8)
+    calls = _knn_kernel_route(monkeypatch)
+    for s in (48, 65, 226):
+        sids = torch.zeros((1, 1, s), dtype=torch.int32)
+        cb.knn_bucket(pts, queries, sids, 1, seg=64, qblock=8)
+    assert len(calls) == 3
+    with pytest.raises(ValueError, match="232960 bytes of shared memory"):
+        cb.knn_bucket(pts, queries,
+                      torch.zeros((1, 1, 227), dtype=torch.int32), 1, seg=64,
+                      qblock=8)
+
+
+def test_knn_kernel_route_refuses_what_it_is_not_built_for(monkeypatch):
+    """On the kernel route k must be 1 or 16 and seg a power of two (the
+    plain version takes any)."""
+    pts = torch.zeros((1, 48 * 4, 3))
+    sids = torch.zeros((1, 1, 4), dtype=torch.int32)
+    cb.knn_bucket(pts, pts[:, :8], sids, 4, seg=48, qblock=8)
+    _knn_kernel_route(monkeypatch)
+    with pytest.raises(ValueError, match="power of two"):
+        cb.knn_bucket(pts, pts[:, :8], sids, 16, seg=48, qblock=8)
+    with pytest.raises(ValueError, match="k in"):
+        cb.knn_bucket(pts, pts[:, :8], sids, 4, seg=64, qblock=8)
+    with pytest.raises(ValueError, match="qblock"):
+        cb.knn_bucket(torch.zeros((1, 64 * 4, 3)),
+                      torch.zeros((1, 2048, 3)), sids, 16, seg=64,
+                      qblock=2048)
+
+
+# the fused pyramid's levels at the shipped config: (points, S) at the
+# inference budget S32 and the training budget S48, seg 64, qblock 128
+FUSED_LEVELS = {32: ((45_056, 32), (11_264, 32), (2_816, 32), (704, 11)),
+                48: ((45_056, 48), (11_264, 48), (2_816, 44), (704, 11))}
+
+
+@pytest.mark.parametrize("budget", sorted(FUSED_LEVELS))
+def test_knn_bucket_plan_splits_within_one_wave(monkeypatch, budget):
+    """At every neighbour search of the fused pyramid (B = 4) a query
+    block's table is split over the most blocks, up to 8, that keep the
+    grid within one block per SM of 132: levels 0-2 (88 query blocks or
+    more) are not split, level 3 (24) is split 5 ways. Each query block's
+    table positions are split into slices that cover every position
+    exactly once; a block's threads hold its qblock queries; its shared
+    memory is the library's size of its slice. Level 3's pool search (176
+    queries, 2 query blocks) is split 8 ways."""
+    _knn_kernel_route(monkeypatch)
+    for n, s in FUSED_LEVELS[budget]:
+        plan = cb.knn_bucket_plan(4, n, s, 64, 128, sms=132)
+        nqb = -(-n // 128)
+        assert plan["groups"] == max(1, min(cb.KNN_MAX_GROUPS,
+                                            132 // (4 * nqb))), (n, plan)
+        assert plan["groups"] == 1 or 4 * nqb * plan["groups"] <= 132
+        rows = s * 64
+        cover = sorted(p for g in range(plan["groups"])
+                       for p in range(g * plan["span"],
+                                      min(rows, (g + 1) * plan["span"])))
+        assert cover == list(range(rows))
+        assert plan["threads"] % 32 == 0
+        assert plan["threads"] * plan["qpt"] >= 128
+        assert plan["shared"] == 16 * (plan["span"] + 32)
+    assert [cb.knn_bucket_plan(4, n, s, 64, 128, sms=132)["groups"]
+            for n, s in FUSED_LEVELS[budget]] == [1, 1, 1, 5]
+    pool = cb.knn_bucket_plan(4, 176, 11, 64, 128, sms=132)
+    assert (pool["groups"], pool["span"]) == (8, 88)
+    # a block has at most 512 threads: a query block of 1,024 takes two
+    # queries a thread
+    wide = cb.knn_bucket_plan(1, 4096, 4, 64, 1024, sms=132)
+    assert (wide["qpt"], wide["threads"]) == (2, 512)
+
+
+def test_knn_bucket_wrapper_passes_the_plan(monkeypatch, search):
+    """On the kernel route ``knn_bucket`` hands its entry point seg's
+    shift, the plan and its shared memory, and scratch for the blocks'
+    lists and zeroed tickets where the plan splits the table; one launch
+    per call."""
+    calls = _knn_kernel_route(monkeypatch)
+    for k in (1, K):
+        cb.knn_bucket(search["pcp"], search["sp"], search["seg_ids"], k,
+                      seg=SEG, qblock=QBLOCK)
+        plan = cb.knn_bucket_plan(B, N, S, SEG, QBLOCK, sms=132)
+        args = calls[-1]
+        # points, queries, seg_ids, rel, d2, part_i, part_d, tickets, B,
+        # npad, Q, nqb, S, seg_shift, qblock, k, qpt, threads, groups, span,
+        # shared, stream
+        assert args[8:] == (B, search["pcp"].shape[1], N, N // QBLOCK, S, 5,
+                            QBLOCK, k, plan["qpt"], plan["threads"],
+                            plan["groups"], plan["span"], plan["shared"], 0)
+        assert ((args[5] is None) == (args[6] is None) == (args[7] is None)
+                == (plan["groups"] == 1))
+    assert cb.LAUNCHES == {"bucket_knn": 2, "bucket_gather": 0,
+                           "bucket_gather_bwd": 0}
+
+
+def _bucket_d2(points, queries, seg_ids, *, seg, qblock):
+    """[B, nqb, qblock, T] d2 of each (padded) query of a block against its
+    table, in the contract's order, and the table positions."""
+    b, q, _ = queries.shape
+    nqb, s = seg_ids.shape[1:]
+    cand = (seg_ids.long()[..., None] * seg + torch.arange(seg)).reshape(b, -1)
+    tab = torch.gather(points, 1, cand[..., None].expand(-1, -1, 3))
+    tab = tab.reshape(b, nqb, 1, s * seg, 3)
+    qs = torch.nn.functional.pad(queries, (0, 0, 0, nqb * qblock - q))
+    qs = qs.reshape(b, nqb, qblock, 1, 3)
+    dx, dy, dz = (qs[..., i] - tab[..., i] for i in range(3))
+    return dx * dx + dy * dy + dz * dz
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("count", [1, 3, 8, 32])
+@pytest.mark.parametrize("kind", ["lattice", "uniform"])
+def test_knn_table_slices_merged_by_key_equal_the_plain_version(
+        search, kind, count, strided):
+    """The table positions split into slices (contiguous, as the kernel's
+    blocks take them, or strided), each slice's k best by (d2, position),
+    merged by the same key: equal to ``knn_bucket_plain`` index for
+    index."""
+    if kind == "lattice":
+        pcp, sp, sids = search["pcp"], search["sp"], search["seg_ids"]
+    else:
+        rng = np.random.default_rng(31)
+        pts = torch.from_numpy(rng.uniform(-10, 10, (B, N, 3))
+                               .astype(np.float32))
+        _, sp = hilbert_sort(pts)
+        sids = tb.select_segments(sp, sp, seg=SEG, qblock=QBLOCK, num_segs=S)
+        pcp = tb.pad_seg(sp, SEG, fill=1e9)
+    want = cb.knn_bucket_plain(pcp, sp, sids, K, seg=SEG, qblock=QBLOCK)
+    d2 = _bucket_d2(pcp, sp, sids, seg=SEG, qblock=QBLOCK)
+    pos = torch.arange(d2.shape[-1])
+    parts = (pos[p::count] for p in range(count)) if strided else \
+        torch.tensor_split(pos, count)
+    keys = torch.cat([torch.topk((d2[..., p].view(torch.int32).long() << 32)
+                                 | p, min(K, len(p)), dim=-1,
+                                 largest=False).values for p in parts], -1)
+    top = torch.topk(keys, K, dim=-1, largest=False).values.reshape(B, -1, K)
+    assert torch.equal((top & 0xFFFFFFFF).int(), want[0])
+    assert torch.equal((top >> 32).int().view(torch.float32), want[1])
