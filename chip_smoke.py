@@ -1,8 +1,9 @@
 """Drive the PyTorch port's paths once on one CUDA card and check them.
 
-Four paths of RandLA-Net at the shipped SemanticKITTI config and one of
-SparseConvUnet at the shipped ScanNet config, with random weights drawn
-from a seeded generator:
+Four paths of RandLA-Net at the shipped SemanticKITTI config, two of
+SparseConvUnet at the shipped ScanNet config and PointPillars serving at
+the shipped KITTI config, with random weights drawn from a seeded
+generator:
 
 * the fused path: a batch of 4 patches of 45,056 points through the fused
   bucket pyramid and the network (``get_net``);
@@ -24,13 +25,20 @@ from a seeded generator:
   net with the ScanNet augmentations, forward and backward (each
   convolution's backward launches ``stencil_match``, ``bucket_gather`` and,
   but for the input convolution, ``bucket_gather_bwd``), with validation,
-  checkpoints and a resume.
+  checkpoints and a resume;
+* PointPillars serving: the bench's request (4 scans of 20,000 points
+  uniform over the KITTI range) through the serving net (``get_net``:
+  canvas pillars, bf16 convolutions) and the eval net (``get_eval_net``:
+  compact pillars, float32), then ``ObjectDetection.run_test`` on 8
+  KITTI-format frames, ``run_valid`` on ``SyntheticBoxes`` and
+  ``run_inference``.
 
 The models are the port's ``RandLANet()`` and ``SparseConvUnet()`` at their
 defaults, which equal the model sections of
 ``open3d_ml_tpu/configs/randlanet_semantickitti.yml`` and
-``sparseconvunet_scannet.yml`` (CPU tests pin that); nothing of the JAX
-package is imported.
+``sparseconvunet_scannet.yml``, and ``PointPillars(**POINTPILLARS_KITTI)``,
+the model section of ``pointpillars_kitti.yml`` (CPU tests pin all three);
+nothing of the JAX package is imported.
 
 Run from the root of the repository, with one card:
 
@@ -39,7 +47,9 @@ Run from the root of the repository, with one card:
 ``python3 chip_smoke.py --step-branches`` runs only that float32 training
 step against the CPU, on the patches of model seeds 0-3, with the CPU on
 its own branches and on the card's. ``python3 chip_smoke.py
---stencil-calls`` times only the room request's 39 stencil convolutions,
+--pointpillars`` runs only the pointpillars phase (it builds no kernel).
+``python3 chip_smoke.py --stencil-calls`` times only the room request's
+39 stencil convolutions,
 alone and inside a forward; ``python3 chip_smoke.py --knn-calls`` only
 the KNN kernels' launches: the 4 ``knn_exact`` calls of an eval pyramid
 and the 5 ``bucket_knn`` calls of a fused pyramid at the inference and at
@@ -128,6 +138,30 @@ Phases, one line each (or more), in this order:
    step time, points trained per second, the host's share, the peak memory
    and the device time of the backward's rulebook, gather and scatter
    calls in one step.
+11. pointpillars: (a) the request through the serving net (canvas, bf16)
+   and the eval net (compact, float32): median forward of 10 after 3
+   warm-ups, scans/s, peak memory, and beside them the bound of the
+   convolutions' and the PFN's FLOPs at the peak for their type; from
+   one torch.profiler pass over one forward of each, in a child process
+   (``--pp-profile``: the profiler traces the card once a process), the
+   busy share, the cuDNN convolutions' share and the top 8 kernels.
+   (b) gates: the eval net card vs CPU on scan 0 (relative L2 <= 1e-4);
+   canvas vs compact at float32 on the card (<= 1e-5; the phase asserts
+   that no cap binds: no pillar over 32 points, none over 40,000
+   pillars); the decode (``get_bboxes``) card vs CPU on the same outputs
+   (the same kept set, boxes within 1e-5 of max(1, |value|)), with the
+   detections a scan and
+   the decode's time; canvas bf16 vs float32 (<= ``PP_BF16_BOUND``); the
+   serving net's casts pinned (``pp_cast_faults``), and each of its
+   stages fed the CPU's input on scan 0 and held to the CPU's output
+   (``PP_BF16_STAGE_SHARE``), each wrong cast ``planted_cast`` plants on
+   the card caught by both.
+   (c) ``run_test`` over 8 KITTI frames written from ``make_objdet_scene``
+   seeds 0-7 (result files counted; frames/s and where the wall time
+   went), ``run_inference`` on frame 0, ``run_valid`` on
+   ``SyntheticBoxes`` (finite mAP), and a checkpoint saved and loaded by
+   a fresh pipeline whose head outputs are bit-equal. No kernel of the
+   port is launched.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is not 0. The
@@ -142,6 +176,8 @@ fallback: without CUDA the script fails first.
 """
 
 import collections
+import contextlib
+import functools
 import json
 import re
 import statistics
@@ -150,15 +186,20 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from open3d_ml_tpu_torch import DATASET, MODEL
 from open3d_ml_tpu_torch.dataloaders import (BatchLoader, DefaultBatcher,
                                              PointCloudDataloader)
-from open3d_ml_tpu_torch.datasets import SyntheticShapes
+from open3d_ml_tpu_torch.datasets import (KITTI, SyntheticBoxes,
+                                          SyntheticShapes, make_objdet_scene)
 from open3d_ml_tpu_torch.datasets.synthetic import make_semseg_scene
+from open3d_ml_tpu_torch.datasets.utils import BEVBox3D
+from open3d_ml_tpu_torch.models import point_pillars as tpp
 from open3d_ml_tpu_torch.models import randlanet as trl
 from open3d_ml_tpu_torch.models import sparseconvunet as tscu
 from open3d_ml_tpu_torch.modules.losses import SemSegLoss
@@ -172,7 +213,8 @@ from open3d_ml_tpu_torch.ops.cuda import knn as ck
 from open3d_ml_tpu_torch.ops.cuda import stencil as cs
 from open3d_ml_tpu_torch.ops.morton import hilbert_sort
 from open3d_ml_tpu_torch.ops.voxelize import voxelize
-from open3d_ml_tpu_torch.pipelines import SemanticSegmentation
+from open3d_ml_tpu_torch.pipelines import (ObjectDetection,
+                                           SemanticSegmentation)
 
 REPO = Path(__file__).resolve().parent
 TPU_KERNELS = "open3d_ml_tpu/ops/pallas/bucket.py"
@@ -251,6 +293,63 @@ STENCIL_EDGE_CASES = (("sub", 64, 32, 16), ("sub", 64, 32, 32),
 # their convolutions' Cin -> Cout; 3 -> 32 and 35 -> 37 take the bf16
 # kernel's 4-byte copies
 STENCIL_EDGE_WIDTHS = ((3, 32), (32, 32), (64, 96), (224, 224), (35, 37))
+# the model section of open3d_ml_tpu/configs/pointpillars_kitti.yml but
+# for name, ckpt_path and augment, and the entries of its pipeline section
+# that validation and test read (a CPU test pins both)
+POINTPILLARS_KITTI = {
+    "point_cloud_range": [0, -39.68, -3, 69.12, 39.68, 1],
+    "classes": ["Pedestrian", "Cyclist", "Car"],
+    "max_points": 32768,
+    "max_gt": 64,
+    "loss": {"focal": {"gamma": 2.0, "alpha": 0.25, "loss_weight": 1.0},
+             "smooth_l1": {"beta": 0.11, "loss_weight": 2.0},
+             "cross_entropy": {"loss_weight": 0.2}},
+    "voxelize": {"max_num_points": 32, "voxel_size": [0.16, 0.16, 4],
+                 "max_voxels": [16000, 40000]},
+    "voxel_encoder": {"in_channels": 4, "feat_channels": [64],
+                      "voxel_size": [0.16, 0.16, 4]},
+    "scatter": {"in_channels": 64, "output_shape": [496, 432]},
+    "backbone": {"in_channels": 64, "out_channels": [64, 128, 256],
+                 "layer_nums": [3, 5, 5], "layer_strides": [2, 2, 2]},
+    "neck": {"in_channels": [64, 128, 256], "out_channels": [128, 128, 128],
+             "upsample_strides": [1, 2, 4], "use_conv_for_no_stride": False},
+    "head": {"in_channels": 384, "feat_channels": 384, "nms_pre": 100,
+             "score_thr": 0.1,
+             "ranges": [[0, -39.68, -0.6, 70.4, 39.68, -0.6],
+                        [0, -39.68, -0.6, 70.4, 39.68, -0.6],
+                        [0, -39.68, -1.78, 70.4, 39.68, -1.78]],
+             "sizes": [[0.6, 0.8, 1.73], [0.6, 1.76, 1.73],
+                       [1.6, 3.9, 1.56]],
+             "rotations": [0, 1.57],
+             "iou_thr": [[0.35, 0.5], [0.35, 0.5], [0.45, 0.6]]},
+}
+POINTPILLARS_PIPELINE = {"val_batch_size": 1, "test_batch_size": 1,
+                         "overlaps": [0.5, 0.5, 0.7],
+                         "similar_classes": {"Van": "Car",
+                                             "Person_sitting": "Pedestrian"},
+                         "difficulties": [0, 1, 2]}
+PP_BATCH, PP_POINTS = 4, 20_000  # the request bench.py:321-341 times
+PP_TEST_FRAMES = 8  # make_objdet_scene seeds 0-7 as KITTI test frames
+# bf16 serving net vs float32, relative L2 of the head outputs: a sanity
+# bound (measured 0.0115 on an H100 80GB HBM3, 700 W). The casts are held
+# by pp_cast_faults and PP_BF16_STAGE_SHARE.
+PP_BF16_BOUND = 0.03
+# the serving net's stages on the card, each fed the CPU's input on scan 0
+# of the request: the share of a stage's elements apart from the CPU's
+# output (pp_stage_shares). A stage that rounds where the CPU does differs
+# only where the order of a sum flips a bf16 rounding.
+PP_BF16_STAGE_SHARE = 0.01
+# the wrong casts planted_cast plants, besides one convolution in float32
+PP_FAULTS = ("bn_bf16", "head_bf16", "canvas_f32")
+# KITTI calib lines: velodyne -> camera swaps the axes (x_cam = -y,
+# y_cam = -z, z_cam = x), P2 a KITTI camera's intrinsics
+KITTI_P = ("7.215377e+02 0.000000e+00 6.095593e+02 0.000000e+00 "
+           "0.000000e+00 7.215377e+02 1.728540e+02 0.000000e+00 "
+           "0.000000e+00 0.000000e+00 1.000000e+00 0.000000e+00")
+KITTI_TR = "0 -1 0 0 0 0 -1 0 1 0 0 0"
+KITTI_CALIB = (f"P0: {KITTI_P}", f"P1: {KITTI_P}", f"P2: {KITTI_P}",
+               f"P3: {KITTI_P}", "R0_rect: 1 0 0 0 1 0 0 0 1",
+               f"Tr_velo_to_cam: {KITTI_TR}", f"Tr_imu_to_velo: {KITTI_TR}")
 
 
 def say(phase, msg):
@@ -2504,6 +2603,659 @@ def phase_scu_train(card):
     return launches
 
 
+def write_kitti_frame(root, split, idx, seed):
+    """``make_objdet_scene(seed)`` as KITTI frame ``idx`` of ``split``
+    under ``root``: the velodyne ``.bin``, the calib file
+    (``KITTI_CALIB``) and a label file whose boxes are the scene's, with
+    each box's image rectangle projected through P2 and a truncation and
+    occlusion drawn from ``seed``, so their difficulties vary."""
+    root = Path(root)
+    dirs = {name: root / split / name for name in
+            ("velodyne", "calib", "label_2")}
+    for d in dirs.values():
+        d.mkdir(parents=True, exist_ok=True)
+    points, boxes = make_objdet_scene(seed)
+    points.tofile(dirs["velodyne"] / f"{idx:06d}.bin")
+    calib_path = dirs["calib"] / f"{idx:06d}.txt"
+    calib_path.write_text("\n".join(KITTI_CALIB) + "\n")
+    calib = KITTI.read_calib(calib_path)
+    rng = np.random.default_rng(seed)
+    lines = []
+    for box in boxes:
+        bev = BEVBox3D(box["center"], box["size"], box["yaw"],
+                       box["label_class"], -1.0, calib["world_cam"],
+                       calib["cam_img"])
+        cx, cy, w, h = bev.to_img()
+        x, y, z = bev.to_camera()[:3]
+        width, height, length = box["size"]
+        lines.append(
+            f"{box['label_class']} {rng.choice([0.0, 0.2, 0.4]):.2f} "
+            f"{rng.integers(0, 3)} 0.00 {cx - w / 2:.2f} {cy - h / 2:.2f} "
+            f"{cx + w / 2:.2f} {cy + h / 2:.2f} {height:.2f} {width:.2f} "
+            f"{length:.2f} {x:.2f} {y:.2f} {z:.2f} {box['yaw']:.2f}")
+    (dirs["label_2"] / f"{idx:06d}.txt").write_text("\n".join(lines) + "\n")
+
+
+def pp_request(model, seed=SEED):
+    """The bench's PointPillars request: ``PP_BATCH`` scans of
+    ``PP_POINTS`` points uniform over the config's range (intensity
+    uniform in 0-1), padded to ``max_points``, as numpy arrays."""
+    b, n = PP_BATCH, PP_POINTS
+    rng = np.random.default_rng(seed)
+    pts = np.zeros((b, model.cfg.max_points, 4), np.float32)
+    pr = model.point_cloud_range
+    for i in range(3):
+        pts[:, :n, i] = rng.uniform(pr[i], pr[i + 3], (b, n))
+    pts[:, :n, 3] = rng.uniform(0, 1, (b, n))
+    return {"point": pts, "point_count": np.full((b,), n, np.int32)}
+
+
+def pp_random_weights(net, seed=SEED):
+    """Seeded random weights for PointPillars' nets, He-scaled so the
+    activations keep their size through the ReLUs: a Linear or Conv2d
+    weight by sqrt(2 / fan_in), a ConvTranspose2d (kernel = stride: one
+    tap an input channel) by sqrt(2 / in); the head's convolutions by
+    0.1 / sqrt(fan_in), so its logits and box deltas are of order 1, as a
+    trained head's are (deltas of order 10 make boxes of 1e4 m); conv
+    biases small; BatchNorm scales in 0.5-1.5, shifts small, running means
+    N(0, 0.2) and variances in 0.5-1.5."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(t, scale):
+        t.copy_(torch.randn(t.shape, generator=gen) * scale)
+
+    with torch.no_grad():
+        for name, m in net.named_modules():
+            if isinstance(m, torch.nn.ConvTranspose2d):
+                draw(m.weight, (2 / m.weight.shape[0]) ** .5)
+            elif isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)):
+                gain = 0.01 if name.startswith("conv_") else 2
+                draw(m.weight, (gain / m.weight[0].numel()) ** .5)
+                if m.bias is not None:
+                    draw(m.bias, 0.1)
+            elif isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen)
+                               + 0.5)
+                draw(m.bias, 0.1)
+                draw(m.running_mean, 0.2)
+                m.running_var.copy_(
+                    torch.rand(m.running_var.shape, generator=gen) + 0.5)
+    return net
+
+
+def pp_flops(model, scans):
+    """Multiply-adds x 2 of the convolutions and the PFN's linear for
+    ``scans`` scans, by the type they run in on the serving net: {"bf16":
+    the backbone and the neck, "float32": the head and the PFN}; the
+    float32 net does all in float32."""
+    cfg = model.cfg
+    ny, nx = model.output_shape
+    bb, neck = cfg.backbone, cfg.neck
+    cin = cfg.voxel_encoder["feat_channels"][-1]
+    h, w = ny, nx
+    bf16 = 0
+    stage = []
+    for cout, num, stride in zip(bb["out_channels"], bb["layer_nums"],
+                                 bb["layer_strides"]):
+        h, w = h // stride, w // stride
+        bf16 += 2 * h * w * 9 * (cin * cout + num * cout * cout)
+        stage.append((h, w, cout))
+        cin = cout
+    for (h, w, c), cout, up in zip(stage, neck["out_channels"],
+                                   neck["upsample_strides"]):
+        bf16 += 2 * h * w * c * cout * up * up
+    hh, ww = model._featmap_size()
+    heads = len(cfg.classes) + 7 + 2
+    anchors = model.anchor_generator.num_base_anchors
+    f32 = 2 * hh * ww * sum(neck["out_channels"]) * anchors * heads
+    f32 += 2 * PP_POINTS * 9 * cfg.voxel_encoder["feat_channels"][0]
+    return {"bf16": bf16 * scans, "float32": f32 * scans}
+
+
+def _pp_batch(batch):
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+
+def _pp_nets(model, state):
+    """The serving net (canvas, bf16), the same at float32, and the eval
+    net (compact, float32), on the device with ``state``."""
+    nets = {"canvas bf16": model.get_net(training=False),
+            "canvas float32": MODEL.get("PointPillars")(
+                **POINTPILLARS_KITTI, compute_dtype="float32").get_net(
+                    training=False),
+            "compact float32": model.get_eval_net()}
+    for net in nets.values():
+        net.load_state_dict(state)
+        net.eval().to(DEVICE)
+    return nets
+
+
+def _pp_outputs(net, x):
+    with torch.no_grad():
+        return [o.float() for o in net(x)]
+
+
+def _pp_rel(a, b):
+    """Relative L2 of the three head outputs taken together."""
+    num = sum(((x.double().cpu() - y.double().cpu()) ** 2).sum()
+              for x, y in zip(a, b))
+    den = sum((y.double().cpu() ** 2).sum() for y in b)
+    return (num / den).sqrt().item()
+
+
+def pp_convs(net):
+    """The names of the serving net's backbone and neck convolutions."""
+    return [name for name, m in net.named_modules()
+            if name.startswith(("backbone.", "neck.")) and
+            isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+
+
+def _bn_bf16(bn, x):
+    return torch.nn.functional.batch_norm(
+        x.bfloat16(), bn.running_mean.bfloat16(), bn.running_var.bfloat16(),
+        bn.weight.bfloat16(), bn.bias.bfloat16(), False, 0.0, bn.eps)
+
+
+def _conv_bf16(conv, x):
+    return torch.nn.functional.conv2d(
+        x.bfloat16(), conv.weight.bfloat16(), conv.bias.bfloat16()).float()
+
+
+@contextlib.contextmanager
+def planted_cast(net, fault):
+    """The serving net ``net`` with one wrong cast while the context
+    lasts: "bn_bf16", the backbone's and the neck's BatchNorms in bf16;
+    "head_bf16", the head's convolutions in bf16; "canvas_f32", the
+    pooled canvas left in float32; or the name of one backbone or neck
+    convolution (``pp_convs``), run in float32. The bf16 checks must
+    catch each: ``pp_cast_faults`` all, the relative L2 all but
+    "canvas_f32", whose values the first convolution rounds to bf16."""
+    with contextlib.ExitStack() as stack:
+        def patch(obj, name, value):
+            stack.enter_context(mock.patch.object(obj, name, value))
+
+        if fault == "bn_bf16":
+            for name, m in net.named_modules():
+                if (name.startswith(("backbone.", "neck.")) and
+                        isinstance(m, torch.nn.BatchNorm2d)):
+                    patch(m, "forward", functools.partial(_bn_bf16, m))
+        elif fault == "head_bf16":
+            for m in (net.conv_cls, net.conv_reg, net.conv_dir_cls):
+                patch(m, "forward", functools.partial(_conv_bf16, m))
+        elif fault == "canvas_f32":
+            for layer in net.voxel_encoder.layers:
+                patch(layer, "pool_dtype", torch.float32)
+        else:
+            target = net.get_submodule(fault)
+            conv_bn_relu = tpp._conv_bn_relu
+
+            def float32_at_target(x, conv, bn, dtype, transpose=False):
+                return conv_bn_relu(x, conv, bn, torch.float32
+                                    if conv is target else dtype, transpose)
+            patch(tpp, "_conv_bn_relu", float32_at_target)
+        yield net
+
+
+class _CastLog(TorchFunctionMode):
+    """Records the dtypes of every convolution's and BatchNorm's input
+    and weight, and whether the convolution has a bias."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", "")
+        if name in ("conv2d", "conv_transpose2d"):
+            bias = args[2] if len(args) > 2 else kwargs.get("bias")
+            self.calls.append(("head" if bias is not None else "conv",
+                               args[0].dtype, args[1].dtype))
+        elif name == "batch_norm":
+            weight = args[3] if len(args) > 3 else kwargs.get("weight")
+            self.calls.append(("bn", args[0].dtype, weight.dtype))
+        return func(*args, **kwargs)
+
+
+def pp_cast_faults(net, x):
+    """The places in one forward of the serving net ``net`` on ``x``
+    where a dtype breaks the cast contract: the pooled canvas in the net's
+    compute dtype, each backbone and neck convolution on inputs and
+    weights of that dtype, every BatchNorm (the PFN's too) on float32
+    inputs and weights, the head's convolutions in float32. Empty when
+    the net keeps it."""
+    dtype = net.backbone.dtype
+    f32 = torch.float32
+    canvas = []
+    hook = net.voxel_encoder.register_forward_hook(
+        lambda m, args, out: canvas.append(out.dtype))
+    log = _CastLog()
+    try:
+        with torch.no_grad(), log:
+            net(x)
+    finally:
+        hook.remove()
+    want = {"conv": (dtype, dtype), "bn": (f32, f32), "head": (f32, f32)}
+    faults = [f"canvas {canvas[0]}"] if canvas != [dtype] else []
+    faults += [f"{kind} #{i} on {a} and {b}"
+               for i, (kind, a, b) in enumerate(log.calls)
+               if (a, b) != want[kind]]
+    counts = collections.Counter(kind for kind, _, _ in log.calls)
+    bns = sum(isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+              for m in net.modules())
+    if counts != {"conv": len(pp_convs(net)), "bn": bns, "head": 3}:
+        faults.append(f"calls {dict(counts)}")
+    return faults
+
+
+def _pp_occupancy(model, batch):
+    """(largest pillar's points, occupied pillars) of each scan, on the
+    canvas grid."""
+    ny, nx = model.output_shape
+    pr, vs = model.point_cloud_range, model.voxel_size
+    out = []
+    for pts, n in zip(batch["point"], batch["point_count"]):
+        p = pts[:n]
+        cx = np.floor((p[:, 0] - pr[0]) / vs[0]).astype(np.int64)
+        cy = np.floor((p[:, 1] - pr[1]) / vs[1]).astype(np.int64)
+        ok = ((cx >= 0) & (cx < nx) & (cy >= 0) & (cy < ny) &
+              np.all(p[:, :3] >= pr[:3], 1) & np.all(p[:, :3] < pr[3:], 1))
+        _, counts = np.unique(cy[ok] * nx + cx[ok], return_counts=True)
+        out.append((int(counts.max()), len(counts)))
+    return out
+
+
+def pp_profile():
+    """``--pp-profile``: one torch.profiler pass over one forward of
+    the serving net and one of the eval net on the request, split by
+    their record_function ranges; prints one JSON line per net: device
+    ms (kernel rows), kernels, wall ms, the convolution kernels' device
+    ms, and the top 8 kernels. Run in a process of its own: the profiler
+    traces the card once a process."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    phase_device()
+    model = MODEL.get("PointPillars")(**POINTPILLARS_KITTI)
+    state = pp_random_weights(model.get_net(training=False)).state_dict()
+    nets = _pp_nets(model, state)
+    x = _pp_batch(pp_request(model))
+    names = ("canvas bf16", "compact float32")
+    with torch.no_grad():
+        for name in names:
+            for _ in range(3):
+                nets[name](x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for name in names:
+                with record_function(f"pp {name}"):
+                    nets[name](x)
+                    torch.cuda.synchronize()
+    events = prof.events()
+    for name in names:
+        rng = next(e for e in events if e.name == f"pp {name}"
+                   and e.device_type == torch.autograd.DeviceType.CPU)
+        start, end = rng.time_range.start, rng.time_range.end
+        kernels = collections.Counter()
+        calls = collections.Counter()
+        for e in events:
+            if (e.device_type == torch.autograd.DeviceType.CUDA and
+                    not e.name.startswith("pp ") and
+                    start <= e.time_range.start <= end):
+                kernels[e.name] += e.time_range.elapsed_us() / 1e3
+                calls[e.name] += 1
+        conv = sum(ms for k, ms in kernels.items()
+                   if re.search(r"fprop|dgrad|conv|implicit", k, re.I))
+        top = [[k[:64], ms, calls[k]] for k, ms in kernels.most_common(8)]
+        print(json.dumps({"net": name, "device_ms": sum(kernels.values()),
+                          "kernels": sum(calls.values()),
+                          "wall_ms": (end - start) / 1e3, "conv_ms": conv,
+                          "top": top}), flush=True)
+
+
+def _pp_profiles():
+    """``pp_profile`` in a child process: {net: its record}."""
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--pp-profile"], cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"pointpillars: the profiler run failed:\n"
+                             f"{run.stderr[-4000:]}")
+    records = [json.loads(line) for line in run.stdout.splitlines()
+               if line.startswith('{"net"')]
+    if not records or any(r["device_ms"] <= 0 for r in records):
+        raise AssertionError(f"pointpillars: the profiler saw no device "
+                             f"time: {run.stdout[-2000:]}")
+    return {r["net"]: r for r in records}
+
+
+def _pp_serving(model, nets, x, card):
+    """(a): the request through the serving and the eval net: median
+    forward, scans/s, peak memory, busy share, top kernels, convolution
+    share, against the FLOP bound."""
+    flops = pp_flops(model, PP_BATCH)
+    bounds = {"canvas bf16": (flops["bf16"] / PEAK_OPS_PER_S["bfloat16"] +
+                              flops["float32"] / PEAK_OPS_PER_S["float32"]),
+              "compact float32": (flops["bf16"] + flops["float32"]) /
+              PEAK_OPS_PER_S["float32"]}
+    say("pointpillars", f"request: {PP_BATCH} scans x {PP_POINTS} points "
+        f"uniform over the KITTI range, padded to "
+        f"{model.cfg.max_points}; {(flops['bf16'] + flops['float32']) / 1e9:.1f}"
+        f" GFLOP a batch ({flops['bf16'] / 1e9:.1f} in the backbone and "
+        f"neck, {flops['float32'] / 1e9:.1f} in the head and PFN)")
+    profiles = _pp_profiles()
+    for name in ("canvas bf16", "compact float32"):
+        torch.cuda.reset_peak_memory_stats()
+        fwd, times = median_forward_s(nets[name], x)
+        peak = torch.cuda.max_memory_allocated()
+        prof = profiles[name]
+        top = "; ".join(f"{k} {ms:.3f} ms ({n})" for k, ms, n in prof["top"])
+        bound_ms = bounds[name] * 1e3
+        say("pointpillars", f"{name} forward B={PP_BATCH}: median "
+            f"{fwd * 1e3:.3f} ms over {len(times)} runs (min "
+            f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+            f"{PP_BATCH / fwd:.1f} scans/s, peak device memory "
+            f"{peak / 2**30:.2f} GiB; FLOP bound {bound_ms:.3f} ms "
+            f"({bound_ms / (fwd * 1e3):.1%} of the median) on {card}")
+        say("pointpillars", f"{name} under torch.profiler: {prof['kernels']} "
+            f"kernels, {prof['device_ms']:.3f} ms device time in a "
+            f"{prof['wall_ms']:.3f} ms forward (busy "
+            f"{prof['device_ms'] / prof['wall_ms']:.1%}); convolutions "
+            f"(cuDNN) {prof['conv_ms']:.3f} ms, "
+            f"{prof['conv_ms'] / prof['device_ms']:.1%} of the device time; "
+            f"by device time: {top}")
+
+
+def _pp_gates(model, nets, batch, x):
+    """(b): compact float32 card vs CPU, canvas vs compact at float32,
+    the decode card vs CPU, canvas bf16 vs float32."""
+    compact = _pp_outputs(nets["compact float32"], x)
+    cpu_net = model.get_eval_net()
+    cpu_net.load_state_dict(nets["compact float32"].state_dict())
+    t0 = time.perf_counter()
+    cpu = _pp_outputs(cpu_net.eval(), {k: torch.from_numpy(v[:1])
+                                       for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    rel = _pp_rel([o[:1] for o in compact], cpu)
+    say("pointpillars", f"compact float32, scan 0, card vs CPU: relative L2 "
+        f"{rel:.3e} (bound 1e-4; CPU forward {cpu_s:.1f} s)")
+    if not rel <= 1e-4:
+        raise AssertionError(f"pointpillars: card vs CPU relative L2 {rel}")
+
+    occupancy = _pp_occupancy(model, batch)
+    most = max(o[0] for o in occupancy)
+    pillars = max(o[1] for o in occupancy)
+    canvas32 = _pp_outputs(nets["canvas float32"], x)
+    rel = _pp_rel(canvas32, compact)
+    say("pointpillars", f"canvas vs compact, float32 on the card: relative "
+        f"L2 {rel:.3e} (bound 1e-5); no cap binds: the largest pillar holds "
+        f"{most} points (cap {model.max_num_points}), at most {pillars} "
+        f"pillars a scan (cap {model.max_voxels[1]})")
+    if most > model.max_num_points or pillars > model.max_voxels[1]:
+        raise AssertionError("pointpillars: a cap binds on the request")
+    if not rel <= 1e-5:
+        raise AssertionError(f"pointpillars: canvas vs compact {rel}")
+
+    def decode(outs):
+        return model.get_bboxes(*outs)
+
+    card_dec = decode(compact)
+    cpu_dec = decode([o.cpu() for o in compact])
+    valid = card_dec[3].cpu()
+    same = (torch.equal(valid, cpu_dec[3]) and
+            torch.equal(card_dec[2].cpu(), cpu_dec[2]))
+    diff = (card_dec[0].cpu()[valid] - cpu_dec[0][valid]).abs()
+    err = diff.max().item()
+    # exp's last bit differs between the card and the CPU: a box size of
+    # 200 m is 1.5e-5 apart at one ulp, so the bound is relative
+    rel = (diff / cpu_dec[0][valid].abs().clamp(min=1)).max().item()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(compact)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    say("pointpillars", f"get_bboxes card vs CPU on the card's compact "
+        f"outputs: same kept (class, candidate) set {same}, boxes max "
+        f"difference {err:.3e}, relative to max(1, |value|) {rel:.3e} "
+        f"(bound 1e-5); detections a scan "
+        f"{valid.sum(1).tolist()}; decode + NMS {statistics.median(times) * 1e3:.3f} "
+        f"ms a batch of {PP_BATCH} (median of 5, synchronised)")
+    if not same or not rel <= 1e-5:
+        raise AssertionError("pointpillars: decode differs card vs CPU")
+
+    bf16 = _pp_outputs(nets["canvas bf16"], x)
+    rel = _pp_rel(bf16, canvas32)
+    say("pointpillars", f"canvas bf16 vs canvas float32 on the card: "
+        f"relative L2 {rel:.3e} (bound {PP_BF16_BOUND})")
+    if not 0 < rel <= PP_BF16_BOUND:
+        raise AssertionError(f"pointpillars: bf16 vs float32 {rel}")
+    _pp_bf16_gate(model, nets["canvas bf16"], batch)
+    return compact
+
+
+def pp_stages(net, x):
+    """One forward of ``net`` on ``x``, keeping each stage's output and
+    what recomputes it: [(name, inputs, output)] for the canvas (inputs
+    None: the points), each backbone and neck block (its input, its
+    BatchNorm's name, dtype, transpose) and each head convolution (its
+    input)."""
+    stages = []
+    names = {m: n for n, m in net.named_modules()}
+    conv_bn_relu = tpp._conv_bn_relu
+
+    def block(x, conv, bn, dtype, transpose=False):
+        out = conv_bn_relu(x, conv, bn, dtype, transpose)
+        stages.append((names[conv], (x, names[bn], dtype, transpose), out))
+        return out
+
+    def keep(name, module, args, out):
+        if name == "voxel_encoder":
+            stages.append(("canvas", None, out))
+        else:
+            stages.append((name, args[0], out))
+
+    hooks = [net.get_submodule(name).register_forward_hook(
+        functools.partial(keep, name))
+        for name in ("voxel_encoder", "conv_cls", "conv_reg", "conv_dir_cls")]
+    try:
+        with mock.patch.object(tpp, "_conv_bn_relu", block), torch.no_grad():
+            net(x)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return stages
+
+
+def pp_stage_shares(net, ref_stages, x):
+    """Each stage of ``net`` recomputed on its own device from the
+    reference's inputs (the canvas from the points ``x``), against the
+    reference's output: {stage: the share of elements not within 1e-5
+    (relative; 1e-6 absolute)}. A stage that rounds where the reference
+    does differs only where the order of a sum flips a bf16 rounding; a
+    cast moved changes most of its elements."""
+    canvas = next(out for name, _, out in pp_stages(net, x)
+                  if name == "canvas")
+    shares = {}
+    with torch.no_grad():
+        for name, inputs, want in ref_stages:
+            if name == "canvas":
+                got = canvas
+            elif name.startswith("conv_"):
+                got = net.get_submodule(name)(inputs.to(DEVICE))
+            else:
+                inp, bn, dtype, transpose = inputs
+                got = tpp._conv_bn_relu(
+                    inp.to(DEVICE), net.get_submodule(name),
+                    net.get_submodule(bn), dtype, transpose)
+            shares[name] = (~torch.isclose(
+                got.float(), want.to(got.device).float(), rtol=1e-5,
+                atol=1e-6)).float().mean().item()
+    return shares
+
+
+def _pp_bf16_gate(model, net, batch):
+    """The serving net's casts on the card: pinned (``pp_cast_faults``);
+    each stage fed the CPU's input on scan 0 and held to the CPU's output,
+    at most ``PP_BF16_STAGE_SHARE`` of its elements apart; each wrong cast
+    ``planted_cast`` plants in the card's net caught by both. The whole
+    net's card-vs-CPU relative L2 is printed: at full depth a bf16
+    rounding flipped by the sums' order grows into others, layer by
+    layer."""
+    x0 = {k: torch.from_numpy(v[:1]) for k, v in batch.items()}
+    card_x = {k: v.to(DEVICE) for k, v in x0.items()}
+    cpu_net = model.get_net(training=False)
+    cpu_net.load_state_dict(net.state_dict())
+    t0 = time.perf_counter()
+    cpu = _pp_outputs(cpu_net.eval(), x0)
+    cpu_s = time.perf_counter() - t0
+    ref = [(name, inputs if not isinstance(inputs, tuple) else
+            (inputs[0].to(DEVICE),) + inputs[1:], out.to(DEVICE))
+           for name, inputs, out in pp_stages(cpu_net, x0)]
+    whole = _pp_rel(_pp_outputs(net, card_x), cpu)
+    pinned = pp_cast_faults(net, card_x)
+    shares = pp_stage_shares(net, ref, card_x)
+    worst = max(shares, key=shares.get)
+    caught = {}
+    for fault in PP_FAULTS + tuple(pp_convs(net)):
+        with planted_cast(net, fault):
+            planted = pp_stage_shares(net, ref, card_x)
+            caught[fault] = (max(planted, key=planted.get),
+                             max(planted.values()),
+                             bool(pp_cast_faults(net, card_x)))
+    least = min(caught, key=lambda k: caught[k][1])
+    say("pointpillars", f"canvas bf16, scan 0, card vs CPU: whole net "
+        f"relative L2 {whole:.3e} (CPU forward {cpu_s:.1f} s); casts on "
+        f"the card {pinned or 'as the contract'}; {len(shares)} stages fed "
+        f"the CPU's inputs: the most apart {worst}, {shares[worst]:.4%} of "
+        f"its elements (bound {PP_BF16_STAGE_SHARE:.0%}); planted wrong "
+        f"casts, the stage most apart and its share: " + ", ".join(
+            f"{k} {s} {v:.2%}{'' if pin else ' (pin missed)'}"
+            for k, (s, v, pin) in caught.items()) +
+        f"; the least {least} {caught[least][1]:.2%}")
+    if pinned or shares[worst] > PP_BF16_STAGE_SHARE:
+        raise AssertionError(f"pointpillars: casts {pinned}, stages {shares}")
+    if not all(pin and v > PP_BF16_STAGE_SHARE for _, v, pin in
+               caught.values()):
+        raise AssertionError(f"pointpillars: planted casts {caught}")
+
+
+def _pp_entry_points(model, state, x, card):
+    """(c): run_test on KITTI frames, run_valid on SyntheticBoxes,
+    run_inference, and a checkpoint round trip."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        for i in range(PP_TEST_FRAMES):
+            write_kitti_frame(root / "kitti", "testing", i, SEED + i)
+        write_s = time.perf_counter() - t0
+        dataset = KITTI(dataset_path=str(root / "kitti"),
+                        test_result_folder=str(root / "results"))
+        pipeline = ObjectDetection(model, dataset=dataset, device=DEVICE,
+                                   seed=SEED, main_log_dir=str(root / "logs"),
+                                   **POINTPILLARS_PIPELINE)
+        pipeline.net.load_state_dict(state)
+        spent = collections.Counter()
+        net = pipeline.eval_net
+        net.forward = _timed(net.forward, spent, "forward", sync=True)
+        model.inference_end = _timed(model.inference_end, spent, "decode")
+        try:
+            t0 = time.perf_counter()
+            results = pipeline.run_test()
+            wall = time.perf_counter() - t0
+        finally:
+            del net.forward, model.inference_end
+        files = sorted((root / "results").glob("*.txt"))
+        if len(results) != PP_TEST_FRAMES or len(files) != PP_TEST_FRAMES:
+            raise AssertionError(f"pointpillars run_test: {len(results)} "
+                                 f"results, {len(files)} files")
+        boxes = [len(r) for r in results]
+        lines = sum(len(f.read_text().splitlines()) for f in files)
+        if lines != sum(boxes):
+            raise AssertionError(f"run_test wrote {lines} boxes of "
+                                 f"{sum(boxes)}")
+        host = wall - spent["forward"] - spent["decode"]
+        say("pointpillars", f"run_test on {PP_TEST_FRAMES} KITTI frames "
+            f"(written in {write_s:.2f} s): {len(files)} result files, "
+            f"{boxes} boxes; wall {wall:.3f} s, "
+            f"{PP_TEST_FRAMES / wall:.1f} frames/s: eval forward "
+            f"{spent['forward']:.3f} s ({spent['forward'] / wall:.1%}, "
+            f"synchronised), decode and boxes {spent['decode']:.3f} s "
+            f"({spent['decode'] / wall:.1%}), host (read, preprocess, "
+            f"transform, batch, write) {host:.3f} s ({host / wall:.1%}) "
+            f"on {card}")
+
+        frame = dataset.get_split("test").get_data(0)
+        found = pipeline.run_inference(frame)
+        if [b.label_class for b in found] != [b.label_class for b in
+                                              results[0]]:
+            raise AssertionError("run_inference differs from run_test on "
+                                 "frame 0")
+        say("pointpillars", f"run_inference on test frame 0: {len(found)} "
+            "boxes, the classes run_test found")
+
+        boxes_ds = SyntheticBoxes(dataset_path=str(root / "synthetic"),
+                                  seed=SEED)
+        valid = ObjectDetection(model, dataset=boxes_ds, device=DEVICE,
+                                seed=SEED,
+                                main_log_dir=str(root / "logs_valid"),
+                                **POINTPILLARS_PIPELINE)
+        valid.net.load_state_dict(state)
+        t0 = time.perf_counter()
+        ap_bev, ap_3d = valid.run_valid()
+        valid_s = time.perf_counter() - t0
+        if not (np.isfinite(ap_bev).all() and np.isfinite(ap_3d).all()):
+            raise AssertionError("pointpillars run_valid: non-finite mAP")
+        say("pointpillars", f"run_valid on SyntheticBoxes' "
+            f"{len(boxes_ds.get_split('validation'))} validation frames in "
+            f"{valid_s:.2f} s: mAP BEV {ap_bev.mean():.4f}, 3D "
+            f"{ap_3d.mean():.4f} (random weights: finite, no floor)")
+
+        path = pipeline.save_ckpt(0)
+        fresh = ObjectDetection(model, dataset=dataset, device=DEVICE,
+                                seed=SEED + 1,
+                                main_log_dir=str(root / "logs"),
+                                **POINTPILLARS_PIPELINE)
+        if fresh.load_ckpt() != 1:
+            raise AssertionError("pointpillars: load_ckpt found no epoch 0")
+        fresh.eval_net.load_state_dict(fresh.net.state_dict())
+        pipeline.eval_net.load_state_dict(pipeline.net.state_dict())
+        # index_add_'s sums on the card are in no fixed order but for
+        # this mode
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            a = _pp_outputs(pipeline.eval_net, x)
+            b = _pp_outputs(fresh.eval_net, x)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError("pointpillars: the reloaded checkpoint's "
+                                 "head outputs differ")
+        say("pointpillars", f"{path.name} -> a fresh pipeline's load_ckpt: "
+            "the eval net's head outputs on the request bit-equal "
+            "(deterministic algorithms on for the two forwards)")
+
+
+def phase_pointpillars(card):
+    """PointPillars at the KITTI config: (a) the bench's request through
+    the serving and the eval net, timed and profiled; (b) the gates; (c)
+    run_test, run_valid, run_inference and a checkpoint round trip. The
+    path launches none of the port's kernels."""
+    t0 = time.perf_counter()
+    model = MODEL.get("PointPillars")(**POINTPILLARS_KITTI)
+    state = pp_random_weights(model.get_net(training=False)).state_dict()
+    nets = _pp_nets(model, state)
+    batch = pp_request(model)
+    x = _pp_batch(batch)
+    reset_counts()
+    _pp_serving(model, nets, x, card)
+    _pp_gates(model, nets, batch, x)
+    _pp_entry_points(model, state, x, card)
+    torch.cuda.synchronize()
+    check_counts("pointpillars", read_counts(), {})
+    say("pointpillars", f"phase {time.perf_counter() - t0:.1f} s")
+
+
 def step_branches():
     """The float32 card-vs-CPU step on the patches of model seeds 0-3, with
     the CPU on its own branches and then on the card's."""
@@ -2584,6 +3336,10 @@ def main():
         return stencil_calls()
     if sys.argv[1:] == ["--knn-calls"]:
         return knn_calls()
+    if sys.argv[1:] == ["--pp-profile"]:
+        return pp_profile()
+    if sys.argv[1:] == ["--pointpillars"]:
+        return phase_pointpillars(phase_device())
     card = phase_device()
     model = MODEL.get("RandLANet")()
     phase_build()
@@ -2605,6 +3361,7 @@ def main():
     # stencil_match's launches are SCU training's, the main path of its
     # slice
     launches["stencil_match"] = phase_scu_train(card)["stencil_match"]
+    phase_pointpillars(card)
     sources = {"bucket_knn": ("open3d_ml_tpu_torch/csrc/bucket_knn.cu",
                               f"{TPU_KERNELS}:261"),
                "bucket_gather": ("open3d_ml_tpu_torch/csrc/bucket_gather.cu",

@@ -9,13 +9,19 @@ fused path (the gather backward kernel); and SparseConvUnet inference and
 training on the stencil path (the voxelizer, Morton block tables, the
 ``stencil_conv`` kernel and, in its backward, the ``stencil_match``
 kernel and the bucket gather and its backward) with its exact hash-path
-twin. Each kernel is CUDA C++ for Hopper with a plain PyTorch version for
-CPU tensors. It imports PyTorch, numpy and scipy, and never JAX, nor anything of ``open3d_ml_tpu``: its
-registries and configuration are its own (``utils``).
+twin; and PointPillars detection serving (``get_net``: canvas-major
+pillars, bf16 convolutions) and evaluation (``get_eval_net``: compact
+pillars, float32) with ``ObjectDetection``'s ``run_valid`` (mAP),
+``run_test`` and ``run_inference`` on ``KITTI`` and ``SyntheticBoxes``.
+Each kernel is CUDA C++ for Hopper with a plain PyTorch version for CPU
+tensors; PointPillars' path reaches no kernel of the JAX package, and its
+convolutions are PyTorch's. The port imports PyTorch, numpy and scipy, and
+never JAX, nor anything of ``open3d_ml_tpu``: its registries and
+configuration are its own (``utils``).
 """
 
-from . import dataloaders, datasets, models, pipelines, utils
+from . import dataloaders, datasets, metrics, models, pipelines, utils
 from .utils import DATASET, MODEL, PIPELINE, SAMPLER
 
 __all__ = ["DATASET", "MODEL", "PIPELINE", "SAMPLER", "dataloaders",
-           "datasets", "models", "pipelines", "utils"]
+           "datasets", "metrics", "models", "pipelines", "utils"]

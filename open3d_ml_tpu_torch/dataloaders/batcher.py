@@ -1,7 +1,11 @@
 """Collate per-sample dicts into batched numpy arrays.
 
 Counterpart of ``open3d_ml_tpu/dataloaders/batcher.py`` ``DefaultBatcher``
-for the samples the port's models emit: dicts of fixed-shape arrays. The
+for the samples the port's models emit: arrays of one shape stack along a
+new batch axis; dicts collate key by key (a detection sample's calib dict
+becomes a dict of stacked arrays); ints (a detection sample's point
+count) become an int64 array; anything else, as a sample's list of
+``BEVBox3D``, is collected into a list of one entry per sample. The
 per-level lists of a host-built pyramid are not ported.
 """
 
@@ -9,8 +13,7 @@ import numpy as np
 
 
 class DefaultBatcher:
-    """Stacks same-shaped numpy arrays along a new leading batch axis;
-    other entries are collected into lists."""
+    """Stacks same-shaped numpy arrays along a new leading batch axis."""
 
     def collate_fn(self, batch):
         if len(batch) == 0:
@@ -21,4 +24,6 @@ class DefaultBatcher:
                     for key in elem}
         if isinstance(elem, np.ndarray):
             return np.stack(batch, axis=0)
+        if isinstance(elem, (int, np.integer)):
+            return np.asarray(batch, np.int64)
         return list(batch)

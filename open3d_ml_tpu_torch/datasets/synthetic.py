@@ -1,7 +1,7 @@
 """Procedural semantic segmentation scenes (numpy only).
 
-Counterpart of the semseg half of ``open3d_ml_tpu/datasets/synthetic.py``
-(the object detection half comes with PointPillars): seeded scenes whose
+Counterpart of ``open3d_ml_tpu/datasets/synthetic.py``. Semantic
+segmentation (``make_semseg_scene``, ``SyntheticShapes``): seeded scenes whose
 labels are functions of local geometry (roughness, curvature radius, 1-D,
 2-D or 3-D structure, density, slab thickness), so a point's class is
 predictable only through its neighbourhood. A scene has a ground disk with
@@ -14,6 +14,11 @@ of roughness 0.02/0.15/0.45; 5/6/7 sphere shells of radius 0.5/1.5/3.0;
 8/9/10 vertical cylinder shells of radius 0.3/1.0/2.5; 11/12 wires of
 thickness 0.02/0.25; 13/14 solid balls of radius 0.8/2.0; 15/16 flat and
 tall Gaussian blobs; 17 double plane; 18 sparse planar patch.
+
+Object detection (``make_objdet_scene``, ``SyntheticBoxes``): KITTI-like
+front-sector scenes of cars, pedestrians and cyclists as point shells of
+their boxes over a ground plane, with clutter; the same seed gives the
+JAX package's scene and boxes, bit for bit.
 """
 
 from os.path import exists, join
@@ -22,6 +27,7 @@ import numpy as np
 
 from ..utils import DATASET, make_dir
 from .base_dataset import BaseDataset, BaseDatasetSplit
+from .utils import BEVBox3D
 
 _SPLIT_SEEDS = {"train": 0, "training": 0, "val": 1, "validation": 1,
                 "test": 2, "testing": 2, "all": 3}
@@ -161,6 +167,21 @@ def make_semseg_scene(n_points, seed, ground_frac=0.30, clutter_frac=0.02,
     return points[sel], labels[sel].astype(np.int32)
 
 
+def _split_names(num_clouds, split):
+    """The cloud names of ``split``: '<split>_0000' on, as many as
+    ``num_clouds`` gives it (2 where it names none)."""
+    counts = dict(num_clouds)
+    alias = {"train": "training", "val": "validation",
+             "test": "testing" if "testing" in counts else "test"}
+    key = alias.get(split, split)
+    if key == "all":
+        n = sum(int(v) for v in counts.values())
+    else:
+        n = int(counts.get(key, counts.get(
+            {"testing": "test", "test": "testing"}.get(key, key), 2)))
+    return [f"{key}_{i:04d}" for i in range(n)]
+
+
 class _SyntheticSplit(BaseDatasetSplit):
 
     def __len__(self):
@@ -224,16 +245,7 @@ class SyntheticShapes(BaseDataset):
         return _SyntheticSplit(self, split=split)
 
     def get_split_list(self, split):
-        counts = dict(self.cfg.num_clouds)
-        alias = {"train": "training", "val": "validation",
-                 "test": "testing" if "testing" in counts else "test"}
-        key = alias.get(split, split)
-        if key == "all":
-            n = sum(int(v) for v in counts.values())
-        else:
-            n = int(counts.get(key, counts.get(
-                {"testing": "test", "test": "testing"}.get(key, key), 2)))
-        return [f"{key}_{i:04d}" for i in range(n)]
+        return _split_names(self.cfg.num_clouds, split)
 
     def is_tested(self, attr):
         return exists(join(self.cfg.test_result_folder,
@@ -249,3 +261,152 @@ class SyntheticShapes(BaseDataset):
             pred[pred >= ign] += 1
         np.save(join(self.cfg.test_result_folder, attr["name"] + ".npy"),
                 pred)
+
+
+# --------------------------------------------------------------------- objdet
+
+_OBJ_CLASSES = {
+    # class -> ((w, l, h) mean, (w, l, h) jitter, base points)
+    "Car": ((1.6, 3.9, 1.56), (0.15, 0.35, 0.1), 320),
+    "Pedestrian": ((0.6, 0.8, 1.73), (0.08, 0.1, 0.12), 90),
+    "Cyclist": ((0.6, 1.76, 1.73), (0.08, 0.15, 0.12), 140),
+}
+
+
+def make_objdet_scene(seed, n_objects=12, r_max=38.0):
+    """A KITTI-like scene: (points [N, 4] float32, list of box dicts).
+
+    The points lie in the front sector (x > 0, |y| < x, as KITTI's camera
+    sees); each object is a point shell of its box (walls and top); a box
+    is {'center', 'size' (w, h, l), 'yaw', 'label_class'}.
+    """
+    rng = np.random.default_rng(seed)
+    parts = []
+
+    n_ground = 9000
+    x = 2.0 + (r_max - 2.0) * rng.uniform(0, 1, n_ground) ** 1.5
+    y = x * rng.uniform(-0.55, 0.55, n_ground)
+    z = rng.normal(-1.7, 0.03, n_ground)
+    inten = rng.uniform(0, 0.4, n_ground)
+    parts.append(np.stack([x, y, z, inten], axis=1))
+
+    boxes = []
+    names = list(_OBJ_CLASSES)
+    for _ in range(n_objects):
+        cls = names[rng.integers(0, len(names))]
+        (w0, l0, h0), (jw, jl, jh), base = _OBJ_CLASSES[cls]
+        w = w0 + rng.uniform(-jw, jw)
+        l = l0 + rng.uniform(-jl, jl)
+        h = h0 + rng.uniform(-jh, jh)
+        cx = rng.uniform(6, r_max)
+        cy = cx * rng.uniform(-0.5, 0.5)
+        cz = -1.7 + h / 2
+        yaw = rng.uniform(-np.pi, np.pi)
+
+        n_i = max(16, int(base * 12.0 / cx))
+        # points on the box's sides and top, axis-aligned, then rotated
+        face = rng.integers(0, 5, n_i)
+        u = rng.uniform(-0.5, 0.5, n_i)
+        v = rng.uniform(-0.5, 0.5, n_i)
+        px = np.where(face == 0, -w / 2, np.where(face == 1, w / 2, u * w))
+        py = np.where(face == 2, -l / 2, np.where(face == 3, l / 2, v * l))
+        pz = np.where(face == 4, h / 2, v * h)
+        py = np.where(face < 2, u * l, py)
+        pz = np.where(face < 4, rng.uniform(-0.5, 0.5, n_i) * h, pz)
+        c, s = np.cos(yaw), np.sin(yaw)
+        rx = c * px - s * py
+        ry = s * px + c * py
+        pts = np.stack([cx + rx, cy + ry, cz + pz,
+                        rng.uniform(0.3, 1.0, n_i)], axis=1)
+        pts[:, :3] += rng.normal(0, 0.02, (n_i, 3))
+        parts.append(pts)
+        boxes.append({"center": np.array([cx, cy, cz]),
+                      "size": np.array([w, h, l]),
+                      "yaw": yaw, "label_class": cls})
+
+    n_clutter = 400
+    x = rng.uniform(2, r_max, n_clutter)
+    y = x * rng.uniform(-0.55, 0.55, n_clutter)
+    z = rng.uniform(-1.7, 1.0, n_clutter)
+    parts.append(np.stack([x, y, z,
+                           rng.uniform(0, 1, n_clutter)], axis=1))
+
+    points = np.concatenate(parts, axis=0).astype(np.float32)
+    return points[rng.permutation(len(points))], boxes
+
+
+class _SyntheticBoxSplit(BaseDatasetSplit):
+    """A split of ``SyntheticBoxes``; detection draws no patches, so it
+    has no sampler."""
+
+    def __init__(self, dataset, split="training"):
+        self.cfg = dataset.cfg
+        self.path_list = dataset.get_split_list(split)
+        self.split = split
+        self.dataset = dataset
+        self.sampler = None
+
+    def __len__(self):
+        return len(self.path_list)
+
+    def get_data(self, idx):
+        seed = (int(self.cfg.get("seed", 0) or 0) * 100003 +
+                _SPLIT_SEEDS.get(self.split, 3) * 7919 + idx)
+        points, boxes = make_objdet_scene(seed)
+        bboxes = [BEVBox3D(b["center"], b["size"], b["yaw"],
+                           b["label_class"], -1.0) for b in boxes]
+        return {"point": points, "feat": None, "calib": None,
+                "bounding_boxes": bboxes}
+
+    def get_attr(self, idx):
+        return {"idx": idx, "name": self.path_list[idx],
+                "path": self.path_list[idx], "split": self.split}
+
+
+@DATASET.register_module()
+class SyntheticBoxes(BaseDataset):
+    """Procedural detection dataset (KITTI-like front sector); no files,
+    fully seeded. Scene ``idx`` of a split is ``make_objdet_scene(seed *
+    100003 + split seed * 7919 + idx)``."""
+
+    def __init__(self,
+                 dataset_path="synthetic://boxes",
+                 name="SyntheticBoxes",
+                 cache_dir="./logs/cache",
+                 use_cache=False,
+                 num_clouds={"training": 16, "validation": 2, "test": 2},
+                 test_result_folder="./test",
+                 seed=0,
+                 **kwargs):
+        super().__init__(dataset_path=dataset_path, name=name,
+                         cache_dir=cache_dir, use_cache=use_cache,
+                         num_clouds=num_clouds,
+                         test_result_folder=test_result_folder, seed=seed,
+                         **kwargs)
+        self.label_to_names = self.get_label_to_names()
+        self.num_classes = len(self.label_to_names)
+
+    @staticmethod
+    def get_label_to_names():
+        return {0: "Pedestrian", 1: "Cyclist", 2: "Car"}
+
+    def get_split(self, split):
+        return _SyntheticBoxSplit(self, split=split)
+
+    def get_split_list(self, split):
+        return _split_names(self.cfg.num_clouds, split)
+
+    def is_tested(self, attr):
+        return exists(join(self.cfg.test_result_folder,
+                           attr["name"] + ".txt"))
+
+    def save_test_result(self, results, attrs):
+        """Write each frame's boxes as a KITTI label file; ``results`` and
+        ``attrs`` are lists over frames, as ``ObjectDetection.run_test``
+        passes them (the JAX class takes one frame)."""
+        make_dir(self.cfg.test_result_folder)
+        for boxes, attr in zip(results, attrs):
+            path = join(self.cfg.test_result_folder, attr["name"] + ".txt")
+            with open(path, "w") as f:
+                for box in boxes:
+                    f.write(box.to_kitti_format(box.confidence) + "\n")

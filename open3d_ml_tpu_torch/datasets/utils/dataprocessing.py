@@ -1,9 +1,12 @@
-"""Host-side data processing: grid subsampling and class weights.
+"""Host-side data processing: grid subsampling, class weights and the
+camera projections of KITTI frames.
 
 Counterpart of ``open3d_ml_tpu/datasets/utils/dataprocessing.py``
 ``DataProcessing.grid_subsampling``, whose body is the numpy sort-reduce of
 ``open3d_ml_tpu/ops/subsample.py`` (the same numpy operations in the same
-order give the same bits), and ``get_class_weights``.
+order give the same bits), ``get_class_weights``, and ``world2cam``,
+``cam2img`` and ``remove_outside_points``. The matrices are [4, 4] in the
+row-vector convention (points [N, 4] @ matrix).
 """
 
 import numpy as np
@@ -68,3 +71,29 @@ class DataProcessing:
         num_per_class = np.array(num_per_class, dtype=np.float32)
         weight = num_per_class / float(np.sum(num_per_class))
         return 1.0 / (weight + 0.02)
+
+    @staticmethod
+    def world2cam(points, world_cam):
+        """Lidar (world) -> camera coordinates [N, 3]."""
+        pts = np.hstack(
+            (points[:, :3], np.ones((points.shape[0], 1), np.float32)))
+        return (pts @ world_cam)[..., :3]
+
+    @staticmethod
+    def cam2img(points, cam_img):
+        """Camera -> image plane: ([N, 2] pixels, [N] rectified depth)."""
+        pts = np.hstack(
+            (points[:, :3], np.ones((points.shape[0], 1), np.float32)))
+        proj = pts @ cam_img
+        pts_img = proj[:, :2] / proj[:, 3:4]
+        depth = proj[:, 2] - cam_img[3, 2]
+        return pts_img, depth
+
+    @staticmethod
+    def remove_outside_points(points, world_cam, cam_img, image_shape):
+        """The points that project inside the image, at depth >= 0."""
+        pts_cam = DataProcessing.world2cam(points[:, :3], world_cam)
+        pts_img, depth = DataProcessing.cam2img(pts_cam, cam_img)
+        ok_x = (pts_img[:, 0] >= 0) & (pts_img[:, 0] < image_shape[1])
+        ok_y = (pts_img[:, 1] >= 0) & (pts_img[:, 1] < image_shape[0])
+        return points[ok_x & ok_y & (depth >= 0)]

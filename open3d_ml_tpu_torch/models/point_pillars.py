@@ -1,0 +1,646 @@
+"""PointPillars 3D object detection: serving and evaluation.
+
+Counterpart of ``open3d_ml_tpu/models/point_pillars.py``: the same network
+(pillarization, the pillar feature net, the BEV canvas, the SECOND
+backbone, the SECONDFPN neck and the anchor head's three convolutions),
+the same decode and NMS, and the host side of the test and validation
+splits. Two nets share one ``state_dict``:
+
+* ``get_net()``, the serving net: canvas-major pillarization (the canvas
+  cell is the segment id, and the PFN's segment max writes the BEV canvas
+  directly); the PFN's linear and BatchNorm in float32, the pooled canvas
+  in ``compute_dtype`` (bf16 by default); the backbone's and the neck's
+  convolutions take bf16 inputs and weights, and each of their BatchNorms
+  runs in float32 on the convolution's bf16 output, as flax promotes it;
+  the head's convolutions in float32. These are explicit casts.
+* ``get_eval_net()``, the evaluation net: compact pillars from the sort
+  voxelizer, with the reference's caps (``max_voxels``, and
+  ``max_num_points`` points a pillar, the first in input order), in
+  float32 throughout.
+
+The net keeps the JAX net's NHWC layout at its ends: the canvas is
+[B, ny, nx, C] and the head's outputs [B, H, W, A * x], so the decode
+reads them cell-major, then anchor (size, then rotation), then class, as
+the JAX decode does. In between it runs contiguous NCHW; whether
+``channels_last`` would serve faster on the card is not settled.
+
+Training (anchor assignment, the losses, the optimizer, the augmented
+train split) is not ported: those methods raise ``NotImplementedError``.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..datasets.utils import BEVBox3D
+from ..ops.bev import bev_scatter
+from ..ops.nms import nms_bev
+from ..ops.voxelize import voxelize
+from ..utils.registry import MODEL
+from .base_model_objdet import ObjdetBaseModel
+from .objdet_helper import (Anchor3DRangeGenerator, BBoxCoder, box3d_to_bev,
+                            limit_period)
+
+_TRAINING = ("PointPillars training (anchor assignment, the focal, "
+             "smooth-L1 and cross-entropy losses, AdamW and the ObjectSample "
+             "augmentation) is not ported yet")
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _norm(bn, x):
+    """BatchNorm over the last axis of ``x`` [..., C]."""
+    return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+
+
+class PFNLayer(nn.Module):
+    """Linear, BatchNorm and ReLU, then the max over each pillar's points.
+
+    Two modes over the same parameters:
+
+    * voxel-major: ``x [V, P, C]`` and ``mask [V, P]``, the reference's
+      dense layout;
+    * point-major: ``x [N, C]`` and ``seg_ids [N]``; the pillar max is a
+      segment max over the points (a scatter max).
+
+    The reference maxes over every row of a pillar's [P] buffer, zero pads
+    included, each pad worth relu(BN(linear(0))) = relu(BN(0)). The
+    point-major mode folds that pad value into every pillar with fewer
+    than ``max_pts`` points, and sets empty pillars to 0.
+    """
+
+    def __init__(self, in_channels, out_channels, last_layer=True,
+                 pool_dtype="float32"):
+        super().__init__()
+        self.units = out_channels if last_layer else out_channels // 2
+        self.last_layer = last_layer
+        # the dtype of the pooled output (the canvas); linear and BN
+        # always run in float32
+        self.pool_dtype = _DTYPES[pool_dtype]
+        self.linear = nn.Linear(in_channels, self.units, bias=False)
+        self.norm = nn.BatchNorm1d(self.units, eps=1e-3, momentum=0.01)
+
+    def forward(self, x, mask=None, *, seg_ids=None, num_segments=None,
+                seg_counts=None, max_pts=None):
+        if seg_ids is not None:  # point-major
+            # one extra zero row gives the pad value relu(BN(0))
+            xa = torch.cat([x, x.new_zeros((1, x.shape[-1]))])
+            y32 = F.relu(_norm(self.norm, self.linear(xa)))
+            pad_val = y32[-1]
+            y32 = y32[:-1]
+            # rounding to bf16 is monotone: a float32 max, then the cast,
+            # gives the bits of a max over the cast values
+            index = seg_ids.long()[:, None].expand(-1, self.units)
+            vmax = y32.new_full((num_segments + 1, self.units), -np.inf)
+            vmax.scatter_reduce_(0, index, y32, "amax", include_self=False)
+            vmax = vmax[:num_segments]
+            has_pad = (seg_counts < max_pts)[:, None]
+            vmax = torch.maximum(vmax, torch.where(has_pad, pad_val, -np.inf))
+            vmax = torch.where((seg_counts <= 0)[:, None], 0.0, vmax)
+            vmax = vmax.to(self.pool_dtype)
+            if self.last_layer:
+                return vmax
+            rep = vmax[seg_ids.long().clamp(0, num_segments - 1)]
+            return torch.cat([y32.to(self.pool_dtype), rep], dim=1)
+
+        # voxel-major: the reference's layout
+        x = F.relu(_norm(self.norm, self.linear(x)))
+        x_max = x.max(dim=1, keepdim=True).values  # [V, 1, units]
+        x_max = torch.where(mask.any(1)[:, None, None], x_max, 0.0)
+        if self.last_layer:
+            return x_max
+        rep = x_max.expand(x.shape[0], x.shape[1], self.units)
+        return torch.cat([x, rep], dim=2)
+
+
+class PillarFeatureNet(nn.Module):
+    """Decorate each point with its offsets from its pillar's mean and
+    its pillar's center, then run the PFN layers. Voxel-major ([V, P, 4]
+    gathered pillars) and point-major ([N, 4] points and each point's
+    pillar) modes share the parameters; see ``PFNLayer``."""
+
+    def __init__(self, in_channels=4, feat_channels=(64,),
+                 voxel_size=(0.16, 0.16, 4),
+                 point_cloud_range=(0, -40.0, -3, 70.0, 40.0, 1), max_pts=32,
+                 pool_dtype="float32"):
+        super().__init__()
+        self.voxel_size = tuple(voxel_size)
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.max_pts = max_pts
+        # pool_dtype applies to the point-major mode (the voxel-major mode
+        # pools in float32, as the JAX net's does)
+        self.layers = []
+        cin = in_channels + 5
+        for i, ch in enumerate(feat_channels):
+            layer = PFNLayer(cin, ch, last_layer=i == len(feat_channels) - 1,
+                             pool_dtype=pool_dtype)
+            self.add_module(f"pfn_{i}", layer)
+            self.layers.append(layer)
+            cin = ch
+
+    def forward(self, features, counts, coors=None, mask=None, *,
+                point_to_voxel=None, num_voxels=None):
+        vx, vy = self.voxel_size[0], self.voxel_size[1]
+        x0, y0 = self.point_cloud_range[0], self.point_cloud_range[1]
+        x_offset = vx / 2 + x0
+        y_offset = vy / 2 + y0
+
+        def const(value):  # a float32 tensor: a true division on the card
+            return torch.tensor(value, dtype=features.dtype,
+                                device=features.device)
+
+        if point_to_voxel is not None:  # point-major
+            # features [N, 4]; counts [V], or None to count here with the
+            # coordinate sums; point_to_voxel [N], num_voxels for a
+            # dropped point
+            seg = point_to_voxel.long()
+            valid = (seg < num_voxels)[:, None]
+            xyz = features[:, :3]
+            if counts is None:
+                one_xyz = torch.cat([xyz.new_ones((xyz.shape[0], 1)), xyz],
+                                    dim=-1)
+                s4 = xyz.new_zeros((num_voxels + 1, 4)).index_add_(
+                    0, seg, torch.where(valid, one_xyz, 0.0))[:num_voxels]
+                counts = s4[:, 0].to(torch.int32)
+                sums = s4[:, 1:]
+            else:
+                sums = xyz.new_zeros((num_voxels + 1, 3)).index_add_(
+                    0, seg, torch.where(valid, xyz, 0.0))[:num_voxels]
+            means = sums / counts.clamp(min=1).to(features.dtype)[:, None]
+            f_cluster = xyz - means[seg.clamp(0, num_voxels - 1)]
+            # the pillar's center from the point's own cell
+            fx = features[:, 0:1] - (torch.floor(
+                (features[:, 0:1] - const(x0)) / const(vx)) * vx + x_offset)
+            fy = features[:, 1:2] - (torch.floor(
+                (features[:, 1:2] - const(y0)) / const(vy)) * vy + y_offset)
+            feats = torch.cat([features, f_cluster, fx, fy], dim=-1)
+            feats = torch.where(valid, feats, 0.0)
+            seg_s = torch.where(valid[:, 0], seg, num_voxels)
+            for layer in self.layers:
+                feats = layer(feats, seg_ids=seg_s, num_segments=num_voxels,
+                              seg_counts=counts, max_pts=self.max_pts)
+            return feats  # [V, C]
+
+        # voxel-major: features [V, P, 4], coors [V, >=2] (x, y first)
+        n = counts.clamp(min=1).to(features.dtype)[:, None, None]
+        points_mean = torch.where(mask[..., None], features[:, :, :3],
+                                  0.0).sum(1, keepdim=True) / n
+        f_cluster = features[:, :, :3] - points_mean
+        fx = features[:, :, 0:1] - (
+            coors[:, 0].to(features.dtype)[:, None, None] * vx + x_offset)
+        fy = features[:, :, 1:2] - (
+            coors[:, 1].to(features.dtype)[:, None, None] * vy + y_offset)
+        feats = torch.cat([features, f_cluster, fx, fy], dim=-1)
+        feats = torch.where(mask[..., None], feats, 0.0)
+        for layer in self.layers:
+            feats = layer(feats, mask)
+        return feats[:, 0, :]  # [V, C]
+
+
+def _conv_bn_relu(x, conv, bn, dtype, transpose=False):
+    """A bias-free convolution on ``dtype`` inputs and weights, then BN and
+    ReLU in float32 on its output."""
+    op = F.conv_transpose2d if transpose else F.conv2d
+    kwargs = {} if transpose else {"padding": conv.padding}
+    x = op(x.to(dtype), conv.weight.to(dtype), None, stride=conv.stride,
+           **kwargs)
+    return F.relu(bn(x.float()))
+
+
+class SECOND(nn.Module):
+    """Stages of 3x3 convolutions over the BEV canvas, each starting with
+    a strided one; returns every stage's output."""
+
+    def __init__(self, in_channels=64, out_channels=(64, 128, 256),
+                 layer_nums=(3, 5, 5), layer_strides=(2, 2, 2),
+                 compute_dtype="float32"):
+        super().__init__()
+        self.dtype = _DTYPES[compute_dtype]
+        self.layer_nums = tuple(layer_nums)
+        cin = in_channels
+        for i, num in enumerate(self.layer_nums):
+            for j in range(num + 1):
+                self.add_module(f"block{i}_conv{j}", nn.Conv2d(
+                    cin, out_channels[i], 3,
+                    stride=layer_strides[i] if j == 0 else 1, padding=1,
+                    bias=False))
+                self.add_module(f"block{i}_bn{j}", nn.BatchNorm2d(
+                    out_channels[i], eps=1e-3, momentum=0.01))
+                cin = out_channels[i]
+
+    def forward(self, x):
+        outs = []
+        for i, num in enumerate(self.layer_nums):
+            for j in range(num + 1):
+                x = _conv_bn_relu(x, getattr(self, f"block{i}_conv{j}"),
+                                  getattr(self, f"block{i}_bn{j}"),
+                                  self.dtype)
+            outs.append(x)
+        return outs
+
+
+class SECONDFPN(nn.Module):
+    """Bring every stage to the first stage's resolution and concatenate.
+
+    A stride s >= 1 is a transposed convolution of kernel s and stride s
+    (unless ``use_conv_for_no_stride`` at s = 1); a stride below 1 is a
+    convolution of kernel and stride 1 / s.
+    """
+
+    def __init__(self, in_channels=(64, 128, 256),
+                 out_channels=(128, 128, 128), upsample_strides=(1, 2, 4),
+                 use_conv_for_no_stride=False, compute_dtype="float32"):
+        super().__init__()
+        self.dtype = _DTYPES[compute_dtype]
+        self.transposed = []
+        for i, stride in enumerate(upsample_strides):
+            if stride > 1 or (stride == 1 and not use_conv_for_no_stride):
+                self.add_module(f"deblock{i}_up", nn.ConvTranspose2d(
+                    in_channels[i], out_channels[i], stride, stride=stride,
+                    bias=False))
+                self.transposed.append(True)
+            else:
+                s = int(np.round(1 / stride))
+                self.add_module(f"deblock{i}_conv", nn.Conv2d(
+                    in_channels[i], out_channels[i], s, stride=s,
+                    bias=False))
+                self.transposed.append(False)
+            self.add_module(f"deblock{i}_bn", nn.BatchNorm2d(
+                out_channels[i], eps=1e-3, momentum=0.01))
+
+    def forward(self, xs):
+        ups = []
+        for i, (x, transposed) in enumerate(zip(xs, self.transposed)):
+            conv = getattr(self, f"deblock{i}_up" if transposed
+                           else f"deblock{i}_conv")
+            ups.append(_conv_bn_relu(x, conv, getattr(self, f"deblock{i}_bn"),
+                                     self.dtype, transpose=transposed))
+        return torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
+
+
+class PointPillarsNet(nn.Module):
+    """The whole network over a padded batch.
+
+    Input dict: point [B, P, 4] float32, point_count [B]. Returns (cls
+    [B, H, W, A * C], reg [B, H, W, A * 7], dir [B, H, W, A * 2]), float32.
+
+    ``pillar_mode``: "canvas" pools every point of a cell into its canvas
+    cell, with no cap (``max_num_points`` only decides which pillars take
+    the pad value, ``max_voxels`` is not used); "compact" voxelizes each
+    sample with the reference's caps, pools the kept points of each kept
+    pillar and places the pillars on the canvas (``ops/bev.py``).
+    """
+
+    # the flax tree of the JAX net sits at the root (no BatchedNet scope)
+    JAX_SCOPE = None
+
+    def __init__(self, classes, point_cloud_range, voxel_size,
+                 max_num_points, max_voxels, feat_channels, output_shape,
+                 backbone, neck, head, in_channels=4,
+                 compute_dtype="bfloat16", pillar_mode="canvas"):
+        super().__init__()
+        if pillar_mode not in ("canvas", "compact"):
+            raise ValueError(f"pillar_mode {pillar_mode!r}")
+        self.point_cloud_range = tuple(point_cloud_range)
+        self.voxel_size = tuple(voxel_size)
+        self.max_num_points = max_num_points
+        self.max_voxels = max_voxels
+        self.output_shape = tuple(output_shape)
+        self.pillar_mode = pillar_mode
+        feat_channels = tuple(feat_channels)
+        self.voxel_encoder = PillarFeatureNet(
+            in_channels, feat_channels, self.voxel_size,
+            self.point_cloud_range, max_num_points, pool_dtype=compute_dtype)
+        backbone = dict(backbone, in_channels=feat_channels[-1])
+        self.backbone = SECOND(**backbone, compute_dtype=compute_dtype)
+        neck = dict(neck, in_channels=tuple(
+            backbone.get("out_channels", (64, 128, 256))))
+        self.neck = SECONDFPN(**neck, compute_dtype=compute_dtype)
+        cin = sum(neck.get("out_channels", (128, 128, 128)))
+        sizes = head.get("sizes", [[1.6, 3.9, 1.56]])
+        rotations = head.get("rotations", [0, 1.5707963])
+        num_anchors = len(np.asarray(sizes).reshape(-1, 3)) * len(rotations)
+        self.conv_cls = nn.Conv2d(cin, num_anchors * len(classes), 1)
+        self.conv_reg = nn.Conv2d(cin, num_anchors * 7, 1)
+        self.conv_dir_cls = nn.Conv2d(cin, num_anchors * 2, 1)
+
+    def _canvas_major(self, points, pmask):
+        """Canvas-major: the canvas cell is the segment id; the PFN's
+        segment max writes the [B * ny * nx, C] canvas."""
+        b, p, _ = points.shape
+        ny, nx = self.output_shape
+        nc = ny * nx
+        pc, vs = self.point_cloud_range, self.voxel_size
+
+        def const(value):
+            return torch.tensor(value, dtype=points.dtype,
+                                device=points.device)
+
+        cx = torch.floor((points[..., 0] - const(pc[0])) /
+                         const(vs[0])).to(torch.int64)
+        cy = torch.floor((points[..., 1] - const(pc[1])) /
+                         const(vs[1])).to(torch.int64)
+        xyz = points[..., :3]
+        valid = (pmask & (cx >= 0) & (cx < nx) & (cy >= 0) & (cy < ny) &
+                 (xyz >= const(pc[:3])).all(-1) &
+                 (xyz < const(pc[3:])).all(-1))
+        batch = torch.arange(b, device=points.device)[:, None] * nc
+        seg = torch.where(valid, cy * nx + cx + batch, b * nc)
+        canvas = self.voxel_encoder(points.reshape(b * p, -1), None,
+                                    point_to_voxel=seg.reshape(b * p),
+                                    num_voxels=b * nc)
+        return canvas.reshape(b, ny, nx, -1)
+
+    def _compact(self, points, pmask):
+        """Compact pillars: each sample voxelized with the caps, the PFN
+        over per-sample slot ranges, then the canvas."""
+        b, p, _ = points.shape
+        ny, nx = self.output_shape
+        mv = self.max_voxels
+        pc = self.point_cloud_range
+        vds = [voxelize(points[i, :, :3], self.voxel_size, pc[:3], pc[3:],
+                        mv, self.max_num_points, points_mask=pmask[i])
+               for i in range(b)]
+        p2v = torch.stack([vd.point_to_voxel for vd in vds]).long()
+        counts = torch.stack([vd.num_points_per_voxel for vd in vds])
+        coors = torch.stack([vd.coords for vd in vds]).long()
+        vmask = torch.stack([vd.voxel_mask for vd in vds])
+        batch = torch.arange(b, device=points.device)[:, None] * mv
+        seg = torch.where(p2v < mv, p2v + batch, b * mv)
+        feats = self.voxel_encoder(points.reshape(b * p, -1),
+                                   counts.reshape(b * mv),
+                                   point_to_voxel=seg.reshape(b * p),
+                                   num_voxels=b * mv)
+        # the pillar key is its canvas cell (one z bin)
+        spare = ny * nx + torch.arange(mv, device=points.device)[None, :]
+        cells = torch.where(vmask, coors[..., 1] * nx + coors[..., 0], spare)
+        canvas = bev_scatter(feats.reshape(b, mv, -1), cells, ny * nx)
+        return canvas.reshape(b, ny, nx, -1)
+
+    def forward(self, inputs):
+        points = inputs["point"]
+        counts = inputs["point_count"]
+        p = points.shape[1]
+        pmask = torch.arange(p, device=points.device)[None, :] < \
+            counts[:, None]
+        if self.pillar_mode == "canvas":
+            canvas = self._canvas_major(points, pmask)
+        else:
+            canvas = self._compact(points, pmask)
+        feat = self.neck(self.backbone(
+            canvas.permute(0, 3, 1, 2).contiguous()))
+        outs = (self.conv_cls(feat.float()), self.conv_reg(feat.float()),
+                self.conv_dir_cls(feat.float()))
+        return tuple(o.permute(0, 2, 3, 1) for o in outs)
+
+
+@MODEL.register_module()
+class PointPillars(ObjdetBaseModel):
+    """PointPillars: the host side of the test and validation splits, the
+    two nets, the decode and the boxes."""
+
+    def __init__(self,
+                 name="PointPillars",
+                 point_cloud_range=[0, -40.0, -3, 70.0, 40.0, 1],
+                 classes=['car'],
+                 voxelize={},
+                 voxel_encoder={},
+                 scatter={},
+                 backbone={},
+                 neck={},
+                 head={},
+                 loss={},
+                 max_points=32768,
+                 augment=None,
+                 **kwargs):
+        super().__init__(name=name,
+                         point_cloud_range=point_cloud_range,
+                         classes=classes,
+                         voxelize=voxelize,
+                         voxel_encoder=voxel_encoder,
+                         scatter=scatter,
+                         backbone=backbone,
+                         neck=neck,
+                         head=head,
+                         loss=loss,
+                         max_points=max_points,
+                         augment=augment,
+                         **kwargs)
+        self.point_cloud_range = point_cloud_range
+        self.classes = classes
+        self.name2lbl = {n: i for i, n in enumerate(classes)}
+        self.lbl2name = {i: n for i, n in enumerate(classes)}
+
+        self.voxel_size = voxelize.get("voxel_size", [0.16, 0.16, 4])
+        self.max_num_points = voxelize.get("max_num_points", 32)
+        mv = voxelize.get("max_voxels", [16000, 40000])
+        self.max_voxels = mv if isinstance(mv, (list, tuple)) else [mv, mv]
+        self.output_shape = tuple(scatter.get("output_shape", [496, 432]))
+
+        self.nms_pre = head.get("nms_pre", 100)
+        self.score_thr = head.get("score_thr", 0.1)
+        self.dir_offset = head.get("dir_offset", 0)
+        self.anchor_generator = Anchor3DRangeGenerator(
+            ranges=head.get("ranges", [list(point_cloud_range)]),
+            sizes=head.get("sizes", [[1.6, 3.9, 1.56]]),
+            rotations=head.get("rotations", [0, 1.5707963]))
+        self.max_gt = int(kwargs.get("max_gt", 64))
+        self._anchor_tensors = {}
+
+    def _net(self, max_voxels, compute_dtype, pillar_mode):
+        cfg = self.cfg
+        return PointPillarsNet(
+            classes=tuple(self.classes),
+            point_cloud_range=tuple(self.point_cloud_range),
+            voxel_size=tuple(self.voxel_size),
+            max_num_points=self.max_num_points,
+            max_voxels=max_voxels,
+            in_channels=cfg.voxel_encoder.get("in_channels", 4),
+            feat_channels=tuple(cfg.voxel_encoder.get("feat_channels",
+                                                      [64])),
+            output_shape=self.output_shape,
+            backbone={k: tuple(v) if isinstance(v, list) else v
+                      for k, v in dict(cfg.backbone or {}).items()},
+            neck={k: tuple(v) if isinstance(v, list) else v
+                  for k, v in dict(cfg.neck or {}).items()},
+            head=dict(cfg.head or {}),
+            compute_dtype=compute_dtype,
+            pillar_mode=pillar_mode)
+
+    def get_net(self, training=True):
+        """The serving net (``compute_dtype``, default bf16;
+        ``pillar_mode``, default canvas)."""
+        cfg = self.cfg
+        return self._net(self.max_voxels[0 if training else 1],
+                         cfg.get("compute_dtype", "bfloat16"),
+                         cfg.get("pillar_mode", "canvas"))
+
+    def get_eval_net(self):
+        """The evaluation net: compact pillars with the reference's caps
+        (the eval ``max_voxels``), float32."""
+        return self._net(self.max_voxels[1], "float32", "compact")
+
+    # ------------------------------------------------------------- host side
+
+    def preprocess(self, data, attr):
+        """Keep the points inside the range; the test and validation
+        splits only (the train split's augmentations are not ported)."""
+        if attr["split"] not in ("test", "testing", "val", "validation"):
+            raise NotImplementedError(
+                f"preprocess of split {attr['split']!r}: {_TRAINING}")
+        points = np.array(data["point"][:, 0:4], dtype=np.float32)
+        min_val = np.array(self.point_cloud_range[:3])
+        max_val = np.array(self.point_cloud_range[3:])
+        points = points[np.all(
+            np.logical_and(points[:, :3] >= min_val, points[:, :3] < max_val),
+            axis=-1)]
+        new_data = {"point": points, "calib": data.get("calib")}
+        if attr["split"] not in ("test", "testing"):
+            new_data["bbox_objs"] = data.get("bounding_boxes", [])
+        return new_data
+
+    def transform(self, data, attr):
+        """Pad to fixed shapes: point [max_points, 4] and its count; gt
+        boxes [max_gt, 7], their labels and count."""
+        points = np.asarray(data["point"], np.float32)
+        p = int(self.cfg.max_points)
+        count = min(len(points), p)
+        out_pts = np.zeros((p, 4), np.float32)
+        out_pts[:count] = points[:count]
+
+        t_data = {
+            "point": out_pts,
+            "point_count": np.int32(count),
+            "calib": data.get("calib"),
+        }
+        if attr["split"] not in ("test", "testing"):
+            bbox_objs = data.get("bbox_objs", [])
+            g = self.max_gt
+            boxes = np.zeros((g, 7), np.float32)
+            labels = np.full((g,), len(self.classes), np.int32)
+            gcount = min(len(bbox_objs), g)
+            for i in range(gcount):
+                boxes[i] = bbox_objs[i].to_xyzwhlr()
+                labels[i] = self.name2lbl.get(bbox_objs[i].label_class,
+                                              len(self.classes))
+            t_data["bboxes"] = boxes
+            t_data["labels"] = labels
+            t_data["bbox_count"] = np.int32(gcount)
+            t_data["bbox_objs"] = bbox_objs
+        return t_data
+
+    # ----------------------------------------------------------- device side
+
+    def _featmap_size(self):
+        """The head's feature map: the canvas over (the first backbone
+        stride / the first neck upsample stride); (248, 216) at KITTI."""
+        ny, nx = self.output_shape
+        backbone = dict(self.cfg.backbone or {})
+        neck = dict(self.cfg.neck or {})
+        stride0 = backbone.get("layer_strides", [2, 2, 2])[0]
+        up0 = neck.get("upsample_strides", [1, 2, 4])[0]
+        scale = max(stride0 // up0, 1)
+        return (ny // scale, nx // scale)
+
+    def _anchors(self):
+        """[H, W, S, R, 7] numpy anchors."""
+        return self.anchor_generator.grid_anchors(self._featmap_size())
+
+    def _anchors_on(self, device):
+        """The anchors [H * W * S * R, 7] as a tensor on ``device``, made
+        once a device."""
+        key = str(device)
+        if key not in self._anchor_tensors:
+            self._anchor_tensors[key] = torch.from_numpy(
+                self._anchors().reshape(-1, 7)).to(device)
+        return self._anchor_tensors[key]
+
+    def assign_bboxes(self, gt_bboxes, gt_labels, gt_counts):
+        raise NotImplementedError(f"assign_bboxes: {_TRAINING}")
+
+    def get_loss(self, results, inputs):
+        raise NotImplementedError(f"get_loss: {_TRAINING}")
+
+    def get_optimizer(self, cfg_pipeline):
+        raise NotImplementedError(f"get_optimizer: {_TRAINING}")
+
+    def get_bboxes(self, cls_scores, bbox_preds, dir_preds):
+        """Decode and per-class rotated NMS over the ``nms_pre`` best
+        anchors of each sample, on the outputs' device.
+
+        Inputs [B, H, W, A * x]: the JAX ``get_bboxes`` mapped over the
+        batch. Returns fixed-size (bboxes [B, M, 7], scores [B, M], labels
+        [B, M], valid [B, M]), M = nms_pre * num_classes, class-major.
+        """
+        num_classes = len(self.classes)
+        b = cls_scores.shape[0]
+        anchors = self._anchors_on(cls_scores.device)
+
+        scores = torch.sigmoid(cls_scores.reshape(b, -1, num_classes))
+        preds = bbox_preds.reshape(b, -1, 7)
+        dirs = torch.argmax(dir_preds.reshape(b, -1, 2), dim=-1)
+
+        # top-k as lax.top_k orders it: ties to the lower index
+        npre = min(self.nms_pre, scores.shape[1])
+        topk = torch.sort(scores.max(dim=-1).values, dim=1, descending=True,
+                          stable=True).indices[:, :npre]
+        boxes = BBoxCoder.decode(
+            anchors[topk], torch.take_along_dim(preds, topk[..., None], 1))
+        scores_k = torch.take_along_dim(scores, topk[..., None], 1)
+        dirs_k = torch.take_along_dim(dirs, topk, 1)
+
+        # every class at once: [B, C, npre]
+        cls_s = scores_k.transpose(1, 2)
+        m = cls_s > self.score_thr
+        bev = box3d_to_bev(boxes)[:, None].expand(b, num_classes, npre, 5)
+        keep = nms_bev(bev, torch.where(m, cls_s, -np.inf), 0.01,
+                       valid_mask=m)
+
+        boxes = boxes.repeat(1, num_classes, 1)
+        scores_o = cls_s.reshape(b, -1)
+        labels_o = torch.arange(num_classes, device=boxes.device)\
+            .repeat_interleave(npre).expand(b, -1)
+        valid_o = (keep & m).reshape(b, -1)
+        dir_all = dirs_k.repeat(1, num_classes)
+        dir_rot = limit_period(boxes[..., 6] - self.dir_offset, 1, np.pi)
+        yaw = dir_rot + self.dir_offset + np.pi * dir_all.to(boxes.dtype)
+        boxes = torch.cat([boxes[..., :6], yaw[..., None]], dim=-1)
+        return boxes, scores_o, labels_o, valid_o
+
+    def inference_end(self, results, inputs):
+        """Decode on the device, then ``BEVBox3D``s on the host: one list
+        per sample."""
+        cls_scores, bbox_preds, dir_preds = results
+        b = cls_scores.shape[0]
+        with torch.no_grad():
+            decoded = self.get_bboxes(cls_scores, bbox_preds, dir_preds)
+        boxes_b, scores_b, labels_b, valid_b = (t.cpu().numpy()
+                                                for t in decoded)
+
+        calibs = inputs.get("calib", None)
+        if isinstance(calibs, dict):
+            # the batcher stacks the samples' calib dicts: un-collate
+            calibs = [{k: np.asarray(calibs[k][i]) for k in calibs}
+                      for i in range(b)]
+        if calibs is None:
+            calibs = [None] * b
+        out = []
+        for i in range(b):
+            out.append([])
+            calib = calibs[i]
+            world_cam = cam_img = None
+            if calib is not None:
+                world_cam = calib.get("world_cam")
+                cam_img = calib.get("cam_img")
+            for box, score, label, ok in zip(boxes_b[i], scores_b[i],
+                                             labels_b[i], valid_b[i]):
+                if not ok:
+                    continue
+                dim = box[[3, 5, 4]]
+                pos = box[:3] + [0, 0, dim[1] / 2]
+                yaw = box[-1]
+                name = self.lbl2name.get(int(label), "ignore")
+                out[-1].append(
+                    BEVBox3D(pos, dim, yaw, name, float(score), world_cam,
+                             cam_img))
+        return out

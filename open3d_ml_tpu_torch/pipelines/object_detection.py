@@ -1,0 +1,172 @@
+"""Object detection pipeline: validation (mAP), test and inference.
+
+Counterpart of ``open3d_ml_tpu/pipelines/object_detection.py``:
+
+* ``run_valid``: every frame of the validation split through the eval
+  net and the decode, then the KITTI mAP (BEV and 3D) of the boxes
+  against the frames' gt boxes;
+* ``run_test``: the test split with the newest checkpoint's weights (or
+  ``ckpt_path``'s), its boxes written by ``dataset.save_test_result``;
+* ``run_inference``: one in-memory frame.
+
+All three ride the model's eval net (``get_eval_net``: PointPillars'
+compact pillars with the reference's caps, float32), which takes a copy
+of ``net``'s ``state_dict`` (the serving net, ``get_net``) before each
+run. Both live on ``device``. The weights start from a generator seeded
+by the pipeline's ``seed``; load trained ones with ``net.load_state_dict``
+(for JAX variables, ``utils.convert_jax.load_jax_variables``) or from a
+checkpoint: ``torch.save`` files ``<logs_dir>/checkpoint/
+ckpt_{epoch:05d}.pth`` of {"model", "epoch"}.
+
+Training (``run_train``) is not ported yet; nor are the TensorBoard
+writer and reading the JAX package's orbax checkpoints.
+"""
+
+import logging
+from os.path import exists
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..dataloaders import BatchLoader, DefaultBatcher, PointCloudDataloader
+from ..datasets.utils import BEVBox3D
+from ..metrics import mAP
+from ..utils import make_dir
+from ..utils.registry import PIPELINE
+from .base_pipeline import BasePipeline
+from .semantic_segmentation import init_weights
+
+log = logging.getLogger(__name__)
+
+
+@PIPELINE.register_module()
+class ObjectDetection(BasePipeline):
+    """Validation, test and inference of 3D object detection."""
+
+    def __init__(self, model, dataset=None, name="ObjectDetection",
+                 val_batch_size=1, test_batch_size=1, main_log_dir="./logs/",
+                 device="cuda", num_workers=2, **kwargs):
+        super().__init__(model=model, dataset=dataset, name=name,
+                         val_batch_size=val_batch_size,
+                         test_batch_size=test_batch_size,
+                         main_log_dir=main_log_dir, device=device,
+                         num_workers=num_workers, **kwargs)
+        top = np.iinfo(np.int32).max
+        gen = torch.Generator().manual_seed(int(self.rng.integers(top)))
+        self.net = init_weights(model.get_net(), gen).to(self.device).eval()
+        self.eval_net = model.get_eval_net().to(self.device).eval()
+
+    def _device_batch(self, batch):
+        """The batch's arrays as tensors on the pipeline's device."""
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in batch["data"].items()
+                if isinstance(v, np.ndarray)}
+
+    def _loader(self, split, batch_size):
+        model, dataset = self.model, self.dataset
+        dataloader = PointCloudDataloader(
+            dataset.get_split(split), preprocess=model.preprocess,
+            transform=model.transform,
+            use_cache=dataset.cfg.get("use_cache", False))
+        return BatchLoader(dataloader, batch_size, DefaultBatcher(),
+                           num_workers=self.cfg.get("num_workers", 2))
+
+    def _detect(self, batch):
+        """The eval net and the decode on one collated batch: one list of
+        ``BEVBox3D`` per sample."""
+        with torch.no_grad():
+            results = self.eval_net(self._device_batch(batch))
+        return self.model.inference_end(results, batch["data"])
+
+    def run_train(self):
+        raise NotImplementedError("ObjectDetection.run_train: object "
+                                  "detection training is not ported yet")
+
+    def run_valid(self, epoch=0):
+        """The mAP (BEV and 3D) of the validation split at the config's
+        ``overlaps``, ``difficulties`` and ``similar_classes``; returns
+        (ap_bev, ap_3d), each [num_classes, num_difficulties, 1], or None
+        for an empty split."""
+        model, cfg = self.model, self.cfg
+        self.eval_net.load_state_dict(self.net.state_dict())
+        pred, gt = [], []
+        for batch in self._loader("validation", cfg.val_batch_size):
+            for i, boxes in enumerate(self._detect(batch)):
+                pred.append(BEVBox3D.to_dicts(boxes))
+                gt.append(BEVBox3D.to_dicts(batch["data"]["bbox_objs"][i]))
+        if not pred:
+            return None
+
+        sim_classes = cfg.get("similar_classes", {})
+        difficulties = cfg.get("difficulties", [0])
+        overlaps = cfg.get("overlaps", [0.5])
+        ap_bev = mAP(pred, gt, model.classes, difficulties, overlaps,
+                     bev=True, similar_classes=sim_classes)
+        ap_3d = mAP(pred, gt, model.classes, difficulties, overlaps,
+                    bev=False, similar_classes=sim_classes)
+        for title, ap in (("BEV", ap_bev), ("3D", ap_3d)):
+            log.info(f"=== mAP {title} (epoch {epoch}) ===")
+            for i, c in enumerate(model.classes):
+                log.info(f"{c}: {ap[i].mean():.2f}")
+            log.info(f"Overall: {ap.mean():.2f}")
+        self.valid_map_bev = float(ap_bev.mean())
+        self.valid_map_3d = float(ap_3d.mean())
+        return ap_bev, ap_3d
+
+    def run_test(self):
+        """Detect in every frame of the test split with the newest
+        checkpoint's weights (or ``ckpt_path``'s) and save the boxes
+        through the dataset; returns one list of boxes per frame."""
+        self.load_ckpt(self.model.cfg.get("ckpt_path"))
+        self.eval_net.load_state_dict(self.net.state_dict())
+        results, attrs = [], []
+        for batch in self._loader("test", self.cfg.test_batch_size):
+            results.extend(self._detect(batch))
+            # un-collate the attr dict of lists
+            attr = batch["attr"]
+            n = len(next(iter(attr.values())))
+            attrs.extend({k: v[i] for k, v in attr.items()}
+                         for i in range(n))
+        self.dataset.save_test_result(results, attrs)
+        return results
+
+    def run_inference(self, data):
+        """Detect objects in one in-memory frame {'point' [N, >= 4],
+        'calib' or None}; returns its list of ``BEVBox3D``."""
+        model = self.model
+        attr = {"split": "test"}
+        sample = model.transform(model.preprocess(data, attr), attr)
+        batch = DefaultBatcher().collate_fn([{"data": sample, "attr": attr}])
+        self.eval_net.load_state_dict(self.net.state_dict())
+        return self._detect(batch)[0]
+
+    # ------------------------------------------------------------ checkpoint
+
+    def _ckpt_dir(self):
+        return Path(self.cfg.logs_dir) / "checkpoint"
+
+    def save_ckpt(self, epoch):
+        """Write the net's weights as those of ``epoch``."""
+        path = self._ckpt_dir() / f"ckpt_{epoch:05d}.pth"
+        make_dir(path.parent)
+        torch.save({"model": self.net.state_dict(), "epoch": epoch}, path)
+        log.info(f"Epoch {epoch:3d}: save ckpt to {path}")
+        return path
+
+    def load_ckpt(self, ckpt_path=None, is_resume=True):
+        """Load ``ckpt_path``, or with ``is_resume`` the newest checkpoint
+        of ``logs_dir``, into the net. Returns the epoch after the
+        checkpoint's: 0 when there is none."""
+        if ckpt_path is None and is_resume:
+            found = sorted(self._ckpt_dir().glob("ckpt_*.pth"))
+            if found:
+                ckpt_path = found[-1]
+        if ckpt_path is None or not exists(ckpt_path):
+            log.info("Initializing from scratch.")
+            return 0
+        ckpt = torch.load(ckpt_path, map_location=self.device,
+                          weights_only=True)
+        self.net.load_state_dict(ckpt["model"])
+        log.info(f"Loading checkpoint {ckpt_path}")
+        return int(ckpt["epoch"]) + 1

@@ -52,19 +52,23 @@ log = logging.getLogger(__name__)
 
 def init_weights(net, gen):
     """Draw ``net``'s weights from ``gen``, module by module in registration
-    order: a Linear's weight and bias (where it has one) uniform in
-    +-1/sqrt(fan_in), as torch's defaults draw them; BatchNorm at the
-    identity; any other module with a ``reset_parameters(gen)`` (the
-    SparseConvUnet net and its convolutions, for their stencil weights)
-    draws its own."""
+    order: a Linear's or a convolution's weight and bias (where it has
+    one) uniform in +-1/sqrt(fan_in), as torch's defaults draw them;
+    BatchNorm at the identity; any other module with a
+    ``reset_parameters(gen)`` (the SparseConvUnet net and its convolutions,
+    for their stencil weights) draws its own."""
     with torch.no_grad():
         for module in net.modules():
-            if isinstance(module, torch.nn.Linear):
-                bound = module.in_features ** -0.5
+            if isinstance(module, (torch.nn.Linear,
+                                   torch.nn.modules.conv._ConvNd)):
+                fan_in = torch.nn.init._calculate_fan_in_and_fan_out(
+                    module.weight)[0]
+                bound = fan_in ** -0.5
                 module.weight.uniform_(-bound, bound, generator=gen)
                 if module.bias is not None:
                     module.bias.uniform_(-bound, bound, generator=gen)
-            elif isinstance(module, (torch.nn.BatchNorm1d, MaskedBatchNorm)):
+            elif isinstance(module, (torch.nn.modules.batchnorm._BatchNorm,
+                                     MaskedBatchNorm)):
                 module.reset_parameters()
             elif hasattr(module, "reset_parameters"):
                 module.reset_parameters(gen)

@@ -3,23 +3,32 @@ port state_dict back into flax variables.
 
 The port names its modules after the flax variable tree, so a flax path
 ``params/net/encoder_0/lse1/mlp/conv/kernel`` becomes the state_dict key
-``encoder_0.lse1.mlp.conv.weight``. Leaves map as follows:
+``encoder_0.lse1.mlp.conv.weight``. The semantic segmentation nets' trees
+sit in the scope ``"net"`` (the JAX ``BatchedNet`` wrapper);
+PointPillars' tree has no such scope (``JAX_SCOPE = None`` on its net).
+Leaves map as follows:
 
 * Dense ``kernel [in, out]`` -> Linear ``weight [out, in]`` (transposed);
 * a stencil ``kernel [K, Cin, Cout]`` (SparseConvUnet's convolutions) ->
   ``weight [K, Cin, Cout]``, as it is;
+* Conv ``kernel [kh, kw, in, out]`` -> Conv2d ``weight [out, in, kh,
+  kw]``;
+* ConvTranspose ``kernel [kh, kw, in, out]`` -> ConvTranspose2d
+  ``weight [in, out, kh, kw]``, spatially flipped: flax's default
+  (``transpose_kernel=False``) is a fractionally strided convolution with
+  the kernel as it is, torch's the gradient of a convolution;
 * a stencil weight that sits in a scope by its own name
   (SparseConvUnet's ``l{i}_down_kernel``, ``l{i}_up_kernel``) -> the
   parameter of the same name, as it is;
-* Dense and BatchNorm ``bias`` -> ``bias``;
+* Dense, Conv and BatchNorm ``bias`` -> ``bias``;
 * BatchNorm ``scale`` -> ``weight``;
 * batch_stats ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
 
 ``state_dict_to_jax`` is the inverse map, so weights trained on the card
 can be applied by the JAX package. BatchNorm hyper-parameters need no
 conversion: each port net builds its layers with the JAX net's eps (1e-6
-for RandLA-Net, 1e-4 for SparseConvUnet) and torch momentum 0.01, which
-is flax momentum 0.99.
+for RandLA-Net, 1e-4 for SparseConvUnet, 1e-3 for PointPillars) and
+torch momentum 0.01, which is flax momentum 0.99.
 """
 
 import numpy as np
@@ -39,28 +48,60 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), value
 
 
-def jax_to_state_dict(variables):
-    """``{"params": {"net": ...}, "batch_stats": {"net": ...}}`` (numpy
-    leaves; ``"net"`` is the JAX ``BatchedNet`` wrapper's scope) -> a
-    port state_dict of float32 tensors."""
+def _kernel_to_torch(value, transposed):
+    if value.ndim == 2:
+        return value.T
+    if value.ndim == 4:
+        return (value[::-1, ::-1].transpose(2, 3, 0, 1) if transposed
+                else value.transpose(3, 2, 0, 1))
+    return value
+
+
+def _kernel_to_jax(value, transposed):
+    if value.ndim == 2:
+        return value.T
+    if value.ndim == 4:
+        return (value[:, :, ::-1, ::-1].transpose(2, 3, 0, 1) if transposed
+                else value.transpose(2, 3, 1, 0))
+    return value
+
+
+def net_layout(net):
+    """The conversion's arguments for ``net``: its flax scope
+    (``JAX_SCOPE``, default ``"net"``) and the paths of its transposed
+    convolutions."""
+    return {"scope": getattr(net, "JAX_SCOPE", "net"),
+            "transposed": frozenset(
+                name for name, m in net.named_modules()
+                if isinstance(m, torch.nn.ConvTranspose2d))}
+
+
+def jax_to_state_dict(variables, scope="net", transposed=frozenset()):
+    """``{"params": ..., "batch_stats": ...}`` (numpy leaves, the net's
+    tree under ``scope``, or at the root for ``scope=None``) -> a port
+    state_dict of float32 tensors. ``transposed``: the dotted paths of the
+    modules whose 4-d kernel is a ConvTranspose's."""
     out = {}
     for collection, leaves in (("params", _PARAM_LEAVES),
                                ("batch_stats", _STAT_LEAVES)):
         tree = variables.get(collection, {})
-        if tree and set(tree) != {"net"}:
-            raise KeyError(f"{collection}: expected the single scope 'net', "
-                           f"got {sorted(tree)}")
-        for path, value in _flatten(tree.get("net", {})):
+        if scope is not None:
+            if tree and set(tree) != {scope}:
+                raise KeyError(f"{collection}: expected the single scope "
+                               f"{scope!r}, got {sorted(tree)}")
+            tree = tree.get(scope, {})
+        for path, value in _flatten(tree):
             value = np.asarray(value, np.float32)
             if collection == "params" and path[-1].endswith(_NAMED_KERNEL):
                 out[".".join(path)] = torch.tensor(value)
                 continue
             if path[-1] not in leaves:
                 raise KeyError(f"unknown {collection} leaf {'/'.join(path)}")
-            if path[-1] == "kernel" and value.ndim == 2:
-                value = value.T
+            if path[-1] == "kernel":
+                value = _kernel_to_torch(value,
+                                         ".".join(path[:-1]) in transposed)
             key = ".".join(path[:-1] + (leaves[path[-1]],))
-            out[key] = torch.tensor(value)
+            out[key] = torch.tensor(value.copy())
     return out
 
 
@@ -70,7 +111,7 @@ def load_jax_variables(net, variables):
     Raises KeyError when a port tensor has no JAX leaf or a JAX leaf has no
     port tensor, and ValueError on a shape mismatch.
     """
-    sd = jax_to_state_dict(variables)
+    sd = jax_to_state_dict(variables, **net_layout(net))
     target = {k: v for k, v in net.state_dict().items()
               if not k.endswith("num_batches_tracked")}
     missing = sorted(set(target) - set(sd))
@@ -85,15 +126,19 @@ def load_jax_variables(net, variables):
     return net
 
 
-def state_dict_to_jax(state_dict):
-    """A port state_dict -> ``{"params": {"net": ...}, "batch_stats":
-    {"net": ...}}`` with float32 numpy leaves, the inverse of
-    ``jax_to_state_dict``: a 2-d ``weight`` is a Dense ``kernel``
-    (transposed), a 3-d one a stencil ``kernel``, a 1-d one a BatchNorm
-    ``scale``; a parameter named ``*_kernel`` keeps its name; the running
-    statistics go to ``batch_stats``; ``num_batches_tracked`` has no flax
-    leaf."""
-    out = {"params": {"net": {}}, "batch_stats": {"net": {}}}
+def state_dict_to_jax(state_dict, scope="net", transposed=frozenset()):
+    """A port state_dict -> ``{"params": ..., "batch_stats": ...}`` with
+    float32 numpy leaves (under ``scope``, or at the root for
+    ``scope=None``), the inverse of ``jax_to_state_dict``: a 2-d
+    ``weight`` is a Dense ``kernel`` (transposed), a 3-d one a stencil
+    ``kernel``, a 4-d one a Conv ``kernel`` (a ConvTranspose's for a path
+    in ``transposed``), a 1-d one a BatchNorm ``scale``; a parameter named
+    ``*_kernel`` keeps its name; the running statistics go to
+    ``batch_stats``; ``num_batches_tracked`` has no flax leaf.
+    ``net_layout(net)`` gives a net's arguments."""
+    out = {"params": {}, "batch_stats": {}}
+    if scope is not None:
+        out = {k: {scope: v} for k, v in out.items()}
     stats = {v: k for k, v in _STAT_LEAVES.items()}
     for key, value in state_dict.items():
         *path, leaf = key.split(".")
@@ -107,13 +152,15 @@ def state_dict_to_jax(state_dict):
         elif leaf == "weight":
             collection = "params"
             name = "scale" if value.ndim == 1 else "kernel"
-            value = value.T if value.ndim == 2 else value
+            value = _kernel_to_jax(value, ".".join(path) in transposed)
         elif leaf == "bias":
             collection, name = "params", "bias"
         else:
             raise KeyError(f"no flax leaf for {key}")
-        tree = out[collection]["net"]
+        tree = out[collection]
+        if scope is not None:
+            tree = tree[scope]
         for part in path:
             tree = tree.setdefault(part, {})
-        tree[name] = np.ascontiguousarray(value)
+        tree[name] = value.copy()
     return out
