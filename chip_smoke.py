@@ -1,7 +1,7 @@
 """Drive the PyTorch port's paths once on one CUDA card and check them.
 
 Four paths of RandLA-Net at the shipped SemanticKITTI config, two of
-SparseConvUnet at the shipped ScanNet config and PointPillars serving at
+SparseConvUnet at the shipped ScanNet config and two of PointPillars at
 the shipped KITTI config, with random weights drawn from a seeded
 generator:
 
@@ -31,7 +31,13 @@ generator:
   canvas pillars, bf16 convolutions) and the eval net (``get_eval_net``:
   compact pillars, float32), then ``ObjectDetection.run_test`` on 8
   KITTI-format frames, ``run_valid`` on ``SyntheticBoxes`` and
-  ``run_inference``.
+  ``run_inference``;
+* PointPillars training: ``ObjectDetection.run_train`` on KITTI-format
+  frames, batches of 6 frames augmented by ObjectSample (its gt database
+  written by the port's ``utils/collect_bboxes.py``), ObjectRangeFilter
+  and PointShuffle, through the serving net in train mode (canvas, bf16),
+  the anchor assignment, the three losses and AdamW, with validation,
+  checkpoints and a resume.
 
 The models are the port's ``RandLANet()`` and ``SparseConvUnet()`` at their
 defaults, which equal the model sections of
@@ -47,7 +53,8 @@ Run from the root of the repository, with one card:
 ``python3 chip_smoke.py --step-branches`` runs only that float32 training
 step against the CPU, on the patches of model seeds 0-3, with the CPU on
 its own branches and on the card's. ``python3 chip_smoke.py
---pointpillars`` runs only the pointpillars phase (it builds no kernel).
+--pointpillars`` runs only the pointpillars phase, ``--pp-train`` only
+the pp_train phase (neither builds a kernel).
 ``python3 chip_smoke.py --stencil-calls`` times only the room request's
 39 stencil convolutions,
 alone and inside a forward; ``python3 chip_smoke.py --knn-calls`` only
@@ -162,6 +169,24 @@ Phases, one line each (or more), in this order:
    ``SyntheticBoxes`` (finite mAP), and a checkpoint saved and loaded by
    a fresh pipeline whose head outputs are bit-equal. No kernel of the
    port is launched.
+12. pp_train: ``run_train`` for one epoch of 6 steps of 6 KITTI frames
+   (8 training and 2 validation frames written from
+   ``make_objdet_scene`` seeds 100-109, a gt database of their boxes),
+   the augment section of ``pointpillars_kitti.yml``, AdamW at the
+   YAML's pipeline settings; finite losses, the validation mAP, a
+   checkpoint, and a fresh pipeline resuming from it with equal weights
+   and BN statistics and a fresh AdamW (the JAX resume) for another
+   epoch; the anchor targets of a step's batch on the card and on the
+   CPU (masks, labels, direction targets equal, deltas within 1e-6); 10
+   steps on one batch, whose loss must fall, each split by CUDA events
+   into forward, loss, backward and AdamW; one float32 step of 2 frames
+   from the seeded weights against the CPU on the card's ReLU and
+   pillar-max branches (loss within 1e-5, each parameter's gradient and
+   each BN statistic within 1e-4 relative L2); the median step, frames
+   trained per second, the host's share, the peak memory, and one
+   profiled step (``--pp-train-profile``, in a child process): kernels,
+   busy share, the convolutions' share and the top 10 kernels. No kernel
+   of the port is launched.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is not 0. The
@@ -215,6 +240,7 @@ from open3d_ml_tpu_torch.ops.morton import hilbert_sort
 from open3d_ml_tpu_torch.ops.voxelize import voxelize
 from open3d_ml_tpu_torch.pipelines import (ObjectDetection,
                                            SemanticSegmentation)
+from open3d_ml_tpu_torch.utils import collect_bboxes
 
 REPO = Path(__file__).resolve().parent
 TPU_KERNELS = "open3d_ml_tpu/ops/pallas/bucket.py"
@@ -328,6 +354,24 @@ POINTPILLARS_PIPELINE = {"val_batch_size": 1, "test_batch_size": 1,
                          "similar_classes": {"Van": "Car",
                                              "Person_sitting": "Pedestrian"},
                          "difficulties": [0, 1, 2]}
+# the augment section of pointpillars_kitti.yml, the pickle written at
+# run time, and the entries of its pipeline section that training reads
+# (a CPU test pins both)
+POINTPILLARS_AUGMENT = {
+    "PointShuffle": True,
+    "ObjectRangeFilter": {
+        "point_cloud_range": [0, -39.68, -3, 69.12, 39.68, 1]},
+    "ObjectSample": {
+        "pickle_path": None,
+        "min_points_dict": {"Car": 5, "Pedestrian": 10, "Cyclist": 10},
+        "sample_dict": {"Car": 15, "Pedestrian": 10, "Cyclist": 10}}}
+POINTPILLARS_TRAIN_PIPELINE = dict(
+    POINTPILLARS_PIPELINE, batch_size=6, save_ckpt_freq=5, num_workers=2,
+    optimizer={"lr": 0.001, "betas": [0.95, 0.99], "weight_decay": 0.01})
+# pp_train: KITTI frames (make_objdet_scene seeds 100-109), the first 8
+# the train split and the last 2 validation, and the steps of an epoch
+PP_TRAIN_FRAMES, PP_VALID_FRAMES, PP_TRAIN_STEPS = 8, 2, 6
+PP_CPU_BATCH = 2  # frames of the float32 card-vs-CPU step
 PP_BATCH, PP_POINTS = 4, 20_000  # the request bench.py:321-341 times
 PP_TEST_FRAMES = 8  # make_objdet_scene seeds 0-7 as KITTI test frames
 # bf16 serving net vs float32, relative L2 of the head outputs: a sanity
@@ -1250,7 +1294,9 @@ class _SameBranches:
     While it is entered, the fused net's pools gather the neighbour that
     ``argmax`` picks and its LeakyReLUs apply a sign mask (with ``net``
     "scu": SparseConvUnet's ReLUs, whose inputs near 0 after BatchNorm
-    route the gradient the same way): the first run records its choices,
+    route the gradient the same way; with "pp": PointPillars' ReLUs, and
+    its pillar max, whose near ties route the gradient to the points
+    rounding makes the largest): the first run records its choices,
     the run after ``replay()`` takes them and counts in ``differ`` the
     choices its own values would have made otherwise. Like the fixed
     dropout mask, this gives both runs one function. With ``active`` false
@@ -1258,7 +1304,7 @@ class _SameBranches:
 
     def __init__(self, active=True, net="randla"):
         self.active = active
-        self.module = trl if net == "randla" else tscu
+        self.module = {"randla": trl, "scu": tscu, "pp": tpp}[net]
         self.recorded, self.replaying, self.differ = [], False, 0
         self.total = 0  # choices recorded
 
@@ -1302,15 +1348,36 @@ class _SameBranches:
             def relu(x):
                 return torch.where(choose(x > 0), x, 0.0)
 
-        self._saved = trl._BucketLevel.pool_max, self.module.F
+        own_segment_max = tpp.segment_max
+
+        def segment_max(y, seg_ids, num_segments):
+            """The own maxima, the gradient split over the recorded
+            winners (each point's channels equal to its pillar's max)."""
+            vmax = own_segment_max(y, seg_ids, num_segments)
+            seg = seg_ids.long()[:, None].expand(-1, y.shape[1])
+            rows = torch.cat([vmax, vmax.new_full((1, y.shape[1]), np.inf)])
+            won = choose(y == rows.gather(0, seg))
+            share = torch.zeros_like(rows).scatter_add_(0, seg, won.to(y))
+            moved = torch.zeros_like(rows).scatter_add_(
+                0, seg, torch.where(won, y - y.detach(), 0.0))
+            return (vmax.detach() + moved[:num_segments] /
+                    share[:num_segments].clamp(min=1))
+
+        self._saved = [(self.module, "F", self.module.F),
+                       (trl._BucketLevel, "pool_max",
+                        trl._BucketLevel.pool_max),
+                       (tpp, "segment_max", own_segment_max)]
         self.module.F = Functional()
         if self.module is trl:
             trl._BucketLevel.pool_max = pool_max
+        if self.module is tpp:
+            tpp.segment_max = segment_max
         return self
 
     def __exit__(self, *exc):
         if self.active:
-            trl._BucketLevel.pool_max, self.module.F = self._saved
+            for obj, name, value in self._saved:
+                setattr(obj, name, value)
 
 
 def _step_model_and_batch(dataset, n=11_264, seed=SEED):
@@ -2777,7 +2844,7 @@ def planted_cast(net, fault):
         if fault == "bn_bf16":
             for name, m in net.named_modules():
                 if (name.startswith(("backbone.", "neck.")) and
-                        isinstance(m, torch.nn.BatchNorm2d)):
+                        isinstance(m, torch.nn.modules.batchnorm._BatchNorm)):
                     patch(m, "forward", functools.partial(_bn_bf16, m))
         elif fault == "head_bf16":
             for m in (net.conv_cls, net.conv_reg, net.conv_dir_cls):
@@ -3256,6 +3323,442 @@ def phase_pointpillars(card):
     say("pointpillars", f"phase {time.perf_counter() - t0:.1f} s")
 
 
+def _pp_train_model(root):
+    """``PointPillars`` at the KITTI config with the YAML's augment section,
+    its ObjectSample database at ``root / "bboxes.pkl"``."""
+    sample = dict(POINTPILLARS_AUGMENT["ObjectSample"],
+                  pickle_path=str(root / "bboxes.pkl"))
+    return MODEL.get("PointPillars")(
+        **POINTPILLARS_KITTI, seed=SEED,
+        augment=dict(POINTPILLARS_AUGMENT, ObjectSample=sample))
+
+
+def _pp_train_data(root):
+    """``PP_TRAIN_FRAMES`` + ``PP_VALID_FRAMES`` KITTI training frames
+    (``make_objdet_scene`` seeds 100 on) under ``root / "kitti"``, the last
+    ones the validation split, an epoch ``PP_TRAIN_STEPS`` batches, and
+    the gt database the port's writer builds from the train split;
+    returns (dataset, database boxes)."""
+    for i in range(PP_TRAIN_FRAMES + PP_VALID_FRAMES):
+        write_kitti_frame(root / "kitti", "training", i, 100 + i)
+    dataset = KITTI(dataset_path=str(root / "kitti"),
+                    val_split=PP_TRAIN_FRAMES,
+                    steps_per_epoch_train=PP_TRAIN_STEPS *
+                    POINTPILLARS_TRAIN_PIPELINE["batch_size"])
+    boxes = collect_bboxes.collect(dataset, root / "bboxes.pkl")
+    return dataset, boxes
+
+
+def _pp_instrument(pipeline, record):
+    """Wrap the pipeline's train step: each call appends (start, end,
+    launch counts, losses, the batch's gt arrays on the host) to
+    ``record``, its end taken after a synchronise."""
+    step = pipeline._train_step
+
+    def wrapper(inputs):
+        before = read_counts()
+        t0 = time.perf_counter()
+        losses = step(inputs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after = read_counts()
+        gt = {k: inputs[k].cpu() for k in ("bboxes", "labels",
+                                           "bbox_count")}
+        record.append((t0, t1, {k: after[k] - before[k] for k in after},
+                       {k: float(v) for k, v in losses.items()}, gt))
+        return losses
+
+    pipeline._train_step = wrapper
+
+
+def _pp_step_events(pipeline, inputs, steps):
+    """``steps`` train steps of ``pipeline`` on the device batch
+    ``inputs``, each split by CUDA events: the net's forward, the loss
+    (anchor assignment and the three losses), the backward and the AdamW
+    step. Returns (the total losses, {part: device ms of each step})."""
+    net, model, opt = pipeline.net, pipeline.model, pipeline.optimizer
+    marks = []
+
+    def marked(fn, before):
+        def wrapper(*args, **kwargs):
+            event = torch.cuda.Event(enable_timing=True)
+            if before:
+                event.record()
+            out = fn(*args, **kwargs)
+            if not before:
+                event.record()
+            marks.append(event)
+            return out
+        return wrapper
+
+    # forward start, loss start, backward start (after zero_grad), AdamW
+    # start, AdamW end
+    net.forward = marked(net.forward, True)
+    model.get_loss = marked(model.get_loss, True)
+    opt.zero_grad = marked(opt.zero_grad, False)
+    opt.step = marked(marked(opt.step, True), False)
+    losses, ms = [], collections.defaultdict(list)
+    try:
+        for _ in range(steps):
+            marks.clear()
+            losses.append(sum(pipeline._train_step(inputs).values()).item())
+            for part, (a, b) in zip(("forward", "loss", "backward", "adamw"),
+                                    zip(marks, marks[1:])):
+                ms[part].append(a.elapsed_time(b))
+    finally:
+        for obj, name in ((net, "forward"), (model, "get_loss"),
+                          (opt, "zero_grad"), (opt, "step")):
+            delattr(obj, name)
+    return losses, ms
+
+
+def _pp_targets_vs_cpu(model, gt):
+    """The anchor targets of a batch's gt boxes on the card and on the
+    CPU: masks, labels and direction targets equal, the largest delta
+    difference returned."""
+    with torch.no_grad():
+        card = model.assign_bboxes(*[gt[k].to(DEVICE) for k in
+                                     ("bboxes", "labels", "bbox_count")])
+        cpu = model.assign_bboxes(gt["bboxes"], gt["labels"],
+                                  gt["bbox_count"])
+    for key in ("pos_mask", "neg_mask", "target_labels", "dir_targets"):
+        if not torch.equal(card[key].cpu(), cpu[key]):
+            raise AssertionError(f"pp_train: anchor {key} card vs CPU")
+    return (card["target_deltas"].cpu() - cpu["target_deltas"]).abs().max()\
+        .item(), int(cpu["pos_mask"].sum())
+
+
+def _float64_step():
+    """While entered, a PointPillars model made and run on the CPU takes
+    float64 wherever it casts to float32 (its nets and its losses)."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.dict(tpp._DTYPES,
+                                        {"float32": torch.float64}))
+    stack.enter_context(mock.patch.object(torch.Tensor, "float",
+                                          torch.Tensor.double))
+    return stack
+
+
+def _pp_step_vs_cpu(state, batch, witness=False):
+    """One float32 training step (canvas, float32 convolutions) of the
+    KITTI net from ``state`` on the host ``batch``, on the card and on the
+    CPU, the CPU on the card's ReLU and pillar-max branches
+    (``_SameBranches(net="pp")``). With ``witness`` the CPU runs the step
+    in float64 too, on the same branches. Returns (loss relative
+    difference, [(gradient relative L2, parameter)] and [(relative L2
+    after the step, BatchNorm statistic)], each worst first, the branches,
+    CPU seconds, and with ``witness`` {parameter: (the card's, the CPU's
+    gradient relative L2 from the float64 one)})."""
+    out = {}
+    sides = [("card", DEVICE), ("cpu", "cpu")]
+    if witness:
+        sides.append(("float64", "cpu"))
+    with _SameBranches(net="pp") as branches:
+        for side, device in sides:
+            with (_float64_step() if side == "float64" else
+                  contextlib.nullcontext()):
+                model = MODEL.get("PointPillars")(**POINTPILLARS_KITTI,
+                                                  compute_dtype="float32")
+                net = model.get_net()
+                net.load_state_dict(state)
+                if side == "float64":
+                    net.double()
+                net.to(device).train()
+                x = {k: (v.double() if side == "float64" and
+                         v.is_floating_point() else v).to(device)
+                     for k, v in batch.items()}
+                t0 = time.perf_counter()
+                loss = sum(model.get_loss(net(x), x).values())
+                loss.backward()
+                seconds = time.perf_counter() - t0
+            out[side] = {
+                "loss": loss.item(), "seconds": seconds,
+                "grad": {k: p.grad.cpu() for k, p in net.named_parameters()},
+                "stats": {k: b.cpu() for k, b in net.state_dict().items()
+                          if k.endswith(("running_mean", "running_var"))}}
+            if side == "card":
+                recorded = list(branches.recorded)
+                branches.replay()
+            else:
+                if branches.recorded:
+                    raise AssertionError(f"pp_train: the {side} step took "
+                                         f"fewer branches than the card's")
+                branches.recorded = list(recorded)
+                if side == "cpu":
+                    differ = branches.differ
+        branches.recorded, branches.differ = [], differ
+    gpu, cpu = out["card"], out["cpu"]
+    grads = sorted(((_rel_l2(gpu["grad"][k], v), k)
+                    for k, v in cpu["grad"].items()), reverse=True)
+    stats = sorted(((_rel_l2(gpu["stats"][k], v), k)
+                    for k, v in cpu["stats"].items()), reverse=True)
+    exact = {k: (_rel_l2(gpu["grad"][k], v), _rel_l2(cpu["grad"][k], v))
+             for k, v in out["float64"]["grad"].items()} if witness else None
+    return (abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"]), grads, stats,
+            branches, cpu["seconds"], exact)
+
+
+def pp_train_profile():
+    """``--pp-train-profile``: one torch.profiler pass over one training
+    step of the KITTI net (bf16 canvas, B = 6 frames of
+    ``make_objdet_scene`` seeds 100 on, range-filtered, no augmentation:
+    the device work of a step does not depend on it) after two warm-up
+    steps; prints one JSON line: device ms (kernel rows), kernels, wall
+    ms, the convolution kernels' device ms, and the top 10 kernels. Run
+    in a process of its own: the profiler traces the card once a
+    process."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    phase_device()
+    model = MODEL.get("PointPillars")(**POINTPILLARS_KITTI)
+    attr = {"split": "training"}
+    samples = []
+    for i in range(POINTPILLARS_TRAIN_PIPELINE["batch_size"]):
+        points, boxes = make_objdet_scene(100 + i)
+        data = {"point": points, "calib": None, "bounding_boxes": [
+            BEVBox3D(b["center"], b["size"], b["yaw"], b["label_class"], -1)
+            for b in boxes]}
+        samples.append({"data": model.transform(model.preprocess(data, attr),
+                                                attr), "attr": attr})
+    batch = DefaultBatcher().collate_fn(samples)
+    x = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch["data"].items()
+         if isinstance(v, np.ndarray)}
+    net = model.get_net().to(DEVICE).train()
+    opt, _ = model.get_optimizer(POINTPILLARS_TRAIN_PIPELINE, net)
+
+    def step():
+        losses = model.get_loss(net(x), x)
+        opt.zero_grad(set_to_none=True)
+        sum(losses.values()).backward()
+        opt.step()
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("pp train step"):
+            step()
+            torch.cuda.synchronize()
+    events = prof.events()
+    rng = next(e for e in events if e.name == "pp train step" and
+               e.device_type == torch.autograd.DeviceType.CPU)
+    # the device rows of annotated ranges (this one, AdamW's step) repeat
+    # their kernels' time
+    ranges = {e.name for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU}
+    kernels, calls = collections.Counter(), collections.Counter()
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CUDA and
+                e.name not in ranges):
+            kernels[e.name] += e.time_range.elapsed_us() / 1e3
+            calls[e.name] += 1
+    conv = sum(ms for k, ms in kernels.items()
+               if re.search(r"fprop|dgrad|wgrad|conv|implicit", k, re.I))
+    top = [[k[:64], ms, calls[k]] for k, ms in kernels.most_common(10)]
+    print(json.dumps({"device_ms": sum(kernels.values()),
+                      "kernels": sum(calls.values()),
+                      "wall_ms": rng.time_range.elapsed_us() / 1e3,
+                      "conv_ms": conv, "top": top}), flush=True)
+
+
+def _pp_train_profile():
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--pp-train-profile"], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"pp_train: the profiler run failed:\n"
+                             f"{run.stderr[-4000:]}")
+    records = [json.loads(line) for line in run.stdout.splitlines()
+               if line.startswith('{"device_ms"')]
+    if not records or records[0]["device_ms"] <= 0:
+        raise AssertionError(f"pp_train: the profiler saw no device time: "
+                             f"{run.stdout[-2000:]}")
+    return records[0]
+
+
+def phase_pp_train(card):
+    """``ObjectDetection.run_train`` of PointPillars at the KITTI config
+    (B = 6, bf16 canvas, AdamW, ObjectSample on a database the port's
+    writer builds) for one epoch of ``PP_TRAIN_STEPS`` steps and its
+    validation, a resumed epoch, overfit steps on one batch with the
+    step's parts on CUDA events, the anchor targets and a float32 step
+    card vs CPU from the seeded weights and from those after the overfit
+    steps (there with the step in float64 beside it), and a profiled step
+    in a child process. The path launches none of the port's kernels."""
+    t0 = time.perf_counter()
+    b = POINTPILLARS_TRAIN_PIPELINE["batch_size"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t1 = time.perf_counter()
+        dataset, db_boxes = _pp_train_data(root)
+        data_s = time.perf_counter() - t1
+        model = _pp_train_model(root)
+        pipeline = ObjectDetection(model, dataset=dataset, device=DEVICE,
+                                   seed=SEED, max_epoch=0,
+                                   main_log_dir=str(root / "logs"),
+                                   **POINTPILLARS_TRAIN_PIPELINE)
+        seeded = {k: v.cpu().clone()
+                  for k, v in pipeline.net.state_dict().items()}
+        record = []
+        _pp_instrument(pipeline, record)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t1 = time.perf_counter()
+        pipeline.run_train()
+        wall = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if len(record) != PP_TRAIN_STEPS:
+            raise AssertionError(f"pp_train: {len(record)} steps, expected "
+                                 f"{PP_TRAIN_STEPS}")
+        for _, _, counts, losses, _ in record:
+            if counts != every_count({}):
+                raise AssertionError(f"pp_train: a step launched {counts}")
+            if not all(np.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"pp_train: losses {losses}")
+        steps = [t1_ - t0_ for t0_, t1_, _, _, _ in record]
+        step = statistics.median(steps[1:])
+        loop = record[-1][1] - record[0][0]
+        busy = sum(steps)
+        totals = [round(sum(r[3].values()), 4) for r in record]
+        say("pp_train", f"{len(dataset.get_split('train'))} + "
+            f"{len(dataset.get_split('validation'))} KITTI frames and a gt "
+            f"database of {db_boxes} boxes written in {data_s:.2f} s; "
+            f"run_train max_epoch=0: {PP_TRAIN_STEPS} steps of {b} frames "
+            f"(ObjectSample, ObjectRangeFilter, PointShuffle), total losses "
+            f"{totals}, finite; validation mAP BEV "
+            f"{pipeline.valid_map_bev:.4f}, 3D {pipeline.valid_map_3d:.4f}")
+        say("pp_train", f"step B={b} canvas bf16: median "
+            f"{step * 1e3:.3f} ms over steps 2..{PP_TRAIN_STEPS} (min "
+            f"{min(steps[1:]) * 1e3:.3f}, max {max(steps[1:]) * 1e3:.3f}, "
+            f"first {steps[0] * 1e3:.3f}), {b / step:.1f} frames trained/s "
+            f"on {card}")
+        say("pp_train", f"wall {wall:.3f} s, of it before the first step "
+            f"{record[0][0] - t1:.3f} s and the step loop {loop:.3f} s: "
+            f"steps (synchronised) {busy / loop:.1%}, host between steps "
+            f"(loading, augmentation, batching, copies) "
+            f"{1 - busy / loop:.1%}; peak device memory "
+            f"{peak / 2**30:.2f} GiB on {card}")
+        ckpt = Path(pipeline.cfg.logs_dir) / "checkpoint" / "ckpt_00000.pth"
+        if not ckpt.exists():
+            raise AssertionError(f"pp_train: no checkpoint at {ckpt}")
+
+        trained = {k: v.clone() for k, v in pipeline.net.state_dict().items()}
+        resumed = ObjectDetection(model, dataset=dataset, device=DEVICE,
+                                  seed=SEED + 1, max_epoch=1,
+                                  main_log_dir=str(root / "logs"),
+                                  **POINTPILLARS_TRAIN_PIPELINE)
+        load = resumed.load_ckpt
+        seen = {}
+
+        def checked(*args, **kwargs):
+            seen["epoch"] = load(*args, **kwargs)
+            for key, value in resumed.net.state_dict().items():
+                if not torch.equal(value, trained[key]):
+                    raise AssertionError(f"pp_train resume: {key} differs")
+            if resumed.optimizer.state_dict()["state"]:
+                raise AssertionError("pp_train resume: AdamW not fresh")
+            return seen["epoch"]
+
+        resumed.load_ckpt = checked
+        record2 = []
+        _pp_instrument(resumed, record2)
+        resumed.run_train()
+        if seen.get("epoch") != 1 or len(record2) != PP_TRAIN_STEPS:
+            raise AssertionError(f"pp_train resume: epoch {seen.get('epoch')}"
+                                 f", {len(record2)} steps")
+        say("pp_train", f"{ckpt.name} -> a fresh pipeline resumed at epoch "
+            f"1 with equal weights and BN statistics and a fresh AdamW (as "
+            f"the JAX pipeline resumes), {len(record2)} steps, total losses "
+            f"{[round(sum(r[3].values()), 4) for r in record2]}")
+
+        gt = record[0][4]
+        delta, pos = _pp_targets_vs_cpu(model, gt)
+        say("pp_train", f"anchor targets of step 1's batch ({pos} positives "
+            f"of {gt['bbox_count'].sum().item()} gt boxes), card vs CPU: "
+            f"masks, labels and direction targets equal, deltas within "
+            f"{delta:.3e} (bound 1e-6)")
+        if not delta <= 1e-6:
+            raise AssertionError("pp_train: anchor deltas card vs CPU")
+
+        loader = PointCloudDataloader(dataset.get_split("train"),
+                                      preprocess=model.preprocess,
+                                      transform=model.transform)
+        batch = next(iter(BatchLoader(loader, b, DefaultBatcher(),
+                                      num_workers=0)))
+        inputs = resumed._device_batch(batch)
+        losses, ms = _pp_step_events(resumed, inputs, 10)
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"pp_train overfit: loss did not fall: "
+                                 f"{losses}")
+        med = {k: statistics.median(v[1:]) for k, v in ms.items()}
+        say("pp_train", f"10 steps on one batch: total loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"({[round(x, 4) for x in losses]}); device ms a step, median of "
+            f"steps 2..10 (CUDA events): forward {med['forward']:.3f}, loss "
+            f"(anchor assignment, focal, smooth-L1, direction) "
+            f"{med['loss']:.3f}, backward {med['backward']:.3f}, AdamW "
+            f"{med['adamw']:.3f} on {card}")
+
+        host = {k: torch.from_numpy(v[:PP_CPU_BATCH])
+                for k, v in batch["data"].items() if isinstance(v, np.ndarray)}
+        overfit = {k: v.cpu().clone()
+                   for k, v in resumed.net.state_dict().items()}
+
+        def worst(pairs):
+            return ", ".join(f"{k} {v:.3e}" for v, k in pairs[:3])
+
+        # From the seeded weights the card's gradients are held to the
+        # CPU's. After the overfit steps the CPU's own float32 sums lie
+        # near the bound from the exact step (7.514e-5 of a card-vs-CPU
+        # 8.506e-5 on an H100 80GB HBM3, the card's 3.615e-5), so there
+        # the card's are held to the step in float64 and the card-vs-CPU
+        # reading is printed.
+        for name, state in (("the seeded weights", seeded),
+                            ("the weights after the overfit steps",
+                             overfit)):
+            t1 = time.perf_counter()
+            loss_rel, grads, stats, branches, cpu_s, exact = \
+                _pp_step_vs_cpu(state, host, witness=state is overfit)
+            say("pp_train", f"one float32 step B={PP_CPU_BATCH} from {name}, "
+                f"card vs CPU on the card's branches ({branches.differ} of "
+                f"{branches.total} ReLU and pillar-max choices the CPU would "
+                f"have made otherwise): loss relative difference "
+                f"{loss_rel:.3e} (bound 1e-5); relative L2 of each "
+                f"parameter's gradient ("
+                f"{'printed' if exact else 'bound 1e-4'}), the worst: "
+                f"{worst(grads)}; of each BN statistic after the step (bound "
+                f"1e-4), the worst: {worst(stats)}; CPU step {cpu_s:.1f} s, "
+                f"the comparison {time.perf_counter() - t1:.1f} s")
+            worst_grad = grads[0][0]
+            if exact:
+                worst_grad = max(a for a, _ in exact.values())
+                say("pp_train", "the same step in float64 on the CPU, on the "
+                    "card's branches: relative L2 of the card's and the CPU's "
+                    "float32 gradients from it, where they differ most: " +
+                    "; ".join(f"{k} card {exact[k][0]:.3e}, CPU "
+                              f"{exact[k][1]:.3e}" for _, k in grads[:3]) +
+                    f"; the worst over every parameter: card "
+                    f"{worst_grad:.3e} (bound 1e-4), CPU "
+                    f"{max(b for _, b in exact.values()):.3e}")
+            if not (loss_rel <= 1e-5 and worst_grad <= 1e-4 and
+                    stats[0][0] <= 1e-4):
+                raise AssertionError(f"pp_train: the card's step from {name} "
+                                     f"disagrees")
+        torch.cuda.synchronize()
+        check_counts("pp_train", read_counts(), {})
+
+    prof = _pp_train_profile()
+    top = "; ".join(f"{k} {v:.3f} ms ({n})" for k, v, n in prof["top"])
+    say("pp_train", f"one step B={b} under torch.profiler: "
+        f"{prof['kernels']} kernels, {prof['device_ms']:.3f} ms device time "
+        f"in a {prof['wall_ms']:.3f} ms step (busy "
+        f"{prof['device_ms'] / prof['wall_ms']:.1%}); convolutions (cuDNN) "
+        f"{prof['conv_ms']:.3f} ms, {prof['conv_ms'] / prof['device_ms']:.1%}"
+        f" of the device time; by device time: {top}")
+    say("pp_train", f"phase {time.perf_counter() - t0:.1f} s")
+
+
 def step_branches():
     """The float32 card-vs-CPU step on the patches of model seeds 0-3, with
     the CPU on its own branches and then on the card's."""
@@ -3340,6 +3843,10 @@ def main():
         return pp_profile()
     if sys.argv[1:] == ["--pointpillars"]:
         return phase_pointpillars(phase_device())
+    if sys.argv[1:] == ["--pp-train"]:
+        return phase_pp_train(phase_device())
+    if sys.argv[1:] == ["--pp-train-profile"]:
+        return pp_train_profile()
     card = phase_device()
     model = MODEL.get("RandLANet")()
     phase_build()
@@ -3362,6 +3869,7 @@ def main():
     # slice
     launches["stencil_match"] = phase_scu_train(card)["stencil_match"]
     phase_pointpillars(card)
+    phase_pp_train(card)
     sources = {"bucket_knn": ("open3d_ml_tpu_torch/csrc/bucket_knn.cu",
                               f"{TPU_KERNELS}:261"),
                "bucket_gather": ("open3d_ml_tpu_torch/csrc/bucket_gather.cu",

@@ -1,5 +1,5 @@
 """Host-side augmentations."""
 
-from .augmentation import SemsegAugmentation
+from .augmentation import Augmentation, ObjdetAugmentation, SemsegAugmentation
 
-__all__ = ["SemsegAugmentation"]
+__all__ = ["Augmentation", "ObjdetAugmentation", "SemsegAugmentation"]

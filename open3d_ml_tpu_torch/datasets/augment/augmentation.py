@@ -1,30 +1,32 @@
 """Host-side point cloud augmentation (numpy).
 
-Counterpart of ``open3d_ml_tpu/datasets/augment/augmentation.py``
-``SemsegAugmentation`` with the steps of the training recipes: ``recenter``,
-``normalize``, ``rotate``, ``scale`` and ``noise`` (RandLA-Net's), and
-``RandomDropout``, ``RandomHorizontalFlip``, ``ChromaticAutoContrast``,
-``ChromaticTranslation`` and ``ChromaticJitter`` (SparseConvUnet's), in
-the JAX package's order and with its draws. Random steps draw from
-``rng``, a ``numpy.random.Generator`` made from ``seed`` (a generator
-passed as the seed is used as it is, so the model's generator drives
-them), so one seed gives the JAX package's arrays. The other
-augmentations of the JAX package (``HueSaturationTranslation``,
-``rotate`` with ``method="all"``) raise.
+Counterpart of ``open3d_ml_tpu/datasets/augment/augmentation.py``: the
+shared geometric steps (``Augmentation``: ``recenter``, ``normalize``,
+``rotate``, ``scale``, ``noise``); ``SemsegAugmentation`` with the steps
+of the segmentation recipes, ``RandomDropout``, ``RandomHorizontalFlip``,
+``ChromaticAutoContrast``, ``ChromaticTranslation`` and
+``ChromaticJitter`` (SparseConvUnet's); and ``ObjdetAugmentation`` with
+``PointShuffle``, ``ObjectRangeFilter`` and ``ObjectSample`` (gt boxes
+pasted from a database that ``utils/collect_bboxes.py`` writes), in the
+JAX package's order and with its draws. Random steps draw from ``rng``, a
+``numpy.random.Generator`` made from ``seed`` (a generator passed as the
+seed is used as it is, so the model's generator drives them), so one
+seed gives the JAX package's arrays. The other augmentations of the JAX
+package (``HueSaturationTranslation``, ``rotate`` with ``method="all"``)
+raise.
 """
 
+import pickle
 import warnings
 
 import numpy as np
 
+from ..utils.operations import (box_collision_test, remove_points_in_boxes,
+                                sample_class)
 
-class SemsegAugmentation:
-    """Semantic segmentation augmentation."""
 
-    _PORTED = ("recenter", "normalize", "rotate", "scale", "noise",
-               "RandomDropout", "RandomHorizontalFlip",
-               "ChromaticAutoContrast", "ChromaticTranslation",
-               "ChromaticJitter")
+class Augmentation:
+    """The geometric steps that both tasks' augmentations share."""
 
     def __init__(self, cfg, seed=None):
         self.cfg = cfg
@@ -87,6 +89,15 @@ class SemsegAugmentation:
         noise_std = cfg.get("noise_std", 0.001)
         return pc + (self.rng.standard_normal(pc.shape) *
                      noise_std).astype(np.float32)
+
+
+class SemsegAugmentation(Augmentation):
+    """Semantic segmentation augmentation."""
+
+    _PORTED = ("recenter", "normalize", "rotate", "scale", "noise",
+               "RandomDropout", "RandomHorizontalFlip",
+               "ChromaticAutoContrast", "ChromaticTranslation",
+               "ChromaticJitter")
 
     def RandomDropout(self, pc, feats, labels, cfg):
         """With probability ``dropout_ratio``, keep a random
@@ -182,3 +193,127 @@ class SemsegAugmentation:
         if "ChromaticJitter" in cfg:
             feat = self.ChromaticJitter(feat, cfg["ChromaticJitter"])
         return point, feat, labels
+
+
+class ObjdetAugmentation(Augmentation):
+    """Object detection augmentation."""
+
+    _ALL = ("recenter", "normalize", "rotate", "scale", "noise",
+            "PointShuffle", "ObjectRangeFilter", "ObjectSample")
+
+    def __init__(self, cfg, seed=None):
+        super().__init__(cfg, seed=seed)
+        for method in (cfg or {}):
+            if method not in self._ALL:
+                warnings.warn(f"Unknown objdet augmentation: {method}")
+
+    def PointShuffle(self, data):
+        """Shuffle the points in place."""
+        self.rng.shuffle(data["point"])
+        return data
+
+    @staticmethod
+    def in_range_bev(box_range, box_xyzwhlr):
+        """Whether a box's BEV center lies inside [x0, y0, x1, y1]."""
+        return ((box_xyzwhlr[0] > box_range[0]) &
+                (box_xyzwhlr[1] > box_range[1]) &
+                (box_xyzwhlr[0] < box_range[2]) &
+                (box_xyzwhlr[1] < box_range[3]))
+
+    def ObjectRangeFilter(self, data, pcd_range):
+        """Keep the gt boxes whose BEV center lies inside the point cloud
+        range."""
+        bev_range = np.asarray(pcd_range)[[0, 1, 3, 4]]
+        data["bounding_boxes"] = [
+            box for box in data["bounding_boxes"]
+            if self.in_range_bev(bev_range, box.to_xyzwhlr())]
+        return data
+
+    def ObjectSample(self, data, db_boxes_dict, sample_dict):
+        """Paste gt boxes of the database, with their points, into the
+        scene until each class of ``sample_dict`` reaches its count, each
+        drawn box kept only where it overlaps (BEV) no box kept so far;
+        the scene's points inside a pasted box go."""
+        points = data["point"]
+        bboxes = data["bounding_boxes"]
+        labels = [box.label_class for box in bboxes]
+        sampled_num_dict = {}
+        for class_name, max_sample_num in sample_dict.items():
+            existing = np.sum([n == class_name for n in labels])
+            sampled_num_dict[class_name] = np.round(
+                int(max_sample_num - existing)).astype(np.int64)
+
+        sampled = []
+        for class_name, sampled_num in sampled_num_dict.items():
+            if sampled_num < 0:
+                continue
+            sampled_cls = sample_class(class_name, sampled_num, bboxes,
+                                       db_boxes_dict[class_name],
+                                       rng=self.rng)
+            sampled += sampled_cls
+            bboxes = bboxes + sampled_cls
+
+        if sampled:
+            sampled_points = np.concatenate(
+                [box.points_inside_box for box in sampled], axis=0)
+            points = remove_points_in_boxes(points, sampled)
+            points = np.concatenate([sampled_points[:, :4], points], axis=0)
+        data["point"] = points
+        data["bounding_boxes"] = bboxes
+        return data
+
+    @staticmethod
+    def load_gt_database(pickle_path, min_points_dict, sample_dict):
+        """{class: boxes} of the database pickle at ``pickle_path``, each
+        class of ``sample_dict``, keeping the boxes of the classes of
+        ``min_points_dict`` with at least that many points inside."""
+        with open(pickle_path, "rb") as f:
+            db_boxes = pickle.load(f)
+        if min_points_dict is not None:
+            db_boxes = [
+                box for box in db_boxes
+                if box.label_class in min_points_dict and
+                box.points_inside_box.shape[0] >=
+                min_points_dict[box.label_class]]
+        db_boxes_dict = {key: [] for key in sample_dict}
+        for box in db_boxes:
+            if box.label_class in sample_dict:
+                db_boxes_dict[box.label_class].append(box)
+        return db_boxes_dict
+
+    def augment(self, data, attr, seed=None):
+        """Apply the steps that ``cfg`` names to ``data`` {"point",
+        "bounding_boxes", ...}, in the JAX package's order: the geometric
+        steps, ObjectSample (the database loaded at the first call),
+        ObjectRangeFilter, PointShuffle; a ``seed`` replaces the
+        generator first."""
+        cfg = self.cfg
+        if cfg is None:
+            return data
+        if seed is not None:
+            self.rng = np.random.default_rng(seed)
+        if "recenter" in cfg:
+            data["point"] = self.recenter(data["point"], cfg["recenter"])
+        if "normalize" in cfg:
+            data["point"], _ = self.normalize(data["point"], None,
+                                              cfg["normalize"])
+        if "rotate" in cfg:
+            data["point"] = self.rotate(data["point"], cfg["rotate"])
+        if "scale" in cfg:
+            data["point"] = self.scale(data["point"], cfg["scale"])
+        if "noise" in cfg:
+            data["point"] = self.noise(data["point"], cfg["noise"])
+        if "ObjectSample" in cfg:
+            sample = cfg["ObjectSample"]
+            if not hasattr(self, "db_boxes_dict"):
+                self.db_boxes_dict = self.load_gt_database(
+                    sample["pickle_path"], sample.get("min_points_dict"),
+                    sample["sample_dict"])
+            data = self.ObjectSample(data, self.db_boxes_dict,
+                                     sample["sample_dict"])
+        if cfg.get("ObjectRangeFilter", False):
+            data = self.ObjectRangeFilter(
+                data, cfg["ObjectRangeFilter"]["point_cloud_range"])
+        if cfg.get("PointShuffle", False):
+            data = self.PointShuffle(data)
+        return data

@@ -1,7 +1,49 @@
-"""Building blocks shared by the port's voxel networks."""
+"""Building blocks shared by the port's networks."""
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """BatchNorm with flax's training semantics (``flax.linen.BatchNorm``,
+    ``use_fast_variance``), in float32, over every axis but the channel
+    axis ``axis`` (-1: channels last, [..., C]; 1: NCHW).
+
+    In train mode it normalises with the batch mean and the biased batch
+    variance E[x^2] - E[x]^2 (clamped at 0), as (x - mean) *
+    (rsqrt(var + eps) * weight) + bias, and moves the running statistics
+    towards the same biased variance by torch's ``momentum`` (flax's
+    0.99 is torch's 0.01); ``nn.BatchNorm1d`` would move them towards the
+    unbiased one. In eval mode it is ``F.batch_norm`` on the running
+    statistics. A bf16 input is read in float32, as flax promotes it; the
+    output is float32. The parameter and buffer names are torch's.
+    """
+
+    def __init__(self, dim, eps=1e-5, momentum=0.01, axis=-1):
+        super().__init__(dim, eps=eps, momentum=momentum)
+        if axis not in (-1, 1):
+            raise ValueError(f"channel axis {axis}: -1 or 1")
+        self.axis = axis
+
+    def forward(self, x):
+        x = x.float()
+        rows = x.reshape(-1, x.shape[-1]) if self.axis == -1 else x
+        if not self.training:
+            out = F.batch_norm(rows, self.running_mean, self.running_var,
+                               self.weight, self.bias, False, 0.0, self.eps)
+            return out.reshape(x.shape)
+        dims = 0 if self.axis == -1 else (0, 2, 3)
+        mean = rows.mean(dims)
+        var = torch.clamp((rows * rows).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        if self.axis == 1:
+            mean, mul = mean[:, None, None], mul[:, None, None]
+            return (rows - mean) * mul + self.bias[:, None, None]
+        return ((rows - mean) * mul + self.bias).reshape(x.shape)
 
 
 class MaskedBatchNorm(nn.Module):

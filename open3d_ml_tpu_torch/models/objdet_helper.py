@@ -3,8 +3,8 @@
 Counterpart of ``open3d_ml_tpu/models/objdet_helper.py``:
 ``Anchor3DRangeGenerator`` makes the anchors as numpy constants (the
 feature map's size is fixed by the config); ``BBoxCoder`` and the BEV
-conversions work on torch tensors. The axis-aligned ``bbox_overlaps`` of
-anchor assignment comes with training.
+conversions and the axis-aligned ``bbox_overlaps`` of anchor assignment
+work on torch tensors.
 """
 
 import numpy as np
@@ -13,7 +13,9 @@ import torch
 
 def limit_period(val, offset=0.5, period=np.pi):
     """Limit a tensor into [-offset * period, (1 - offset) * period)."""
-    return val - torch.floor(val / period + offset) * period
+    # a divisor on the tensor's device: CUDA multiplies by the reciprocal
+    # of a host scalar, which can round differently from the division
+    return val - torch.floor(val / val.new_full((), period) + offset) * period
 
 
 def xywhr_to_xyxyr(boxes_xywhr):
@@ -33,16 +35,31 @@ def box3d_to_bev(boxes3d):
 
 
 def box3d_to_bev2d(boxes3d):
-    """(x, y, z, w, l, h, r) [N, 7] -> the nearest axis-aligned BEV box
+    """(x, y, z, w, l, h, r) [..., 7] -> the nearest axis-aligned BEV box
     (x1, y1, x2, y2): w and l swap where the rotation, brought into
     [-pi/2, pi/2), exceeds pi/4 in size."""
     bev = box3d_to_bev(boxes3d)
-    rot = torch.abs(limit_period(bev[:, -1], 0.5, np.pi))
+    rot = torch.abs(limit_period(bev[..., -1], 0.5, np.pi))
     cond = (rot > np.pi / 4)[..., None]
-    bboxes_xywh = torch.where(cond, bev[:, [0, 1, 3, 2]], bev[:, :4])
-    centers = bboxes_xywh[:, :2]
-    dims = bboxes_xywh[:, 2:]
+    bboxes_xywh = torch.where(cond, bev[..., [0, 1, 3, 2]], bev[..., :4])
+    centers = bboxes_xywh[..., :2]
+    dims = bboxes_xywh[..., 2:]
     return torch.cat([centers - dims / 2, centers + dims / 2], dim=-1)
+
+
+def bbox_overlaps(bboxes1, bboxes2):
+    """Axis-aligned IoU [..., m, n] of (x1, y1, x2, y2) boxes [..., m, 4]
+    and [..., n, 4] (leading dims broadcast), the union clamped at 1e-6."""
+    lt = torch.maximum(bboxes1[..., :, None, :2], bboxes2[..., None, :, :2])
+    rb = torch.minimum(bboxes1[..., :, None, 2:], bboxes2[..., None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0)
+    overlap = wh[..., 0] * wh[..., 1]
+    area1 = ((bboxes1[..., 2] - bboxes1[..., 0]) *
+             (bboxes1[..., 3] - bboxes1[..., 1]))[..., :, None]
+    area2 = ((bboxes2[..., 2] - bboxes2[..., 0]) *
+             (bboxes2[..., 3] - bboxes2[..., 1]))[..., None, :]
+    union = area1 + area2 - overlap
+    return overlap / torch.clamp(union, min=1e-6)
 
 
 class Anchor3DRangeGenerator:

@@ -1,18 +1,24 @@
-"""PointPillars 3D object detection: serving and evaluation.
+"""PointPillars 3D object detection: serving, evaluation and training.
 
 Counterpart of ``open3d_ml_tpu/models/point_pillars.py``: the same network
 (pillarization, the pillar feature net, the BEV canvas, the SECOND
 backbone, the SECONDFPN neck and the anchor head's three convolutions),
-the same decode and NMS, and the host side of the test and validation
-splits. Two nets share one ``state_dict``:
+the same decode and NMS, the anchor assignment and the three losses, and
+the host side of every split. Two nets share one ``state_dict``:
 
 * ``get_net()``, the serving net: canvas-major pillarization (the canvas
   cell is the segment id, and the PFN's segment max writes the BEV canvas
-  directly); the PFN's linear and BatchNorm in float32, the pooled canvas
-  in ``compute_dtype`` (bf16 by default); the backbone's and the neck's
+  directly); the PFN's linear and BatchNorm in float32, its pillar max
+  over their output cast to ``compute_dtype`` (bf16 by default), so that
+  ties split the gradient as the JAX net's bf16 segment max splits it,
+  and the pooled canvas in that dtype; the backbone's and the neck's
   convolutions take bf16 inputs and weights, and each of their BatchNorms
   runs in float32 on the convolution's bf16 output, as flax promotes it;
-  the head's convolutions in float32. These are explicit casts.
+  the head's convolutions in float32. These are explicit casts. It is
+  the training net too (``train()``): its BatchNorms then take flax's
+  batch statistics (``common.BatchNorm``; the PFN's over every point row
+  of the batch, masked ones and the pad row included, the backbone's
+  over every canvas cell, empty ones included).
 * ``get_eval_net()``, the evaluation net: compact pillars from the sort
   voxelizer, with the reference's caps (``max_voxels``, and
   ``max_num_points`` points a pillar, the first in input order), in
@@ -24,8 +30,12 @@ reads them cell-major, then anchor (size, then rotation), then class, as
 the JAX decode does. In between it runs contiguous NCHW; whether
 ``channels_last`` would serve faster on the card is not settled.
 
-Training (anchor assignment, the losses, the optimizer, the augmented
-train split) is not ported: those methods raise ``NotImplementedError``.
+Training: ``assign_bboxes`` matches anchors to gt boxes on the device for
+a whole batch, ``get_loss`` gives the focal, smooth-L1 and direction
+losses, ``get_optimizer`` AdamW (no gradient clipping: the JAX pipeline
+never reads ``grad_clip_norm``), and ``preprocess`` of the train split
+runs ``ObjdetAugmentation`` (ObjectSample with its gt database,
+ObjectRangeFilter, PointShuffle) after the range filter.
 """
 
 import numpy as np
@@ -33,24 +43,30 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..datasets.augment import ObjdetAugmentation
 from ..datasets.utils import BEVBox3D
+from ..modules.losses import CrossEntropyLoss, FocalLoss, SmoothL1Loss
 from ..ops.bev import bev_scatter
 from ..ops.nms import nms_bev
 from ..ops.voxelize import voxelize
 from ..utils.registry import MODEL
 from .base_model_objdet import ObjdetBaseModel
-from .objdet_helper import (Anchor3DRangeGenerator, BBoxCoder, box3d_to_bev,
-                            limit_period)
+from .common import BatchNorm
+from .objdet_helper import (Anchor3DRangeGenerator, BBoxCoder, bbox_overlaps,
+                            box3d_to_bev, box3d_to_bev2d, limit_period)
 
-_TRAINING = ("PointPillars training (anchor assignment, the focal, "
-             "smooth-L1 and cross-entropy losses, AdamW and the ObjectSample "
-             "augmentation) is not ported yet")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _norm(bn, x):
-    """BatchNorm over the last axis of ``x`` [..., C]."""
-    return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+def segment_max(y, seg_ids, num_segments):
+    """[num_segments, C]: the max of the rows of ``y`` [N, C] in each
+    segment (-inf where there is none); ``seg_ids`` [N] in [0,
+    num_segments]; ids of num_segments are dropped. A tie splits the
+    gradient evenly, as JAX's ``segment_max`` does."""
+    index = seg_ids.long()[:, None].expand(-1, y.shape[1])
+    vmax = y.new_full((num_segments + 1, y.shape[1]), -np.inf)
+    vmax.scatter_reduce_(0, index, y, "amax", include_self=False)
+    return vmax[:num_segments]
 
 
 class PFNLayer(nn.Module):
@@ -78,33 +94,29 @@ class PFNLayer(nn.Module):
         # always run in float32
         self.pool_dtype = _DTYPES[pool_dtype]
         self.linear = nn.Linear(in_channels, self.units, bias=False)
-        self.norm = nn.BatchNorm1d(self.units, eps=1e-3, momentum=0.01)
+        self.norm = BatchNorm(self.units, eps=1e-3)
 
     def forward(self, x, mask=None, *, seg_ids=None, num_segments=None,
                 seg_counts=None, max_pts=None):
         if seg_ids is not None:  # point-major
             # one extra zero row gives the pad value relu(BN(0))
             xa = torch.cat([x, x.new_zeros((1, x.shape[-1]))])
-            y32 = F.relu(_norm(self.norm, self.linear(xa)))
-            pad_val = y32[-1]
-            y32 = y32[:-1]
-            # rounding to bf16 is monotone: a float32 max, then the cast,
-            # gives the bits of a max over the cast values
-            index = seg_ids.long()[:, None].expand(-1, self.units)
-            vmax = y32.new_full((num_segments + 1, self.units), -np.inf)
-            vmax.scatter_reduce_(0, index, y32, "amax", include_self=False)
-            vmax = vmax[:num_segments]
+            # the max runs over the values cast to the pool dtype, as the
+            # JAX net's; their ties decide the gradient
+            y = F.relu(self.norm(self.linear(xa))).to(self.pool_dtype)
+            pad_val = y[-1]
+            y = y[:-1]
+            vmax = segment_max(y, seg_ids, num_segments)
             has_pad = (seg_counts < max_pts)[:, None]
             vmax = torch.maximum(vmax, torch.where(has_pad, pad_val, -np.inf))
             vmax = torch.where((seg_counts <= 0)[:, None], 0.0, vmax)
-            vmax = vmax.to(self.pool_dtype)
             if self.last_layer:
                 return vmax
             rep = vmax[seg_ids.long().clamp(0, num_segments - 1)]
-            return torch.cat([y32.to(self.pool_dtype), rep], dim=1)
+            return torch.cat([y, rep], dim=1)
 
         # voxel-major: the reference's layout
-        x = F.relu(_norm(self.norm, self.linear(x)))
+        x = F.relu(self.norm(self.linear(x)))
         x_max = x.max(dim=1, keepdim=True).values  # [V, 1, units]
         x_max = torch.where(mask.any(1)[:, None, None], x_max, 0.0)
         if self.last_layer:
@@ -204,7 +216,7 @@ def _conv_bn_relu(x, conv, bn, dtype, transpose=False):
     kwargs = {} if transpose else {"padding": conv.padding}
     x = op(x.to(dtype), conv.weight.to(dtype), None, stride=conv.stride,
            **kwargs)
-    return F.relu(bn(x.float()))
+    return F.relu(bn(x))
 
 
 class SECOND(nn.Module):
@@ -224,8 +236,8 @@ class SECOND(nn.Module):
                     cin, out_channels[i], 3,
                     stride=layer_strides[i] if j == 0 else 1, padding=1,
                     bias=False))
-                self.add_module(f"block{i}_bn{j}", nn.BatchNorm2d(
-                    out_channels[i], eps=1e-3, momentum=0.01))
+                self.add_module(f"block{i}_bn{j}", BatchNorm(
+                    out_channels[i], eps=1e-3, axis=1))
                 cin = out_channels[i]
 
     def forward(self, x):
@@ -265,8 +277,8 @@ class SECONDFPN(nn.Module):
                     in_channels[i], out_channels[i], s, stride=s,
                     bias=False))
                 self.transposed.append(False)
-            self.add_module(f"deblock{i}_bn", nn.BatchNorm2d(
-                out_channels[i], eps=1e-3, momentum=0.01))
+            self.add_module(f"deblock{i}_bn", BatchNorm(
+                out_channels[i], eps=1e-3, axis=1))
 
     def forward(self, xs):
         ups = []
@@ -396,8 +408,8 @@ class PointPillarsNet(nn.Module):
 
 @MODEL.register_module()
 class PointPillars(ObjdetBaseModel):
-    """PointPillars: the host side of the test and validation splits, the
-    two nets, the decode and the boxes."""
+    """PointPillars: the host side of every split, the two nets, the anchor
+    assignment, the losses and the optimizer, the decode and the boxes."""
 
     def __init__(self,
                  name="PointPillars",
@@ -430,6 +442,7 @@ class PointPillars(ObjdetBaseModel):
         self.classes = classes
         self.name2lbl = {n: i for i, n in enumerate(classes)}
         self.lbl2name = {i: n for i, n in enumerate(classes)}
+        self.augmenter = ObjdetAugmentation(self.cfg.augment, seed=self.rng)
 
         self.voxel_size = voxelize.get("voxel_size", [0.16, 0.16, 4])
         self.max_num_points = voxelize.get("max_num_points", 32)
@@ -440,10 +453,18 @@ class PointPillars(ObjdetBaseModel):
         self.nms_pre = head.get("nms_pre", 100)
         self.score_thr = head.get("score_thr", 0.1)
         self.dir_offset = head.get("dir_offset", 0)
+        iou_thr = head.get("iou_thr", [[0.35, 0.5]])
+        if len(iou_thr) != len(classes):
+            assert len(iou_thr) == 1
+            iou_thr = iou_thr * len(classes)
+        self.iou_thr = iou_thr
         self.anchor_generator = Anchor3DRangeGenerator(
             ranges=head.get("ranges", [list(point_cloud_range)]),
             sizes=head.get("sizes", [[1.6, 3.9, 1.56]]),
             rotations=head.get("rotations", [0, 1.5707963]))
+        self.loss_cls = FocalLoss(**loss.get("focal", {}))
+        self.loss_bbox = SmoothL1Loss(**loss.get("smooth_l1", {}))
+        self.loss_dir = CrossEntropyLoss(**loss.get("cross_entropy", {}))
         self.max_gt = int(kwargs.get("max_gt", 64))
         self._anchor_tensors = {}
 
@@ -483,18 +504,20 @@ class PointPillars(ObjdetBaseModel):
     # ------------------------------------------------------------- host side
 
     def preprocess(self, data, attr):
-        """Keep the points inside the range; the test and validation
-        splits only (the train split's augmentations are not ported)."""
-        if attr["split"] not in ("test", "testing", "val", "validation"):
-            raise NotImplementedError(
-                f"preprocess of split {attr['split']!r}: {_TRAINING}")
+        """Keep the points inside the range, then, on the train split,
+        augment (``ObjdetAugmentation`` drawing from the model's
+        generator)."""
         points = np.array(data["point"][:, 0:4], dtype=np.float32)
         min_val = np.array(self.point_cloud_range[:3])
         max_val = np.array(self.point_cloud_range[3:])
         points = points[np.all(
             np.logical_and(points[:, :3] >= min_val, points[:, :3] < max_val),
             axis=-1)]
-        new_data = {"point": points, "calib": data.get("calib")}
+        data = dict(data, point=points)
+        if attr["split"] not in ("test", "testing", "val", "validation"):
+            data = self.augmenter.augment(data, attr, seed=self.rng)
+
+        new_data = {"point": data["point"], "calib": data.get("calib")}
         if attr["split"] not in ("test", "testing"):
             new_data["bbox_objs"] = data.get("bounding_boxes", [])
         return new_data
@@ -547,22 +570,133 @@ class PointPillars(ObjdetBaseModel):
         return self.anchor_generator.grid_anchors(self._featmap_size())
 
     def _anchors_on(self, device):
-        """The anchors [H * W * S * R, 7] as a tensor on ``device``, made
-        once a device."""
+        """The anchors [H, W, S, R, 7] as a tensor on ``device``, made once
+        a device."""
         key = str(device)
         if key not in self._anchor_tensors:
             self._anchor_tensors[key] = torch.from_numpy(
-                self._anchors().reshape(-1, 7)).to(device)
+                self._anchors()).to(device)
         return self._anchor_tensors[key]
 
     def assign_bboxes(self, gt_bboxes, gt_labels, gt_counts):
-        raise NotImplementedError(f"assign_bboxes: {_TRAINING}")
+        """Match every anchor of a padded batch to its gt box.
+
+        Args:
+            gt_bboxes: [B, G, 7], gt_labels: [B, G], gt_counts: [B]; the
+                boxes past a sample's count are padding.
+
+        Returns a dict of per-anchor tensors over the batch, flattened in
+        the head's [B, H, W, S, R] order: target_deltas [T, 7],
+        target_labels [T] (num_classes for the background), pos_mask
+        [T], neg_mask [T], dir_targets [T].
+
+        Size s of the anchors is matched to class s by the axis-aligned
+        BEV IoU (``box3d_to_bev2d``) at that class's (neg, pos)
+        thresholds: an anchor is positive at IoU >= pos with its best gt
+        (the first on a tie), negative at 0 <= IoU < neg; every anchor
+        whose IoU equals a gt's best IoU (>= neg) is positive too, and
+        the anchor that gt's argmax picks is matched to it (the gt of the
+        highest index where several pick one anchor). A sample with no gt
+        matches the zero pad box: its deltas hold -inf, as the JAX
+        package's do.
+        """
+        anchors = self._anchors_on(gt_bboxes.device)  # [H, W, S, R, 7]
+        h, w, s, r, _ = anchors.shape
+        num_classes = len(self.classes)
+        assert s == num_classes or num_classes == 1
+        b, g = gt_labels.shape
+        k_ids = torch.arange(g, device=gt_bboxes.device)
+        gmask = k_ids[None, :] < gt_counts[:, None]
+        gt_bev = box3d_to_bev2d(gt_bboxes)
+        per_class = []
+        for j in range(s):
+            aj = anchors[:, :, j].reshape(-1, 7)  # [A, 7], A = H * W * R
+            a = aj.shape[0]
+            neg_th, pos_th = self.iou_thr[j]
+            overlaps = bbox_overlaps(gt_bev, box3d_to_bev2d(aj))  # [B, G, A]
+            overlaps = torch.where(gmask[..., None], overlaps, -1.0)
+            max_o, arg_o = overlaps.max(dim=1)
+            gt_max, gt_arg = overlaps.max(dim=2)
+            pos = max_o >= pos_th
+            neg = (max_o >= 0) & (max_o < neg_th)
+
+            # low-quality rescue: the anchors tying each gt's best IoU
+            valid_k = gmask & (gt_max >= neg_th)
+            tie = (overlaps == gt_max[..., None]) & valid_k[..., None]
+            pos = pos | tie.any(dim=1)
+            # anchor gt_arg[k] -> gt k, the last k where several pick one
+            a_target = torch.where(valid_k, gt_arg, a)
+            lq_k = torch.full((b, a + 1), -1, dtype=torch.long,
+                              device=gt_bboxes.device)
+            lq_k.scatter_reduce_(1, a_target,
+                                 torch.where(valid_k, k_ids, -1), "amax")
+            lq_k = lq_k[:, :a]
+            arg = torch.where(lq_k >= 0, lq_k, arg_o)
+
+            matched = torch.take_along_dim(gt_bboxes, arg[..., None], 1)
+            lbls = torch.where(pos, torch.take_along_dim(
+                gt_labels.long(), arg, 1), num_classes)
+            yaw = limit_period(matched[..., -1], 0, 2 * np.pi)
+            dirs = torch.floor(yaw / yaw.new_full((), np.pi)).long() % 2
+            per_class.append((pos, neg, lbls, BBoxCoder.encode(aj, matched),
+                              dirs))
+
+        def stacked(i, *tail):  # [B, H*W*R, ...] x S -> [B*H*W*S*R, ...]
+            parts = [t[i].reshape(b, h, w, r, *tail) for t in per_class]
+            return torch.stack(parts, dim=3).reshape(-1, *tail)
+
+        return {"pos_mask": stacked(0), "neg_mask": stacked(1),
+                "target_labels": stacked(2), "target_deltas": stacked(3, 7),
+                "dir_targets": stacked(4)}
 
     def get_loss(self, results, inputs):
-        raise NotImplementedError(f"get_loss: {_TRAINING}")
+        """{"loss_cls", "loss_bbox", "loss_dir"} of the head outputs
+        ``results`` on the padded batch ``inputs``: the focal loss over
+        the positive and negative anchors, smooth-L1 over the positive
+        ones' deltas with the angle as sin(a - b) = sin a cos b - cos a
+        sin b, and the direction's cross-entropy over them; each divided
+        by the positive anchors of the whole batch (at least 1).
+        Positive anchors matched to a gt whose label is no class count in
+        that divisor but give no box or direction loss."""
+        cls_scores, bbox_preds, dir_preds = results
+        num_classes = len(self.classes)
+        t = self.assign_bboxes(inputs["bboxes"], inputs["labels"],
+                               inputs["bbox_count"])
+        pos, neg = t["pos_mask"], t["neg_mask"]
+        labels = t["target_labels"]
+        pos_v = (pos & (labels >= 0) & (labels < num_classes)).float()
+        avg = pos.sum().float().clamp(min=1.0)
 
-    def get_optimizer(self, cfg_pipeline):
-        raise NotImplementedError(f"get_optimizer: {_TRAINING}")
+        loss_cls = self.loss_cls(cls_scores.reshape(-1, num_classes),
+                                 torch.where(pos, labels, num_classes),
+                                 weight=(pos | neg).float(), avg_factor=avg)
+
+        preds = bbox_preds.reshape(-1, 7)
+        targets = t["target_deltas"]
+        r0 = torch.sin(preds[:, -1:]) * torch.cos(targets[:, -1:])
+        r1 = torch.cos(preds[:, -1:]) * torch.sin(targets[:, -1:])
+        loss_bbox = self.loss_bbox(torch.cat([preds[:, :-1], r0], dim=-1),
+                                   torch.cat([targets[:, :-1], r1], dim=-1),
+                                   weight=pos_v, avg_factor=avg)
+        loss_dir = self.loss_dir(dir_preds.reshape(-1, 2), t["dir_targets"],
+                                 weight=pos_v, avg_factor=avg)
+        return {"loss_cls": loss_cls, "loss_bbox": loss_bbox,
+                "loss_dir": loss_dir}
+
+    def get_optimizer(self, cfg_pipeline, net):
+        """(AdamW over every parameter of ``net``, BatchNorm's included,
+        None): the pipeline's ``optimizer`` lr (1e-3), betas ((0.95,
+        0.99)) and weight_decay (0.01), eps 1e-8, a constant learning
+        rate, as ``optax.adamw``. No gradient clipping: the JAX pipeline
+        never reads ``grad_clip_norm``. The JAX signature has no ``net``:
+        optax transforms take the parameters at each update."""
+        opt = dict(cfg_pipeline.get("optimizer") or {})
+        betas = opt.get("betas", [0.95, 0.99])
+        optimizer = torch.optim.AdamW(
+            net.parameters(), lr=opt.get("lr", 1e-3),
+            betas=(betas[0], betas[1]),
+            weight_decay=opt.get("weight_decay", 0.01), eps=1e-8)
+        return optimizer, None
 
     def get_bboxes(self, cls_scores, bbox_preds, dir_preds):
         """Decode and per-class rotated NMS over the ``nms_pre`` best
@@ -574,7 +708,7 @@ class PointPillars(ObjdetBaseModel):
         """
         num_classes = len(self.classes)
         b = cls_scores.shape[0]
-        anchors = self._anchors_on(cls_scores.device)
+        anchors = self._anchors_on(cls_scores.device).reshape(-1, 7)
 
         scores = torch.sigmoid(cls_scores.reshape(b, -1, num_classes))
         preds = bbox_preds.reshape(b, -1, 7)

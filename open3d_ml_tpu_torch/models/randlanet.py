@@ -32,6 +32,7 @@ patches for ``pipelines/semantic_segmentation.py``; ``get_loss`` and
 ``get_optimizer`` are the training step's loss and its Adam.
 """
 
+import functools
 import logging
 
 import numpy as np
@@ -49,6 +50,7 @@ from ..ops.cuda.bucket import BucketGather
 from ..ops.neighbors import build_knn_pyramid
 from ..utils.registry import MODEL
 from .base_model import BaseModel
+from .common import BatchNorm
 
 log = logging.getLogger(__name__)
 
@@ -122,34 +124,8 @@ class _BucketLevel:
         return self._gather(v, "up")[..., 0, :]
 
 
-class _BatchNorm(nn.BatchNorm1d):
-    """BatchNorm over every axis but the last, in float32, with flax's
-    training semantics (``flax.linen.BatchNorm``, ``use_fast_variance``).
-
-    In train mode it normalises with the batch mean and the biased batch
-    variance E[x^2] - E[x]^2 (clamped at 0) over all rows, as
-    (x - mean) * (rsqrt(var + eps) * weight) + bias, and moves the running
-    statistics towards the same biased variance with torch momentum 0.01
-    (flax momentum 0.99); ``nn.BatchNorm1d`` would move them towards the
-    unbiased one. In eval mode it is ``nn.BatchNorm1d``'s. The parameter
-    and buffer names are ``nn.BatchNorm1d``'s.
-    """
-
-    def __init__(self, dim):
-        super().__init__(dim, eps=1e-6, momentum=0.01)
-
-    def forward(self, x):
-        """x [..., C] (float32 or bfloat16) -> float32 [..., C]."""
-        rows = x.float().reshape(-1, x.shape[-1])
-        if not self.training:
-            return super().forward(rows).reshape(x.shape)
-        mean = rows.mean(0)
-        var = torch.clamp((rows * rows).mean(0) - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((rows - mean) * mul + self.bias).reshape(x.shape)
+# flax's BatchNorm over the last axis at RandLA-Net's eps
+_BatchNorm = functools.partial(BatchNorm, eps=1e-6)
 
 
 class _Dropout(nn.Module):

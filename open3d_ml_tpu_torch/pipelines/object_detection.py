@@ -1,7 +1,18 @@
-"""Object detection pipeline: validation (mAP), test and inference.
+"""Object detection pipeline: training, validation (mAP), test and
+inference.
 
 Counterpart of ``open3d_ml_tpu/pipelines/object_detection.py``:
 
+* ``run_train``: epochs of training steps over the train split (its
+  ``preprocess`` augments), ``batch_size`` frames a step with the last
+  short batch dropped, each step the model's net (``get_net``) in train
+  mode, ``get_loss`` (anchor assignment on the device), the backward and
+  one AdamW step (``get_optimizer``; no gradient clipping, as the JAX
+  pipeline has none); the epoch's mean losses to the log; ``run_valid``
+  every ``validation_freq`` epochs; checkpoints every ``save_ckpt_freq``
+  epochs and at the last. A resume restores the weights and the
+  BatchNorm statistics of the newest checkpoint and starts AdamW afresh,
+  as the JAX pipeline does (it saves ``opt_state`` but never restores it);
 * ``run_valid``: every frame of the validation split through the eval
   net and the decode, then the KITTI mAP (BEV and 3D) of the boxes
   against the frames' gt boxes;
@@ -16,14 +27,15 @@ run. Both live on ``device``. The weights start from a generator seeded
 by the pipeline's ``seed``; load trained ones with ``net.load_state_dict``
 (for JAX variables, ``utils.convert_jax.load_jax_variables``) or from a
 checkpoint: ``torch.save`` files ``<logs_dir>/checkpoint/
-ckpt_{epoch:05d}.pth`` of {"model", "epoch"}.
+ckpt_{epoch:05d}.pth`` of {"model", "optimizer", "epoch"}.
 
-Training (``run_train``) is not ported yet; nor are the TensorBoard
-writer and reading the JAX package's orbax checkpoints.
+Not ported: the TensorBoard writer (the epoch's scalars go to the log),
+and reading the JAX package's orbax checkpoints.
 """
 
 import logging
-from os.path import exists
+from datetime import datetime
+from os.path import exists, join
 from pathlib import Path
 
 import numpy as np
@@ -42,12 +54,17 @@ log = logging.getLogger(__name__)
 
 @PIPELINE.register_module()
 class ObjectDetection(BasePipeline):
-    """Validation, test and inference of 3D object detection."""
+    """Training, validation, test and inference of 3D object detection.
+    The defaults of ``batch_size``, ``max_epoch`` and ``save_ckpt_freq``
+    are the shipped KITTI config's."""
 
     def __init__(self, model, dataset=None, name="ObjectDetection",
-                 val_batch_size=1, test_batch_size=1, main_log_dir="./logs/",
+                 batch_size=6, val_batch_size=1, test_batch_size=1,
+                 max_epoch=200, save_ckpt_freq=5, main_log_dir="./logs/",
                  device="cuda", num_workers=2, **kwargs):
         super().__init__(model=model, dataset=dataset, name=name,
+                         batch_size=batch_size, max_epoch=max_epoch,
+                         save_ckpt_freq=save_ckpt_freq,
                          val_batch_size=val_batch_size,
                          test_batch_size=test_batch_size,
                          main_log_dir=main_log_dir, device=device,
@@ -56,6 +73,7 @@ class ObjectDetection(BasePipeline):
         gen = torch.Generator().manual_seed(int(self.rng.integers(top)))
         self.net = init_weights(model.get_net(), gen).to(self.device).eval()
         self.eval_net = model.get_eval_net().to(self.device).eval()
+        self.optimizer = None
 
     def _device_batch(self, batch):
         """The batch's arrays as tensors on the pipeline's device."""
@@ -63,14 +81,18 @@ class ObjectDetection(BasePipeline):
                 for k, v in batch["data"].items()
                 if isinstance(v, np.ndarray)}
 
-    def _loader(self, split, batch_size):
+    def _loader(self, split, batch_size, steps_per_epoch=None,
+                drop_last=False, num_workers=None):
         model, dataset = self.model, self.dataset
         dataloader = PointCloudDataloader(
             dataset.get_split(split), preprocess=model.preprocess,
             transform=model.transform,
-            use_cache=dataset.cfg.get("use_cache", False))
+            use_cache=dataset.cfg.get("use_cache", False),
+            steps_per_epoch=steps_per_epoch)
         return BatchLoader(dataloader, batch_size, DefaultBatcher(),
-                           num_workers=self.cfg.get("num_workers", 2))
+                           num_workers=self.cfg.get("num_workers", 2)
+                           if num_workers is None else num_workers,
+                           drop_last=drop_last)
 
     def _detect(self, batch):
         """The eval net and the decode on one collated batch: one list of
@@ -79,9 +101,60 @@ class ObjectDetection(BasePipeline):
             results = self.eval_net(self._device_batch(batch))
         return self.model.inference_end(results, batch["data"])
 
+    def _train_step(self, inputs):
+        """One AdamW step of the net in train mode on a device batch;
+        returns the loss dict, detached, on the device."""
+        net = self.net
+        net.train()
+        losses = self.model.get_loss(net(inputs), inputs)
+        self.optimizer.zero_grad(set_to_none=True)
+        sum(losses.values()).backward()
+        self.optimizer.step()
+        return {k: v.detach() for k, v in losses.items()}
+
     def run_train(self):
-        raise NotImplementedError("ObjectDetection.run_train: object "
-                                  "detection training is not ported yet")
+        """Train from the newest checkpoint (or from the start) up to
+        ``max_epoch``, epochs 0 to ``max_epoch`` both included."""
+        cfg = self.cfg
+        make_dir(cfg.logs_dir)
+        stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        handler = logging.FileHandler(join(cfg.logs_dir,
+                                           f"log_train_{stamp}.txt"))
+        log.addHandler(handler)
+        try:
+            self._train_epochs()
+        finally:
+            log.removeHandler(handler)
+            handler.close()
+
+    def _train_epochs(self):
+        model, cfg = self.model, self.cfg
+        steps = self.dataset.cfg.get("steps_per_epoch_train")
+        # the JAX pipeline draws one batch in this thread to build its
+        # state before the epochs, which moves the augmentation's
+        # generator; so does this
+        next(iter(self._loader("training", cfg.batch_size, steps,
+                               num_workers=0)))
+        self.optimizer, _ = model.get_optimizer(cfg, self.net)
+        first_epoch = self.load_ckpt(model.cfg.get("ckpt_path"),
+                                     is_resume=model.cfg.get("is_resume",
+                                                             True))
+        log.info("Started training")
+        for epoch in range(first_epoch, cfg.max_epoch + 1):
+            log.info(f"=== EPOCH {epoch:d}/{cfg.max_epoch:d} ===")
+            self.losses = {}
+            for batch in self._loader("training", cfg.batch_size, steps,
+                                      drop_last=True):
+                losses = self._train_step(self._device_batch(batch))
+                values = torch.stack(list(losses.values())).tolist()
+                for key, value in zip(losses, values):
+                    self.losses.setdefault(key, []).append(value)
+            for key, values in self.losses.items():
+                log.info(f"{key}: {np.mean(values):.4f}")
+            if epoch % cfg.get("validation_freq", 1) == 0:
+                self.run_valid(epoch)
+            if epoch % cfg.save_ckpt_freq == 0 or epoch == cfg.max_epoch:
+                self.save_ckpt(epoch)
 
     def run_valid(self, epoch=0):
         """The mAP (BEV and 3D) of the validation split at the config's
@@ -147,17 +220,23 @@ class ObjectDetection(BasePipeline):
         return Path(self.cfg.logs_dir) / "checkpoint"
 
     def save_ckpt(self, epoch):
-        """Write the net's weights as those of ``epoch``."""
+        """Write the net's weights and BatchNorm statistics, and the
+        optimizer's state where there is one, as those of ``epoch``."""
         path = self._ckpt_dir() / f"ckpt_{epoch:05d}.pth"
         make_dir(path.parent)
-        torch.save({"model": self.net.state_dict(), "epoch": epoch}, path)
+        optimizer = (None if self.optimizer is None else
+                     self.optimizer.state_dict())
+        torch.save({"model": self.net.state_dict(), "optimizer": optimizer,
+                    "epoch": epoch}, path)
         log.info(f"Epoch {epoch:3d}: save ckpt to {path}")
         return path
 
     def load_ckpt(self, ckpt_path=None, is_resume=True):
         """Load ``ckpt_path``, or with ``is_resume`` the newest checkpoint
-        of ``logs_dir``, into the net. Returns the epoch after the
-        checkpoint's: 0 when there is none."""
+        of ``logs_dir``, into the net, its BatchNorm statistics included;
+        the optimizer's state stays as it is, as the JAX pipeline leaves
+        it. Returns the epoch after the checkpoint's: 0 when there is
+        none."""
         if ckpt_path is None and is_resume:
             found = sorted(self._ckpt_dir().glob("ckpt_*.pth"))
             if found:

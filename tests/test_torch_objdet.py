@@ -300,14 +300,26 @@ def test_run_test_and_checkpoint(pipelines, tmp_path):
         assert_boxes_equal(g, w)
 
 
-def test_pipeline_registry_and_training_not_ported():
+def test_pipeline_registry_and_training_not_ported(tmp_path):
+    """The registries and the device; ``run_train``, which raised before
+    training was ported, runs one step (one epoch of one batch on
+    ``SyntheticBoxes``, no augment section) and saves its checkpoint."""
     assert PIPELINE.get("ObjectDetection") is ObjectDetection
     assert MODEL.get("PointPillars") is PointPillars
-    pipe = ObjectDetection(PointPillars(**MODEL_CFG), device="cpu")
+    ds = SyntheticBoxes(dataset_path=str(tmp_path), seed=0,
+                        num_clouds={"training": 1, "validation": 1,
+                                    "test": 1})
+    pipe = ObjectDetection(PointPillars(**MODEL_CFG), dataset=ds,
+                           device="cpu", batch_size=1, max_epoch=0,
+                           main_log_dir=str(tmp_path / "logs"),
+                           **dict(PIPE, difficulties=[0]))
     assert pipe.net.training is False
     assert next(pipe.eval_net.parameters()).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="training"):
-        pipe.run_train()
+    pipe.run_train()
+    assert [len(v) for v in pipe.losses.values()] == [1, 1, 1]
+    assert next(pipe.net.parameters()).device.type == "cpu"
+    assert (Path(pipe.cfg.logs_dir) / "checkpoint" /
+            "ckpt_00000.pth").exists()
 
 
 # --------------------------------------------------------------- chip_smoke
@@ -334,8 +346,8 @@ def test_chip_smoke_flop_count():
 
 
 def test_port_imports_no_jax():
-    """The detection modules of the port import neither JAX nor the JAX
-    package, nor PyYAML."""
+    """The detection modules of the port, training's included, import
+    neither JAX nor the JAX package, nor PyYAML."""
     code = ("import sys\n"
             "import open3d_ml_tpu_torch\n"
             "import open3d_ml_tpu_torch.models.point_pillars\n"
@@ -347,6 +359,11 @@ def test_port_imports_no_jax():
             "import open3d_ml_tpu_torch.datasets.kitti\n"
             "import open3d_ml_tpu_torch.pipelines.object_detection\n"
             "import open3d_ml_tpu_torch.vis.boundingbox\n"
+            "import open3d_ml_tpu_torch.modules.losses\n"
+            "import open3d_ml_tpu_torch.models.common\n"
+            "import open3d_ml_tpu_torch.datasets.augment\n"
+            "import open3d_ml_tpu_torch.datasets.utils.operations\n"
+            "import open3d_ml_tpu_torch.utils.collect_bboxes\n"
             "import chip_smoke\n"
             "bad = [m for m in ('jax', 'flax', 'optax', 'yaml',\n"
             "                   'open3d_ml_tpu') if m in sys.modules]\n"

@@ -679,14 +679,32 @@ def test_convert_jax_round_trip(reference):
 
 
 def test_training_not_ported():
+    """The training methods, which raised before training was ported, run
+    on the small config: the train split's ``preprocess`` (no augment
+    section: the range filter only), ``assign_bboxes``, ``get_loss`` and
+    ``get_optimizer``. ``test_torch_pp_train.py`` holds them to the JAX
+    package."""
     model = PointPillars(**SMALL)
-    for call in (lambda: model.get_loss(None, None),
-                 lambda: model.get_optimizer(None),
-                 lambda: model.assign_bboxes(None, None, None),
-                 lambda: model.preprocess({"point": np.zeros((1, 4))},
-                                          {"split": "training"})):
-        with pytest.raises(NotImplementedError, match="training"):
-            call()
+    data = {"point": np.array([[1, 0, 0, 1], [20, 0, 0, 1]], np.float32),
+            "bounding_boxes": []}
+    out = model.preprocess(data, {"split": "training"})
+    np.testing.assert_array_equal(out["point"], data["point"][:1])
+    assert out["bbox_objs"] == []
+    boxes = torch.zeros((1, 2, 7))
+    boxes[0, 0] = torch.tensor([4.0, 0.0, -1.8, 1.7, 4.0, 1.5, 0.0])
+    inputs = {"bboxes": boxes, "labels": torch.tensor([[0, 2]]),
+              "bbox_count": torch.tensor([1])}
+    targets = model.assign_bboxes(inputs["bboxes"], inputs["labels"],
+                                  inputs["bbox_count"])
+    cells = 16 * 16 * 2 * 2
+    assert targets["target_deltas"].shape == (cells, 7)
+    assert targets["pos_mask"].sum() > 0
+    net = model.get_net()
+    outs = [torch.zeros((1, 16, 16, 4 * k)) for k in (2, 7, 2)]
+    losses = model.get_loss(outs, inputs)
+    assert all(torch.isfinite(v) for v in losses.values())
+    optimizer, _ = model.get_optimizer({}, net)
+    assert isinstance(optimizer, torch.optim.AdamW)
 
 
 # --------------------------------------------------------- the KITTI net
