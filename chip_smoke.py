@@ -37,7 +37,10 @@ generator:
   written by the port's ``utils/collect_bboxes.py``), ObjectRangeFilter
   and PointShuffle, through the serving net in train mode (canvas, bf16),
   the anchor assignment, the three losses and AdamW, with validation,
-  checkpoints and a resume.
+  checkpoints and a resume;
+* the command line (``open3d_ml_tpu_torch.run_pipeline.main``, in this
+  process) on the port's shipped YAMLs: RandLA-Net trained and tested on
+  a SemanticKITTI tree, SparseConvUnet trained on ScanNet rooms.
 
 The models are the port's ``RandLANet()`` and ``SparseConvUnet()`` at their
 defaults, which equal the model sections of
@@ -54,7 +57,8 @@ Run from the root of the repository, with one card:
 step against the CPU, on the patches of model seeds 0-3, with the CPU on
 its own branches and on the card's. ``python3 chip_smoke.py
 --pointpillars`` runs only the pointpillars phase, ``--pp-train`` only
-the pp_train phase (neither builds a kernel).
+the pp_train phase (neither builds a kernel), ``--cli`` the build and
+the cli phase.
 ``python3 chip_smoke.py --stencil-calls`` times only the room request's
 39 stencil convolutions,
 alone and inside a forward; ``python3 chip_smoke.py --knn-calls`` only
@@ -187,6 +191,20 @@ Phases, one line each (or more), in this order:
    profiled step (``--pp-train-profile``, in a child process): kernels,
    busy share, the convolutions' share and the top 10 kernels. No kernel
    of the port is launched.
+13. cli: ``run_pipeline.main`` on ``CLI_CONFIGS``, with the launch counts
+   reset before and read after each run. RandLA-Net: a SemanticKITTI tree
+   (``write_semantickitti``: 4, 2 and 2 lidar scans of 120,000 points in
+   sequences 00, 08 and 11, raw-id ``.label`` files with instance bits for
+   the first two), ``--split train --pipeline.max_epoch 0`` for 4 train
+   steps of 4 x 45,056 and 2 validation steps (each step's launches, the
+   run's totals, finite losses, the checkpoint), then ``--split test
+   --ckpt_path`` on it (4 ``knn_exact`` launches an exact forward, and
+   nothing else; two ``.label`` files of one raw uint32 id a point, every
+   id in ``LEARNING_MAP_INV``'s image). SparseConvUnet: 8 + 2 ScanNet
+   rooms (``write_scannet_rooms``), ``--split train`` for 2 train steps of
+   8 and 1 validation step (each step's launches, the totals, the
+   checkpoint). Each run's wall time, the train steps/s, the test's
+   scans/s and the host preprocess share.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is not 0. The
@@ -217,11 +235,13 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
-from open3d_ml_tpu_torch import DATASET, MODEL
+from open3d_ml_tpu_torch import DATASET, MODEL, run_pipeline
 from open3d_ml_tpu_torch.dataloaders import (BatchLoader, DefaultBatcher,
                                              PointCloudDataloader)
 from open3d_ml_tpu_torch.datasets import (KITTI, SyntheticBoxes,
                                           SyntheticShapes, make_objdet_scene)
+from open3d_ml_tpu_torch.datasets._resources.semantickitti import (
+    LEARNING_MAP, LEARNING_MAP_INV)
 from open3d_ml_tpu_torch.datasets.synthetic import make_semseg_scene
 from open3d_ml_tpu_torch.datasets.utils import BEVBox3D
 from open3d_ml_tpu_torch.models import point_pillars as tpp
@@ -391,6 +411,19 @@ KITTI_P = ("7.215377e+02 0.000000e+00 6.095593e+02 0.000000e+00 "
            "0.000000e+00 7.215377e+02 1.728540e+02 0.000000e+00 "
            "0.000000e+00 0.000000e+00 1.000000e+00 0.000000e+00")
 KITTI_TR = "0 -1 0 0 0 0 -1 0 1 0 0 0"
+# the cli phase: the port's shipped configs through run_pipeline.main,
+# the steps of its one epoch (train, validation) for each model, and the
+# SemanticKITTI tree's scans a sequence (08 validates, 11 and up test)
+CLI_CONFIGS = {
+    "randlanet": "open3d_ml_tpu_torch/configs/randlanet_semantickitti.yml",
+    "scu": "open3d_ml_tpu_torch/configs/sparseconvunet_scannet.yml"}
+CLI_STEPS = {"randlanet": (4, 2), "scu": (2, 1)}
+SEMANTICKITTI_SCANS = {"00": 4, "08": 2, "11": 2}
+SEMANTICKITTI_FIRST_TEST = "11"
+# SemanticKITTI's reader gives each point's remission as a feature, so
+# RandLA-Net takes 3 + 1 input channels (the shipped YAML says 3: with
+# it, transform refuses the reader's clouds in both packages)
+CLI_RANDLANET_EXTRAS = ["--model.in_channels", "4"]
 KITTI_CALIB = (f"P0: {KITTI_P}", f"P1: {KITTI_P}", f"P2: {KITTI_P}",
                f"P3: {KITTI_P}", "R0_rect: 1 0 0 0 1 0 0 0 1",
                f"Tr_velo_to_cam: {KITTI_TR}", f"Tr_imu_to_velo: {KITTI_TR}")
@@ -1213,10 +1246,14 @@ def _train_dataset(root):
 
 
 def _check_steps(record, first, last, train=TRAIN_STEP_LAUNCHES,
-                 valid=EXPECTED_LAUNCHES):
+                 valid=EXPECTED_LAUNCHES, kinds=None):
     """Launch counts (``train`` per train step, ``valid`` per validation
-    step) and finite losses of every step in record[first:last]; returns
-    the train steps' times (s)."""
+    step) and finite losses of every step in record[first:last], and with
+    ``kinds`` the steps' kinds in that order; returns the train steps'
+    times (s)."""
+    ran = [r[0] for r in record[first:last]]
+    if kinds is not None and ran != kinds:
+        raise AssertionError(f"train: ran steps {ran}, expected {kinds}")
     train_s = []
     for kind, t0, t1, launches, loss in record[first:last]:
         expected = every_count(train if kind == "train" else valid)
@@ -3759,6 +3796,255 @@ def phase_pp_train(card):
     say("pp_train", f"phase {time.perf_counter() - t0:.1f} s")
 
 
+def write_semantickitti(root, n, scans=SEMANTICKITTI_SCANS, seed=SEED):
+    """A SemanticKITTI tree under ``root``: a ``velodyne`` directory for
+    every sequence the shipped config's splits name, and in the sequences
+    of ``scans`` that many scans of ``n`` points (``lidar_scan`` and a
+    remission uniform in 0-1, float32 ``.bin``), each from its own seed.
+    Sequences below ``SEMANTICKITTI_FIRST_TEST`` get ``.label`` files:
+    raw ids drawn from ``LEARNING_MAP``'s keys, an instance id in the
+    upper 16 bits. Returns {sequence: [scan paths]}."""
+    root = Path(root)
+    raw_ids = np.array(sorted(LEARNING_MAP), np.uint32)
+    paths = {}
+    for seq in range(22):
+        seq = f"{seq:02d}"
+        folder = root / "dataset" / "sequences" / seq
+        (folder / "velodyne").mkdir(parents=True)
+        paths[seq] = []
+        for frame in range(scans.get(seq, 0)):
+            seed += 1
+            rng = np.random.default_rng(seed)
+            scan = np.concatenate([lidar_scan(n, seed),
+                                   rng.uniform(0, 1, (n, 1))], 1)
+            path = folder / "velodyne" / f"{frame:06d}.bin"
+            scan.astype(np.float32).tofile(path)
+            paths[seq].append(path)
+            if seq < SEMANTICKITTI_FIRST_TEST:
+                (folder / "labels").mkdir(exist_ok=True)
+                raw = (raw_ids[rng.integers(0, len(raw_ids), n)] |
+                       (rng.integers(0, 1 << 16, n).astype(np.uint32) << 16))
+                raw.tofile(folder / "labels" / f"{frame:06d}.label")
+    return paths
+
+
+def write_scannet_rooms(root, n, counts=SCU_TRAIN_ROOMS, seed=SEED):
+    """ScanNet-format rooms under ``root``: for each split of ``counts``
+    that many scenes named from the port's copy of its official list, each
+    ``scu_scene(6 m, n)``'s points and RGB (``_vert.npy``), its labels as
+    nyu40 ids (``_sem_label.npy``, some outside the reader's 18 classes),
+    instance ids and two boxes."""
+    root = Path(root)
+    root.mkdir(parents=True)
+    lists = (REPO / "open3d_ml_tpu_torch" / "datasets" / "_resources" /
+             "scannet")
+    for split, count in counts.items():
+        names = (lists / f"scannetv2_{split}.txt").read_text().split()
+        for name in names[:count]:
+            seed += 1
+            data = scu_scene(SCU_ROOM_EXTENT_M, n, seed)
+            np.save(root / f"{name}_vert.npy",
+                    np.concatenate([data["point"], data["feat"]], 1))
+            np.save(root / f"{name}_sem_label.npy",
+                    (data["label"].astype(np.int64) * 7 + 3) % 41)
+            np.save(root / f"{name}_ins_label.npy",
+                    np.random.default_rng(seed).integers(0, 20, n))
+            boxes = np.zeros((2, 7))
+            boxes[:, 3:6] = 1.0
+            boxes[:, 6] = (3, 39)
+            np.save(root / f"{name}_bbox.npy", boxes)
+
+
+@contextlib.contextmanager
+def _cli_record(record, timed=()):
+    """Within: every ``SemanticSegmentation`` train and eval step appends
+    (kind, start, end, launch counts, loss) to ``record``, its end taken
+    after a synchronise, and each (class, method) of ``timed`` adds its
+    seconds and calls to ``record``'s last element, a Counter."""
+    spent = collections.Counter()
+    patches = []
+    for kind, name in (("train", "_train_step"), ("eval", "_eval_step")):
+        real = getattr(SemanticSegmentation, name)
+
+        def step(self, inputs, loss_fn, real=real, kind=kind):
+            before = read_counts()
+            t0 = time.perf_counter()
+            loss, cm = real(self, inputs, loss_fn)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            after = read_counts()
+            record.append((kind, t0, t1,
+                           {k: after[k] - before[k] for k in after},
+                           float(loss)))
+            return loss, cm
+
+        patches.append(mock.patch.object(SemanticSegmentation, name, step))
+    for cls, name in timed:
+        real = getattr(cls, name)
+
+        def method(self, *args, real=real, key=f"{cls.__name__}.{name}",
+                   **kwargs):
+            t0 = time.perf_counter()
+            out = real(self, *args, **kwargs)
+            spent[key] += time.perf_counter() - t0
+            spent[key + " calls"] += 1
+            return out
+
+        patches.append(mock.patch.object(cls, name, method))
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        yield spent
+
+
+def _cli_run(argv, timed=()):
+    """``run_pipeline.main(argv)`` with the launch counts reset just
+    before and read just after: (wall s, launch counts, the steps' record,
+    the seconds of ``timed``)."""
+    record = []
+    with _cli_record(record, timed) as spent:
+        reset_counts()
+        t0 = time.perf_counter()
+        run_pipeline.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    return wall, launches, record, spent
+
+
+def phase_cli(card):
+    """The port's command line, in this process, on the shipped configs:
+    RandLA-Net trains one short epoch on a SemanticKITTI tree and tests
+    its checkpoint, writing SemanticKITTI ``.label`` predictions, and
+    SparseConvUnet trains one short epoch on ScanNet rooms."""
+    t_phase = time.perf_counter()
+    steps, valid_steps = CLI_STEPS["randlanet"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        scans = write_semantickitti(root / "kitti", SCAN_POINTS)
+        written_s = time.perf_counter() - t0
+        model_cfg = MODEL.get("RandLANet")().cfg
+        common = ["-c", REPO / CLI_CONFIGS["randlanet"], "--device", DEVICE,
+                  "--dataset.dataset_path", root / "kitti",
+                  "--dataset.cache_dir", root / "cache",
+                  "--dataset.test_result_folder", root / "test",
+                  "--main_log_dir", root / "logs"] + CLI_RANDLANET_EXTRAS
+        pre = ((trl.RandLANet, "preprocess"),)
+        wall, launches, record, spent = _cli_run(common + [
+            "--split", "train", "--pipeline.max_epoch", 0,
+            "--dataset.steps_per_epoch_train", steps * 4,
+            "--dataset.steps_per_epoch_valid", valid_steps * 2], pre)
+        train_s = _check_steps(
+            record, 0, len(record), TRAIN_STEP_LAUNCHES, EXPECTED_LAUNCHES,
+            ["train"] * steps + ["eval"] * valid_steps)
+        check_counts("cli", launches, {
+            "bucket_knn": 5 * (steps + valid_steps),
+            "bucket_gather": 16 * (steps + valid_steps),
+            "bucket_gather_bwd": 16 * steps})
+        ckpt = (root / "logs" / "RandLANet_SemanticKITTI_torch" /
+                "checkpoint" / "ckpt_00000.pth")
+        if not ckpt.exists():
+            raise AssertionError(f"cli: no checkpoint at {ckpt}")
+        train_loop = record[steps - 1][2] - record[0][1]
+        pre_s = spent["RandLANet.preprocess"]
+        say("cli", f"SemanticKITTI tree: {len(scans['00'])} + "
+            f"{len(scans['08'])} + {len(scans['11'])} scans of {SCAN_POINTS} "
+            f"points in sequences 00, 08 and 11 (written in {written_s:.2f} "
+            f"s); run_pipeline -c {CLI_CONFIGS['randlanet']} "
+            f"{' '.join(map(str, CLI_RANDLANET_EXTRAS))} --split train "
+            f"--pipeline.max_epoch 0: {steps} train steps of 4 x "
+            f"{model_cfg.num_points} (fused S{model_cfg.num_segs}/"
+            f"G{model_cfg.gather_segs}) and {valid_steps} validation steps "
+            f"of 2 (S{model_cfg.infer_num_segs}/"
+            f"G{model_cfg.infer_gather_segs}), losses "
+            f"{[round(r[4], 4) for r in record]}, finite; {ckpt.name} "
+            "written")
+        steady = statistics.median(train_s[1:])
+        say("cli", f"RandLA train run: wall {wall:.3f} s; {steps} steps in "
+            f"{train_loop:.3f} s, {steps / train_loop:.2f} steps/s with the "
+            f"first ({train_s[0] * 1e3:.2f} ms), {1 / steady:.2f} steps/s "
+            f"at the median of steps 2..{steps} ({steady * 1e3:.2f} ms); "
+            f"host preprocess "
+            f"{pre_s:.3f} s over {spent['RandLANet.preprocess calls']} "
+            f"scans, {pre_s / wall:.1%} of the run on {card}")
+
+        forwards = collections.Counter()
+        real_forward = trl.RandLANetNet.forward
+
+        def counted(self, *args, **kwargs):
+            forwards[self.knn_method] += 1
+            return real_forward(self, *args, **kwargs)
+
+        with mock.patch.object(trl.RandLANetNet, "forward", counted):
+            wall, launches, _, spent = _cli_run(common + [
+                "--split", "test", "--ckpt_path", ckpt], pre)
+        check_counts("cli", launches, {
+            "knn_exact": model_cfg.num_layers * forwards["exact"]})
+        predictions = sorted((root / "test" / "sequences" / "11" /
+                              "predictions").glob("*.label"))
+        raw = set(LEARNING_MAP_INV.values())
+        if len(predictions) != len(scans["11"]):
+            raise AssertionError(f"cli: test wrote {predictions}")
+        for path in predictions:
+            pred = np.fromfile(path, dtype=np.uint32)
+            if pred.shape != (SCAN_POINTS,) or not set(
+                    np.unique(pred).tolist()) <= raw:
+                raise AssertionError(f"cli: {path.name} holds {pred.shape} "
+                                     f"ids {np.unique(pred)}")
+        pre_s = spent["RandLANet.preprocess"]
+        say("cli", f"RandLA test run (--split test --ckpt_path "
+            f"{ckpt.name}): wall {wall:.3f} s, "
+            f"{len(predictions) / wall:.3f} scans/s, {forwards['exact']} "
+            f"exact eval forwards; {len(predictions)} .label files of "
+            f"{SCAN_POINTS} uint32 raw ids in LEARNING_MAP_INV's image; host "
+            f"preprocess {pre_s:.3f} s over "
+            f"{spent['RandLANet.preprocess calls']} calls, {pre_s / wall:.1%} "
+            f"of the run on {card}")
+
+        steps, valid_steps = CLI_STEPS["scu"]
+        scu_cfg = MODEL.get("SparseConvUnet")().cfg
+        batch = SCU_TRAIN_PIPELINE["batch_size"]
+        t0 = time.perf_counter()
+        write_scannet_rooms(root / "scannet", scu_cfg.num_points)
+        written_s = time.perf_counter() - t0
+        wall, launches, record, spent = _cli_run([
+            "-c", REPO / CLI_CONFIGS["scu"], "--device", DEVICE,
+            "--dataset.dataset_path", root / "scannet",
+            "--dataset.cache_dir", root / "cache",
+            "--main_log_dir", root / "logs", "--split", "train",
+            "--pipeline.max_epoch", 0,
+            "--dataset.steps_per_epoch_train", steps * batch,
+            "--dataset.steps_per_epoch_valid", valid_steps * batch],
+            ((tscu.SparseConvUnet, "preprocess"),))
+        valid = {"stencil_conv": SCU_FORWARD_LAUNCHES}
+        train_s = _check_steps(
+            record, 0, len(record), SCU_TRAIN_STEP_LAUNCHES, valid,
+            ["train"] * steps + ["eval"] * valid_steps)
+        check_counts("cli", launches, {
+            key: n * steps + valid.get(key, 0) * valid_steps
+            for key, n in SCU_TRAIN_STEP_LAUNCHES.items()})
+        ckpt = (root / "logs" / "SparseConvUnet_Scannet_torch" /
+                "checkpoint" / "ckpt_00000.pth")
+        if not ckpt.exists():
+            raise AssertionError(f"cli: no checkpoint at {ckpt}")
+        pre_s = spent["SparseConvUnet.preprocess"]
+        train_loop = record[steps - 1][2] - record[0][1]
+        say("cli", f"ScanNet rooms: {SCU_TRAIN_ROOMS['train']} + "
+            f"{SCU_TRAIN_ROOMS['val']} of {scu_cfg.num_points} points "
+            f"(written in {written_s:.2f} s); run_pipeline -c "
+            f"{CLI_CONFIGS['scu']} --split train --pipeline.max_epoch 0: "
+            f"wall {wall:.3f} s; {steps} train steps of {batch} in "
+            f"{train_loop:.3f} s, {steps / train_loop:.2f} steps/s (first "
+            f"{train_s[0] * 1e3:.2f} ms, last {train_s[-1] * 1e3:.2f}) and "
+            f"{valid_steps} "
+            f"validation step(s), losses {[round(r[4], 4) for r in record]}, "
+            f"finite; {ckpt.name} written; host preprocess {pre_s:.3f} s over "
+            f"{spent['SparseConvUnet.preprocess calls']} rooms, "
+            f"{pre_s / wall:.1%} of the run on {card}")
+    say("cli", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def step_branches():
     """The float32 card-vs-CPU step on the patches of model seeds 0-3, with
     the CPU on its own branches and then on the card's."""
@@ -3847,6 +4133,10 @@ def main():
         return phase_pp_train(phase_device())
     if sys.argv[1:] == ["--pp-train-profile"]:
         return pp_train_profile()
+    if sys.argv[1:] == ["--cli"]:
+        card = phase_device()
+        phase_build()
+        return phase_cli(card)
     card = phase_device()
     model = MODEL.get("RandLANet")()
     phase_build()
@@ -3870,6 +4160,7 @@ def main():
     launches["stencil_match"] = phase_scu_train(card)["stencil_match"]
     phase_pointpillars(card)
     phase_pp_train(card)
+    phase_cli(card)
     sources = {"bucket_knn": ("open3d_ml_tpu_torch/csrc/bucket_knn.cu",
                               f"{TPU_KERNELS}:261"),
                "bucket_gather": ("open3d_ml_tpu_torch/csrc/bucket_gather.cu",

@@ -15,9 +15,13 @@ pillars, float32) with ``ObjectDetection``'s ``run_valid`` (mAP),
 ``run_test`` and ``run_inference`` on ``KITTI`` and ``SyntheticBoxes``.
 Each kernel is CUDA C++ for Hopper with a plain PyTorch version for CPU
 tensors; PointPillars' path reaches no kernel of the JAX package, and its
-convolutions are PyTorch's. The port imports PyTorch, numpy and scipy, and
-never JAX, nor anything of ``open3d_ml_tpu``: its registries and
-configuration are its own (``utils``).
+convolutions are PyTorch's. The command line ``python -m
+open3d_ml_tpu_torch.run_pipeline`` trains, validates and tests from a
+config file (the port's copies of the shipped YAMLs are in ``configs/``)
+on the readers those configs name. The port imports PyTorch, numpy and
+scipy (PyYAML only to read a config file), and never JAX, nor anything of
+``open3d_ml_tpu``: its registries and configuration are its own
+(``utils``).
 """
 
 from . import dataloaders, datasets, metrics, models, pipelines, utils

@@ -14,7 +14,7 @@ from abc import ABC, abstractmethod
 
 import numpy as np
 
-from ..utils.config import Config
+from ..utils.config import ModuleConfig
 from ..utils.registry import SAMPLER
 
 
@@ -26,7 +26,7 @@ class BaseDataset(ABC):
             raise KeyError("Provide dataset_path to initialize the dataset")
         if kwargs.get("name") is None:
             raise KeyError("Provide dataset name to initialize it")
-        self.cfg = Config(kwargs)
+        self.cfg = ModuleConfig(kwargs)
         self.name = self.cfg.name
         self.rng = np.random.default_rng(kwargs.get("seed", None))
 

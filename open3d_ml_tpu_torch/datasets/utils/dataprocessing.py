@@ -1,12 +1,15 @@
-"""Host-side data processing: grid subsampling, class weights and the
-camera projections of KITTI frames.
+"""Host-side data processing: the file readers of SemanticKITTI and
+Semantic3D, grid subsampling, class weights and the camera projections of
+KITTI frames.
 
 Counterpart of ``open3d_ml_tpu/datasets/utils/dataprocessing.py``
 ``DataProcessing.grid_subsampling``, whose body is the numpy sort-reduce of
 ``open3d_ml_tpu/ops/subsample.py`` (the same numpy operations in the same
-order give the same bits), ``get_class_weights``, and ``world2cam``,
-``cam2img`` and ``remove_outside_points``. The matrices are [4, 4] in the
-row-vector convention (points [N, 4] @ matrix).
+order give the same bits), ``get_class_weights``, ``load_pc_kitti``,
+``load_label_kitti``, ``load_pc_semantic3d``, ``load_label_semantic3d``,
+and ``world2cam``, ``cam2img`` and ``remove_outside_points``. The
+matrices are [4, 4] in the row-vector convention (points [N, 4] @
+matrix).
 """
 
 import numpy as np
@@ -63,6 +66,32 @@ class DataProcessing:
         if len(out) == 1:
             return out[0]
         return tuple(out)
+
+    @staticmethod
+    def load_pc_kitti(pc_path):
+        """A velodyne ``.bin`` scan: [N, 4] float32 (x, y, z, remission)."""
+        scan = np.fromfile(pc_path, dtype=np.float32)
+        return scan.reshape((-1, 4))
+
+    @staticmethod
+    def load_label_kitti(label_path, remap_lut):
+        """A ``.label`` file's training classes [N] int32: the lower 16
+        bits of each uint32 (the upper 16 hold the instance) through
+        ``remap_lut``."""
+        label = np.fromfile(label_path, dtype=np.uint32).reshape(-1)
+        sem_label = label & 0xFFFF
+        return remap_lut[sem_label].astype(np.int32)
+
+    @staticmethod
+    def load_pc_semantic3d(filename):
+        """A Semantic3D ``.txt`` cloud: [N, 7] float32 rows (x, y, z,
+        intensity, r, g, b)."""
+        return np.loadtxt(filename, dtype=np.float32)
+
+    @staticmethod
+    def load_label_semantic3d(filename):
+        """A Semantic3D ``.labels`` file: [N] int32."""
+        return np.loadtxt(filename, dtype=np.int32).reshape(-1)
 
     @staticmethod
     def get_class_weights(num_per_class):

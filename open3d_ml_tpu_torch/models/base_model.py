@@ -12,14 +12,19 @@ from abc import ABC, abstractmethod
 
 import numpy as np
 
-from ..utils.config import Config
+from ..utils.config import ModuleConfig
 
 
 class BaseModel(ABC):
     """Base for semantic segmentation models."""
 
+    # whether ``transform`` draws its patches with ``trans_point_sampler``,
+    # which advances the possibility map that the pipeline's test and
+    # inference loop runs until every point is covered
+    draws_patches = True
+
     def __init__(self, **kwargs):
-        self.cfg = Config(kwargs)
+        self.cfg = ModuleConfig(kwargs)
         self.name = self.cfg.name
         self.rng = np.random.default_rng(self.cfg.get("seed", None))
         # set by the pipeline: callable giving (pc, idxs, center) patches

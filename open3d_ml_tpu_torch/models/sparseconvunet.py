@@ -481,6 +481,10 @@ class SparseConvUnet(BaseModel):
     ``open3d_ml_tpu/configs/sparseconvunet_scannet.yml``.
     """
 
+    # ``transform`` crops the room itself: the possibility-map loop of the
+    # pipeline's test and inference would never end (not ported)
+    draws_patches = False
+
     def __init__(self,
                  name="SparseConvUnet",
                  ckpt_path=None,

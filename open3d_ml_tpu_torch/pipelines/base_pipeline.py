@@ -13,7 +13,7 @@ from os.path import join
 import numpy as np
 import torch
 
-from ..utils.config import Config
+from ..utils.config import ModuleConfig
 
 
 class BasePipeline(ABC):
@@ -22,7 +22,7 @@ class BasePipeline(ABC):
     def __init__(self, model, dataset=None, device="cuda", **kwargs):
         if kwargs.get("name") is None:
             raise KeyError("Provide pipeline name to initialize it")
-        self.cfg = Config(kwargs)
+        self.cfg = ModuleConfig(kwargs)
         self.name = self.cfg.name
         self.model = model
         self.dataset = dataset

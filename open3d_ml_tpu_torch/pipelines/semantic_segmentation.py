@@ -295,8 +295,15 @@ class SemanticSegmentation(BasePipeline):
     def run_test_on_split(self, test_split, test_sampler, save_results=False):
         """Possibility-map patch loop over every cloud of ``test_split``
         through the eval net; returns {cloud id: result}, also kept as
-        ``test_results``."""
+        ``test_results``. Raises ``NotImplementedError`` for a model whose
+        ``transform`` does not draw its patches with the sampler (the loop
+        would never end)."""
         model = self.model
+        if not model.draws_patches:
+            raise NotImplementedError(
+                f"{type(model).__name__}: test and inference through the "
+                "possibility-map loop are not ported (ROADMAP queue 1 item "
+                "2, 'SCU through run_inference/run_test'); run_train runs")
         self.eval_net.load_state_dict(self.net.state_dict())
         batcher = DefaultBatcher()
         test_sampler.initialize_with_dataloader(test_split)

@@ -38,4 +38,19 @@ PIPELINE = Registry("pipeline")
 SAMPLER = Registry("sampler")
 DATASET = Registry("dataset")
 
-__all__ = ["DATASET", "MODEL", "PIPELINE", "SAMPLER", "Registry"]
+
+def get_from_name(module_name, registry):
+    """The class registered as ``module_name`` in ``registry``; raises
+    with the registry's keys when there is none."""
+    if module_name is None:
+        raise ValueError(f"Missing module name for registry {registry.name}")
+    cls = registry.get(module_name)
+    if cls is None:
+        raise KeyError(f"{module_name!r} is not registered in "
+                       f"{registry.name} registry. Available: "
+                       f"{registry.keys()}")
+    return cls
+
+
+__all__ = ["DATASET", "MODEL", "PIPELINE", "SAMPLER", "Registry",
+           "get_from_name"]

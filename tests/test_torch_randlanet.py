@@ -217,6 +217,16 @@ def test_port_imports_no_jax():
             "import open3d_ml_tpu_torch.dataloaders.batch_loader\n"
             "import open3d_ml_tpu_torch.ops.cuda._build\n"
             "import open3d_ml_tpu_torch.utils.convert_jax\n"
+            "import open3d_ml_tpu_torch.utils.builder\n"
+            "import open3d_ml_tpu_torch.utils.config\n"
+            "import open3d_ml_tpu_torch.run_pipeline\n"
+            "import open3d_ml_tpu_torch.datasets.semantickitti\n"
+            "import open3d_ml_tpu_torch.datasets.scannet\n"
+            "import open3d_ml_tpu_torch.datasets.s3dis\n"
+            "import open3d_ml_tpu_torch.datasets.semantic3d\n"
+            "import open3d_ml_tpu_torch.datasets.toronto3d\n"
+            "import open3d_ml_tpu_torch.datasets.parislille3d\n"
+            "import open3d_ml_tpu_torch.datasets.utils.ply\n"
             "import chip_smoke\n"
             "bad = [m for m in ('jax', 'flax', 'optax', 'yaml',\n"
             "                   'open3d_ml_tpu') if m in sys.modules]\n"
