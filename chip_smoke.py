@@ -1,9 +1,9 @@
 """Drive the PyTorch port's paths once on one CUDA card and check them.
 
 Four paths of RandLA-Net at the shipped SemanticKITTI config, two of
-SparseConvUnet at the shipped ScanNet config and two of PointPillars at
-the shipped KITTI config, with random weights drawn from a seeded
-generator:
+SparseConvUnet at the shipped ScanNet config, two of PointPillars at the
+shipped KITTI config and two of PointTransformer at the shipped S3DIS
+config, with random weights drawn from a seeded generator:
 
 * the fused path: a batch of 4 patches of 45,056 points through the fused
   bucket pyramid and the network (``get_net``);
@@ -40,7 +40,11 @@ generator:
   checkpoints and a resume;
 * the command line (``open3d_ml_tpu_torch.run_pipeline.main``, in this
   process) on the port's shipped YAMLs: RandLA-Net trained and tested on
-  a SemanticKITTI tree, SparseConvUnet trained on ScanNet rooms.
+  a SemanticKITTI tree, SparseConvUnet trained on ScanNet rooms;
+* PointTransformer: the eval forward at the bench's 2 x 16,384 points
+  (``bench.py:530-564``), and ``run_train`` from the port's
+  ``pointtransformer_s3dis.yml`` through the command line on S3DIS rooms
+  (3 x 16,384 a step, SGD, the YAML's augmentations), with validation.
 
 The models are the port's ``RandLANet()`` and ``SparseConvUnet()`` at their
 defaults, which equal the model sections of
@@ -58,7 +62,8 @@ step against the CPU, on the patches of model seeds 0-3, with the CPU on
 its own branches and on the card's. ``python3 chip_smoke.py
 --pointpillars`` runs only the pointpillars phase, ``--pp-train`` only
 the pp_train phase (neither builds a kernel), ``--cli`` the build and
-the cli phase.
+the cli phase, ``--pointtransformer`` the build and the pointtransformer
+phase.
 ``python3 chip_smoke.py --stencil-calls`` times only the room request's
 39 stencil convolutions,
 alone and inside a forward; ``python3 chip_smoke.py --knn-calls`` only
@@ -205,6 +210,25 @@ Phases, one line each (or more), in this order:
    8 and 1 validation step (each step's launches, the totals, the
    checkpoint). Each run's wall time, the train steps/s, the test's
    scans/s and the host preprocess share.
+14. pointtransformer: ``knn_exact`` at each of the 13 search shapes of a
+   forward at B = 2 (each level's self-searches at k = 8 or 16, each
+   stride's grouping, each 3-NN at k = 3) on uniform, padded (a quarter
+   repeated) and lattice points and with a mask, d2 bit-equal and the
+   indices row for row, with its time, bound, the plain version's span
+   and ``torch.cdist`` + ``topk``'s; ``fps`` at the four levels (and at
+   24,576 points, beyond what a block stages), indices equal, with its
+   time a step and the serial floor of the forward's 5,436 steps; the
+   eval forward at 2 x 16,384 (26 ``knn_exact`` and 4 ``fps``
+   launches, the same net on the plain versions on the card within
+   ``PT_PLAIN_TOL``, sample 0 against the CPU within 1e-4, the median
+   of 10, peak memory, the kernels' share); ``run_pipeline.main`` with
+   ``pointtransformer_s3dis.yml`` on 3 + 1 S3DIS rooms written by
+   ``write_s3dis_rooms`` (3 train steps of 3 and a validation step of 3,
+   26/4 launches each, finite losses, every Linear weight moved, the
+   checkpoint, the step median, patches trained/s, peak memory), then
+   ``--split test``, which must raise ``NotImplementedError``; one
+   profiled eval forward and training step in a child process
+   (``--pt-profile``).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is not 0. The
@@ -222,6 +246,7 @@ import collections
 import contextlib
 import functools
 import json
+import pickle
 import re
 import statistics
 import subprocess
@@ -245,6 +270,7 @@ from open3d_ml_tpu_torch.datasets._resources.semantickitti import (
 from open3d_ml_tpu_torch.datasets.synthetic import make_semseg_scene
 from open3d_ml_tpu_torch.datasets.utils import BEVBox3D
 from open3d_ml_tpu_torch.models import point_pillars as tpp
+from open3d_ml_tpu_torch.models import point_transformer as tpt
 from open3d_ml_tpu_torch.models import randlanet as trl
 from open3d_ml_tpu_torch.models import sparseconvunet as tscu
 from open3d_ml_tpu_torch.modules.losses import SemSegLoss
@@ -255,6 +281,7 @@ from open3d_ml_tpu_torch.ops import sparse_bucket as tsb
 from open3d_ml_tpu_torch.ops.cuda import _build
 from open3d_ml_tpu_torch.ops.cuda import bucket as cb
 from open3d_ml_tpu_torch.ops.cuda import knn as ck
+from open3d_ml_tpu_torch.ops.cuda import sampling as cfps
 from open3d_ml_tpu_torch.ops.cuda import stencil as cs
 from open3d_ml_tpu_torch.ops.morton import hilbert_sort
 from open3d_ml_tpu_torch.ops.voxelize import voxelize
@@ -280,7 +307,7 @@ SEMANTICKITTI_CLASS_WEIGHTS = [
 TRAIN_PIPELINE = {"batch_size": 4, "val_batch_size": 2,
                   "optimizer": {"lr": 0.001}, "scheduler_gamma": 0.9886,
                   "save_ckpt_freq": 5, "num_workers": 2}
-COUNTERS = (cb.LAUNCHES, ck.LAUNCHES, cs.LAUNCHES)
+COUNTERS = (cb.LAUNCHES, ck.LAUNCHES, cs.LAUNCHES, cfps.LAUNCHES)
 # the H100 SXM's device memory rate and its dense peaks (NVIDIA's
 # datasheet): a kernel's bound is the larger of its bytes over the rate
 # and its operations over the peak for their type
@@ -424,6 +451,27 @@ SEMANTICKITTI_FIRST_TEST = "11"
 # RandLA-Net takes 3 + 1 input channels (the shipped YAML says 3: with
 # it, transform refuses the reader's clouds in both packages)
 CLI_RANDLANET_EXTRAS = ["--model.in_channels", "4"]
+# PointTransformer: the model section of the port's
+# pointtransformer_s3dis.yml that the eval forward builds (a CPU test pins
+# it), the bench's request (bench.py:530-564: 2 patches), the YAML's
+# batch sizes, the steps of the cli run's one epoch, and one forward's
+# launches (26 knn_exact: 2 at k = 8, 20 at 16, 4 at 3; 4 fps)
+PT_CONFIG = "open3d_ml_tpu_torch/configs/pointtransformer_s3dis.yml"
+POINTTRANSFORMER_S3DIS = {"blocks": [2, 3, 4, 6, 3], "in_channels": 6,
+                          "num_classes": 13, "voxel_size": 0.04,
+                          "max_voxels": 50000, "num_points": 16384}
+PT_EVAL_BATCH = 2
+PT_TRAIN_BATCH = (3, 3)
+PT_TRAIN_STEPS = (3, 1)
+PT_FORWARD_LAUNCHES = {"knn_exact": 26, "fps": 4}
+# kernels vs plain versions in one forward: the same neighbours and
+# samples, so only the launches' order of float work may differ
+PT_PLAIN_TOL = 1e-5
+PT_ROOMS = ("Area_1_office_1", "Area_1_office_2", "Area_2_office_1",
+            "Area_5_office_1")
+PT_ROOM_POINTS = 80_000
+# fps beyond what a block can stage in shared memory (12 N bytes)
+PT_FPS_UNSTAGED = (24_576, 2_048)
 KITTI_CALIB = (f"P0: {KITTI_P}", f"P1: {KITTI_P}", f"P2: {KITTI_P}",
                f"P3: {KITTI_P}", "R0_rect: 1 0 0 0 1 0 0 0 1",
                f"Tr_velo_to_cam: {KITTI_TR}", f"Tr_imu_to_velo: {KITTI_TR}")
@@ -612,6 +660,9 @@ def phase_build():
                       for name, regs, st, ld in kernels))
         if any(st or ld for _, _, st, ld in kernels):
             raise AssertionError("a KNN kernel spills registers")
+        say("build", "fps kernels, registers and spill store/load bytes: " +
+            ", ".join(f"{name} {regs} regs {st}/{ld} B" for name, regs, st, ld
+                      in ptxas_kernels(log.read_text(), ("fps.cu",))))
 
 
 def _sm_clock_hz():
@@ -1010,10 +1061,11 @@ def phase_knn_exact(model_cfg):
     on seeded uniform points d2 bit-equal and indices equal off d2 ties,
     on lattice points indices row for row; at level 2 with a mask that
     leaves one sample of a batch of 2 five valid points (the masked ones
-    follow them in index order). Returns its record at level 0 (error: max
-    |d2 difference| over the levels). The plain version's time is its call
-    span: it launches about 18 kernels per block of queries, more than the
-    host can queue ahead while the card sleeps. Bound: points and queries
+    follow them in index order). Returns its record for the four levels
+    (one eval forward's launches: the sums of the times and bounds). The
+    plain version's time is its call span: it launches about 18 kernels
+    per block of queries, more than the host can queue ahead while the
+    card sleeps. Bound: points and queries
     read, [1, N, k] outputs written, 8 float32 operations per candidate
     distance; beside it the issue floor of the kernel's 8 FP32-pipe
     instructions a distance, and the call span of the chunked
@@ -1083,7 +1135,7 @@ def phase_knn_exact(model_cfg):
         f"{sum(r['floor'] for r in out):.4f}; call span ms: plain "
         f"{sum(r['plain_ms'] for r in out):.4f}, torch.cdist + topk "
         f"{sum(r['cdist_ms'] for r in out):.4f}")
-    return dict(out[0], max_abs_err=max(r["max_abs_err"] for r in out))
+    return combine(out)
 
 
 def random_weights(net, seed):
@@ -4045,6 +4097,474 @@ def phase_cli(card):
     say("cli", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------- PointTransformer
+
+def write_s3dis_rooms(root, n, rooms=PT_ROOMS, seed=SEED):
+    """S3DIS rooms under ``root`` as ``original_pkl/<name>.pkl``: (an [n, 7]
+    array of x, y, z, r, g, b, label, no boxes), each an 8 x 6 x 3 m office
+    (floor, ceiling and four walls, a colour and an S3DIS class each, and
+    two tables of clutter) sampled with ``n`` points from its own seed: at
+    4 cm a room keeps ~55,000 of its ~110,000 surface voxels, over the
+    16,384 points of a patch."""
+    root = Path(root) / "original_pkl"
+    root.mkdir(parents=True)
+    # (class, colour, x0, x1, y0, y1, z0, z1) of each surface
+    surfaces = [(1, (120, 110, 100), 0, 8, 0, 6, 0, 0),
+                (0, (230, 230, 225), 0, 8, 0, 6, 3, 3),
+                (2, (200, 190, 170), 0, 0, 0, 6, 0, 3),
+                (2, (200, 190, 170), 8, 8, 0, 6, 0, 3),
+                (2, (190, 180, 160), 0, 8, 0, 0, 0, 3),
+                (2, (190, 180, 160), 0, 8, 6, 6, 0, 3),
+                (7, (140, 90, 50), 1, 3, 1, 2.5, 0.75, 0.75),
+                (12, (60, 60, 200), 5, 7, 3, 5, 0.9, 0.9)]
+    # each surface's area: the product of its two extents
+    area = np.array([np.prod(sorted((x1 - x0, y1 - y0, z1 - z0))[1:])
+                     for _, _, x0, x1, y0, y1, z0, z1 in surfaces])
+    for name in rooms:
+        seed += 1
+        rng = np.random.default_rng(seed)
+        which = rng.choice(len(surfaces), n, p=area / area.sum())
+        box = np.array([s[2:] for s in surfaces], np.float64)[which]
+        u = rng.uniform(0, 1, (n, 3))
+        xyz = box[:, 0::2] + u * (box[:, 1::2] - box[:, 0::2])
+        colour = np.array([s[1] for s in surfaces], np.float64)[which]
+        rgb = np.clip(colour + rng.normal(0, 12, (n, 3)), 0, 255).round()
+        label = np.array([s[0] for s in surfaces], np.float64)[which]
+        pc = np.concatenate([xyz, rgb, label[:, None]], 1).astype(np.float32)
+        with open(root / f"{name}.pkl", "wb") as f:
+            pickle.dump((pc, []), f)
+
+
+def pt_request(model, b=PT_EVAL_BATCH, seed=SEED):
+    """The bench's request (``bench.py:530-564``): b patches of
+    ``num_points`` points uniform in [0, 8)^3 and features uniform in
+    [0, 1), float32, on the CPU."""
+    rng = np.random.default_rng(seed)
+    n = model.cfg.num_points
+    return {"point": torch.from_numpy(
+                rng.uniform(0, 8, (b, n, 3)).astype(np.float32)),
+            "feat": torch.from_numpy(
+                rng.uniform(0, 1, (b, n, 3)).astype(np.float32))}
+
+
+def pt_searches(cfg, b=PT_EVAL_BATCH):
+    """(label, N, Q, k, calls per forward) of each ``knn_exact`` shape of a
+    PointTransformer forward at ``cfg``'s blocks and patch size: each
+    level's self-searches (one a Bottleneck), each stride's grouping (the
+    sampled points' neighbours in the level above) and each skip
+    TransitionUp's 3-NN (the level's points among the next level's)."""
+    n = [cfg.num_points]
+    for s in tpt.STRIDE[1:]:
+        n.append(n[-1] // s)
+    out = []
+    for i in range(5):
+        if i:
+            out.append((f"L{i} grouping", n[i - 1], n[i], tpt.NSAMPLE[i], 1))
+        out.append((f"L{i} attention", n[i], n[i], tpt.NSAMPLE[i],
+                    cfg.blocks[i]))
+    for i in range(4):
+        out.append((f"L{i} 3-NN", n[i + 1], n[i], 3, 1))
+    return out
+
+
+def _pt_points(b, n, seed, kind="uniform"):
+    """[b, n, 3] points on the card: uniform in [0, 8)^3; "padded", the
+    last quarter repeating earlier points (a short room padded as
+    ``transform`` pads it); "lattice", the 1/32 grid (exact d2, many
+    ties)."""
+    if kind == "lattice":
+        return lattice_points(b, n, seed)
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, 8, (b, n, 3)).astype(np.float32)
+    if kind == "padded":
+        keep = n - n // 4
+        pts[:, keep:] = pts[:, rng.choice(keep, n - keep)]
+    return torch.from_numpy(pts).to(DEVICE)
+
+
+def _pt_pair(b, n, q, seed, kind="uniform"):
+    """(points [b, n, 3], queries [b, q, 3]) on the card, the smaller set
+    the first points of the larger, as a forward nests its levels: a
+    level's sampled points are points of the level above (d2 = 0 for
+    each), and a 3-NN's coarse points are points of its queries."""
+    base = _pt_points(b, max(n, q), seed, kind)
+    return base[:, :n].contiguous(), base[:, :q].contiguous()
+
+
+def _pt_knn_check(label, n, q, k, calls, b=PT_EVAL_BATCH):
+    """knn_exact at one PointTransformer shape against its plain version on
+    the card, on uniform, padded and lattice points (``_pt_pair``) and
+    with a mask leaving 3/4 of the points: d2 bit-equal and indices equal
+    row for row. Returns the shape's record (times of one call)."""
+    for kind in ("uniform", "padded", "lattice"):
+        pts, qs = _pt_pair(b, n, q, SEED + n + k, kind)
+        _exact_equal(f"knn_exact {label} {kind}", ck.knn_exact(pts, qs, k),
+                     ck.knn_exact_plain(pts, qs, k), True)
+    pts, qs = _pt_pair(b, n, q, SEED + 1, "padded")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + n)
+    mask = torch.rand((b, n), generator=gen, device=DEVICE) < 0.75
+    want = ck.knn_exact_plain(pts, qs, k, points_mask=mask)
+    _exact_equal(f"knn_exact {label} masked",
+                 ck.knn_exact(pts, qs, k, points_mask=mask), want, True)
+    # the valid points come first, as many as a sample has (up to k)
+    valid = mask.gather(1, want[0].flatten(1).long()).view(b, q, k)
+    first = (torch.arange(k, device=mask.device) <
+             mask.sum(1).clamp(max=k)[:, None, None])
+    if not (valid | ~first).all():
+        raise AssertionError(f"knn_exact {label} masked: a masked neighbour "
+                             "before a valid one")
+    pts, qs = _pt_pair(b, n, q, SEED + 3)
+    got = ck.knn_exact(pts, qs, k)
+    plain = ck.knn_exact_plain(pts, qs, k)
+    err = (got[1] - plain[1]).abs().max().item()
+    ms = device_ms(lambda: ck.knn_exact(pts, qs, k))
+    plain_ms = span_ms(lambda: ck.knn_exact_plain(pts, qs, k), iters=3,
+                       warmup=1)
+    cdist_ms = span_ms(lambda: _cdist_topk(pts, qs, k), iters=3, warmup=1)
+    bounds = bound(nbytes(pts, qs) + b * q * k * 8, b * n * q * 8)
+    plan = ck.exact_plan(b, n, q, sms=ck.sm_count(pts.device.index), k=k)
+    say("pointtransformer", f"knn_exact {label} B={b} N={n} Q={q} k={k} "
+        f"x{calls} a forward (plan {plan}): uniform, padded, lattice and "
+        f"masked d2 bit-equal, indices row for row; device ms {ms:.4f}, "
+        f"bound {max(bounds):.4f}; call span ms: plain {plain_ms:.4f}, "
+        f"torch.cdist + topk {cdist_ms:.4f} (not the same function)")
+    return dict(kernel_record(err, ms, plain_ms, bounds), cdist_ms=cdist_ms)
+
+
+def _pt_fps_check(n, m, b=PT_EVAL_BATCH):
+    """fps at one level against its plain version on the card (uniform,
+    padded and lattice points, and a mask), indices equal; returns the
+    level's record (times of one call; the plain version's is its call
+    span: m - 1 steps of several launches)."""
+    for kind in ("uniform", "padded", "lattice"):
+        pts = _pt_points(b, n, SEED + m, kind)
+        if not torch.equal(cfps.fps(pts, m), cfps.fps_plain(pts, m)):
+            raise AssertionError(f"fps N={n} m={m} {kind}: indices differ "
+                                 "from the plain version")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + n)
+    mask = torch.rand((b, n), generator=gen, device=DEVICE) < 0.75
+    pts = _pt_points(b, n, SEED + 5, "padded")
+    got = cfps.fps(pts, m, points_mask=mask)
+    if not torch.equal(got, cfps.fps_plain(pts, m, points_mask=mask)):
+        raise AssertionError(f"fps N={n} m={m} masked: indices differ")
+    if not mask.gather(1, got[:, 1:].long()).all():
+        raise AssertionError(f"fps N={n} m={m}: a masked point chosen")
+    pts = _pt_points(b, n, SEED + 6)
+    ms = device_ms(lambda: cfps.fps(pts, m), iters=10)
+    plain_ms = span_ms(lambda: cfps.fps_plain(pts, m), iters=3, warmup=1)
+    bounds = bound(nbytes(pts) + b * m * 4, b * (m - 1) * n * 9)
+    say("pointtransformer", f"fps B={b} N={n} m={m} ({cfps.fps_threads(n)} "
+        f"threads a cloud): uniform, padded, lattice and masked indices "
+        f"equal to the plain version's; device ms {ms:.4f} "
+        f"({ms / (m - 1) * 1e3:.3f} us a step), bound {max(bounds):.4f}; "
+        f"plain call span {plain_ms:.4f}")
+    return dict(kernel_record(0.0, ms, plain_ms, bounds), steps=m - 1)
+
+
+def _pt_forward(net, batch, runs=10, warmup=3):
+    """Median synchronised forward (CUDA events), ms, and the times."""
+    times = []
+    with torch.no_grad():
+        for i in range(warmup + runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            net(batch)
+            end.record()
+            end.synchronize()
+            if i >= warmup:
+                times.append(start.elapsed_time(end))
+    return statistics.median(times), times
+
+
+def _pt_eval(card):
+    """The eval forward at the bench's 2 x 16,384 on seeded weights: the
+    launch counts of one forward, finite logits, the same net on the plain
+    versions of both kernels on the card (relative L2 <= ``PT_PLAIN_TOL``),
+    sample 0 on the CPU (<= 1e-4), the median forward and peak memory."""
+    dev = torch.device(DEVICE)
+    model = MODEL.get("PointTransformer")(**POINTTRANSFORMER_S3DIS)
+    net = model.get_eval_net()
+    state = random_weights(net, SEED).state_dict()
+    net = net.eval().to(dev)
+    batch_cpu = pt_request(model)
+    batch = {k: v.to(dev) for k, v in batch_cpu.items()}
+    with torch.no_grad():
+        net(batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        logits = net(batch)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with mock.patch.object(ck, "route", lambda t, family: "plain"), \
+                mock.patch.object(cfps, "route", lambda t, family: "plain"):
+            plain = net(batch)
+            torch.cuda.synchronize()
+        if read_counts() != launches:
+            raise AssertionError("pointtransformer: the plain forward "
+                                 "launched a kernel")
+    check_counts("pointtransformer", launches, PT_FORWARD_LAUNCHES)
+    n, c = model.cfg.num_points, model.cfg.num_classes
+    if tuple(logits.shape) != (PT_EVAL_BATCH, n, c):
+        raise AssertionError(f"pointtransformer logits {logits.shape}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("pointtransformer: non-finite logits")
+    plain_rel, plain_agree = _compare(logits, plain.cpu())
+    say("pointtransformer", f"eval forward B={PT_EVAL_BATCH} N={n} blocks "
+        f"{list(model.cfg.blocks)} float32: logits {tuple(logits.shape)} "
+        f"finite; against the same net on the plain versions of knn_exact "
+        f"and fps on the card: relative L2 {plain_rel:.3e} (bound "
+        f"{PT_PLAIN_TOL:g}), argmax agreement {plain_agree:.6f}; peak "
+        f"device memory {peak:.2f} GiB")
+    if not plain_rel <= PT_PLAIN_TOL:
+        raise AssertionError(f"pointtransformer: kernels vs plain versions "
+                             f"{plain_rel} > {PT_PLAIN_TOL}")
+    cpu_net = model.get_eval_net()
+    cpu_net.load_state_dict(state)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref = cpu_net.eval()({k: v[:1] for k, v in batch_cpu.items()})[0]
+        cpu_s = time.perf_counter() - t0
+    rel_l2, agree = _compare(logits[0], ref)
+    say("pointtransformer", f"sample 0: card vs CPU relative L2 "
+        f"{rel_l2:.3e}, argmax agreement {agree:.6f} (CPU forward "
+        f"{cpu_s:.1f} s)")
+    if not rel_l2 <= 1e-4:
+        raise AssertionError(f"pointtransformer card vs CPU {rel_l2} > 1e-4")
+    ms, times = _pt_forward(net, batch)
+    say("pointtransformer", f"eval forward: median {ms:.3f} ms over "
+        f"{len(times)} runs (min {min(times):.3f}, max {max(times):.3f}), "
+        f"{PT_EVAL_BATCH * n / ms * 1e3:.0f} points/s, peak {peak:.2f} GiB "
+        f"on {card}")
+    return launches, ms
+
+
+def _pt_train(card, root):
+    """``run_pipeline.main`` with the port's PointTransformer YAML on S3DIS
+    rooms, ``--split train`` for one epoch of ``PT_TRAIN_STEPS`` steps
+    and validation steps; each step's launch counts, finite losses, the
+    weights moved, the checkpoint; then ``--split test`` must raise."""
+    steps, valid_steps = PT_TRAIN_STEPS
+    batch, val_batch = PT_TRAIN_BATCH
+    t0 = time.perf_counter()
+    write_s3dis_rooms(root / "s3dis", PT_ROOM_POINTS)
+    written_s = time.perf_counter() - t0
+    common = ["-c", REPO / PT_CONFIG, "--device", DEVICE,
+              "--dataset.dataset_path", root / "s3dis",
+              "--dataset.cache_dir", root / "cache",
+              "--main_log_dir", root / "logs"]
+    first = {}
+    real = SemanticSegmentation._train_step
+
+    def step(self, inputs, loss_fn):
+        if not first:
+            first.update({k: v.detach().clone()
+                          for k, v in self.net.state_dict().items()})
+            torch.cuda.reset_peak_memory_stats()
+        first["net"] = self.net
+        return real(self, inputs, loss_fn)
+
+    with mock.patch.object(SemanticSegmentation, "_train_step", step):
+        wall, launches, record, spent = _cli_run(common + [
+            "--split", "train", "--pipeline.max_epoch", 0,
+            "--dataset.steps_per_epoch_train", steps * batch,
+            "--dataset.steps_per_epoch_valid", valid_steps * val_batch],
+            ((tpt.PointTransformer, "preprocess"),))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    train_s = _check_steps(record, 0, len(record), PT_FORWARD_LAUNCHES,
+                           PT_FORWARD_LAUNCHES,
+                           ["train"] * steps + ["eval"] * valid_steps)
+    check_counts("pointtransformer", launches, {
+        k: v * (steps + valid_steps) for k, v in PT_FORWARD_LAUNCHES.items()})
+    after = first.pop("net").state_dict()
+    moved = [k for k, v in first.items() if k.endswith("weight") and
+             v.dim() == 2 and not torch.equal(v, after[k])]
+    weights = [k for k, v in first.items() if k.endswith("weight") and
+               v.dim() == 2]
+    if len(moved) != len(weights):
+        raise AssertionError(f"pointtransformer: {len(weights) - len(moved)}"
+                             " Linear weights did not move")
+    ckpt = (root / "logs" / "PointTransformer_S3DIS_torch" / "checkpoint" /
+            "ckpt_00000.pth")
+    if not ckpt.exists():
+        raise AssertionError(f"pointtransformer: no checkpoint at {ckpt}")
+    steady = statistics.median(train_s[1:])
+    pre_s = spent["PointTransformer.preprocess"]
+    say("pointtransformer", f"S3DIS rooms: {len(PT_ROOMS)} of "
+        f"{PT_ROOM_POINTS} points (written in {written_s:.2f} s); "
+        f"run_pipeline -c {PT_CONFIG} --split train --pipeline.max_epoch 0: "
+        f"{steps} train steps of {batch} x "
+        f"{POINTTRANSFORMER_S3DIS['num_points']} (SGD, the YAML's "
+        f"augmentations) and {valid_steps} validation "
+        f"step(s) of {val_batch}, losses {[round(r[4], 4) for r in record]}, "
+        f"finite; all {len(weights)} Linear weights moved; {ckpt.name} "
+        f"written; each step launched {PT_FORWARD_LAUNCHES}")
+    say("pointtransformer", f"train run: wall {wall:.3f} s; step median "
+        f"{steady * 1e3:.2f} ms over steps 2..{steps} (first "
+        f"{train_s[0] * 1e3:.2f} ms), {batch / steady:.2f} patches trained/s "
+        f"({batch * POINTTRANSFORMER_S3DIS['num_points'] / steady:.0f} "
+        f"points/s); peak device memory {peak:.2f} GiB; host preprocess "
+        f"{pre_s:.3f} s over {spent['PointTransformer.preprocess calls']} "
+        f"rooms, {pre_s / wall:.1%} of the run on {card}")
+    reset_counts()
+    try:
+        run_pipeline.main([str(a) for a in common + ["--split", "test"]])
+    except NotImplementedError as err:
+        say("pointtransformer", f"--split test refused: {err}")
+    else:
+        raise AssertionError("pointtransformer: --split test did not raise")
+    check_counts("pointtransformer", read_counts(), {})
+    return steady
+
+
+PT_RANGES = ("pt eval forward", "pt train forward", "pt backward",
+             "pt sgd")
+
+
+def pt_profile():
+    """``--pt-profile``: one torch.profiler pass over one eval forward at
+    2 x 16,384 and one training step at 3 x 16,384 (the forward in train
+    mode, the loss and backward, the SGD step) on seeded weights, split by
+    record_function ranges; prints one JSON line per range: device ms
+    (kernel rows), kernels, wall ms, the fps and knn_exact kernels'
+    device ms, and the top 8 kernels. Run in a process of its own: the
+    profiler traces the card once a process."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    phase_device()
+    dev = torch.device(DEVICE)
+    model = MODEL.get("PointTransformer")(**POINTTRANSFORMER_S3DIS)
+    net = random_weights(model.get_net(), SEED).to(dev)
+    x = {k: v.to(dev) for k, v in pt_request(model).items()}
+    train_x = {k: v.to(dev) for k, v in pt_request(
+        model, PT_TRAIN_BATCH[0], SEED + 1).items()}
+    train_x["label"] = torch.randint(
+        0, model.cfg.num_classes, train_x["point"].shape[:2], device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    loss_fn = SemSegLoss(None, model, None)
+    optimizer, _ = model.get_optimizer(
+        {"optimizer": {"lr": 0.02, "momentum": 0.9}, "max_epoch": 512}, net)
+
+    def step(ranges=False):
+        def scope(name):
+            return (record_function(name) if ranges else
+                    contextlib.nullcontext())
+        net.eval()
+        with scope("pt eval forward"), torch.no_grad():
+            net(x)
+            torch.cuda.synchronize()
+        net.train()
+        with scope("pt train forward"):
+            loss, _, _ = model.get_loss(loss_fn, net(train_x), train_x)
+            torch.cuda.synchronize()
+        with scope("pt backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            torch.cuda.synchronize()
+        with scope("pt sgd"):
+            optimizer.step()
+            torch.cuda.synchronize()
+
+    for _ in range(2):
+        step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(ranges=True)
+    events = prof.events()
+    for name in PT_RANGES:
+        rng = next(e for e in events if e.name == name and
+                   e.device_type == torch.autograd.DeviceType.CPU)
+        start, end = rng.time_range.start, rng.time_range.end
+        kernels = collections.Counter()
+        calls = collections.Counter()
+        for e in events:
+            if (e.device_type == torch.autograd.DeviceType.CUDA and
+                    not e.name.startswith("pt ") and
+                    start <= e.time_range.start <= end):
+                kernels[e.name] += e.time_range.elapsed_us() / 1e3
+                calls[e.name] += 1
+        top = [[k[:64], ms, calls[k]] for k, ms in kernels.most_common(8)]
+        print(json.dumps({
+            "range": name, "device_ms": sum(kernels.values()),
+            "kernels": sum(calls.values()), "wall_ms": (end - start) / 1e3,
+            "fps_ms": sum(ms for k, ms in kernels.items()
+                          if "fps_kernel" in k),
+            "knn_ms": sum(ms for k, ms in kernels.items()
+                          if "knn_exact_kernel" in k),
+            "top": top}), flush=True)
+
+
+def _pt_profiles(card):
+    """``pt_profile`` in a child process; prints each range's line."""
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--pt-profile"], cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"pointtransformer: the profiler run failed:\n"
+                             f"{run.stderr[-4000:]}")
+    records = [json.loads(line) for line in run.stdout.splitlines()
+               if line.startswith('{"range"')]
+    if len(records) != len(PT_RANGES) or any(r["device_ms"] <= 0
+                                            for r in records):
+        raise AssertionError(f"pointtransformer: the profiler saw no device "
+                             f"time: {run.stdout[-2000:]}")
+    for r in records:
+        busy = r["device_ms"] / r["wall_ms"]
+        say("pointtransformer", f"profiled {r['range']}: device "
+            f"{r['device_ms']:.3f} ms over {r['kernels']} kernels in a "
+            f"{r['wall_ms']:.3f} ms span (busy {busy:.1%}); fps "
+            f"{r['fps_ms']:.3f} ms, knn_exact "
+            f"{r['knn_ms']:.3f} ms; top: " + ", ".join(
+                f"{k} {ms:.3f} ms x{n}" for k, ms, n in r["top"]) +
+            f" (on {card})")
+
+
+def phase_pointtransformer(card):
+    """PointTransformer at the shipped S3DIS config: knn_exact at every
+    search shape of a forward (k = 8, 16 and 3) and fps at the four
+    levels against their plain versions on the card, the eval forward at
+    2 x 16,384 (``_pt_eval``), and ``run_train`` from the YAML through the
+    command line (``_pt_train``). Returns (the forward's launch counts,
+    knn_exact's record for one forward's 26 calls, fps's for its 4)."""
+    t_phase = time.perf_counter()
+    cfg = MODEL.get("PointTransformer")(**POINTTRANSFORMER_S3DIS).cfg
+    knn = []
+    for label, n, q, k, calls in pt_searches(cfg):
+        rec = _pt_knn_check(label, n, q, k, calls)
+        knn += [rec] * calls
+    fps = []
+    n = cfg.num_points
+    for s in tpt.STRIDE[1:]:
+        fps.append(_pt_fps_check(n, n // s))
+        n //= s
+    big = _pt_fps_check(*PT_FPS_UNSTAGED, b=1)
+    say("pointtransformer", f"fps at N={PT_FPS_UNSTAGED[0]} (coordinates "
+        f"read through the cache, not staged in shared memory): equal; "
+        f"{big['ms']:.4f} ms")
+    knn_rec, fps_rec = combine(knn), combine(fps)
+    steps = sum(r["steps"] for r in fps)
+    floor = steps * fps[-1]["ms"] / fps[-1]["steps"]
+    say("pointtransformer", f"one forward's {len(knn)} knn_exact launches: "
+        f"device ms {knn_rec['ms']:.4f}, bound {knn_rec['bound_ms']:.4f}, "
+        f"plain span {knn_rec['plain_ms']:.4f}, torch.cdist + topk "
+        f"{sum(r['cdist_ms'] for r in knn):.4f}; its {len(fps)} fps "
+        f"launches: "
+        f"{fps_rec['ms']:.4f}, bound {fps_rec['bound_ms']:.4f}, serial "
+        f"floor {floor:.4f} ({steps} dependent steps at the 256-point "
+        f"level's {fps[-1]['ms'] / fps[-1]['steps'] * 1e3:.3f} us), plain "
+        f"span {fps_rec['plain_ms']:.4f}")
+    launches, fwd_ms = _pt_eval(card)
+    say("pointtransformer", f"the kernels' share of the {fwd_ms:.3f} ms "
+        f"forward: knn_exact {knn_rec['ms'] / fwd_ms:.1%}, fps "
+        f"{fps_rec['ms'] / fwd_ms:.1%} (their device times one by one)")
+    with tempfile.TemporaryDirectory() as tmp:
+        _pt_train(card, Path(tmp))
+    _pt_profiles(card)
+    say("pointtransformer", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, knn_rec, fps_rec
+
+
 def step_branches():
     """The float32 card-vs-CPU step on the patches of model seeds 0-3, with
     the CPU on its own branches and then on the card's."""
@@ -4137,6 +4657,13 @@ def main():
         card = phase_device()
         phase_build()
         return phase_cli(card)
+    if sys.argv[1:] == ["--pointtransformer"]:
+        card = phase_device()
+        phase_build()
+        phase_pointtransformer(card)
+        return None
+    if sys.argv[1:] == ["--pt-profile"]:
+        return pt_profile()
     card = phase_device()
     model = MODEL.get("RandLANet")()
     phase_build()
@@ -4161,6 +4688,13 @@ def main():
     phase_pointpillars(card)
     phase_pp_train(card)
     phase_cli(card)
+    pt_launches, pt_knn, measured["fps"] = phase_pointtransformer(card)
+    # knn_exact: one RandLA eval forward's 4 launches and one
+    # PointTransformer forward's 26; its launches, run_inference's and the
+    # PointTransformer forward's
+    measured["knn_exact"] = combine([measured["knn_exact"], pt_knn])
+    launches["knn_exact"] += pt_launches["knn_exact"]
+    launches["fps"] = pt_launches["fps"]
     sources = {"bucket_knn": ("open3d_ml_tpu_torch/csrc/bucket_knn.cu",
                               f"{TPU_KERNELS}:261"),
                "bucket_gather": ("open3d_ml_tpu_torch/csrc/bucket_gather.cu",
@@ -4173,7 +4707,10 @@ def main():
                "stencil_conv": ("open3d_ml_tpu_torch/csrc/stencil_conv.cu",
                                 "open3d_ml_tpu/ops/pallas/stencil.py:264"),
                "stencil_match": ("open3d_ml_tpu_torch/csrc/stencil_match.cu",
-                                 "open3d_ml_tpu/ops/pallas/stencil.py:147")}
+                                 "open3d_ml_tpu/ops/pallas/stencil.py:147"),
+               "fps": ("open3d_ml_tpu_torch/csrc/fps.cu",
+                       "open3d_ml_tpu/ops/sampling.py:13 (an XLA fori_loop, "
+                       "no pallas_call)")}
     kernels = [json_entry(name, *sources[name], launches[name], rec)
                for name, rec in measured.items()]
     print(json.dumps({"kernels": kernels}))

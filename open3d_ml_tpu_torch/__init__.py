@@ -12,16 +12,18 @@ kernel and the bucket gather and its backward) with its exact hash-path
 twin; and PointPillars detection serving (``get_net``: canvas-major
 pillars, bf16 convolutions) and evaluation (``get_eval_net``: compact
 pillars, float32) with ``ObjectDetection``'s ``run_valid`` (mAP),
-``run_test`` and ``run_inference`` on ``KITTI`` and ``SyntheticBoxes``.
-Each kernel is CUDA C++ for Hopper with a plain PyTorch version for CPU
-tensors; PointPillars' path reaches no kernel of the JAX package, and its
-convolutions are PyTorch's. The command line ``python -m
-open3d_ml_tpu_torch.run_pipeline`` trains, validates and tests from a
-config file (the port's copies of the shipped YAMLs are in ``configs/``)
-on the readers those configs name. The port imports PyTorch, numpy and
-scipy (PyYAML only to read a config file), and never JAX, nor anything of
-``open3d_ml_tpu``: its registries and configuration are its own
-(``utils``).
+``run_test`` and ``run_inference`` on ``KITTI`` and ``SyntheticBoxes``;
+and PointTransformer on the exact path (furthest point sampling on the
+``fps`` kernel, its k-NN searches at k = 3, 8 and 16 on ``knn_exact``)
+with ``run_train`` on ``S3DIS``. Each kernel is CUDA C++ for Hopper with
+a plain PyTorch version for CPU tensors; PointPillars' path reaches no
+kernel of the JAX package, and its convolutions are PyTorch's. The
+command line ``python -m open3d_ml_tpu_torch.run_pipeline`` trains,
+validates and tests from a config file (the port's copies of the
+shipped YAMLs are in ``configs/``) on the readers those configs name.
+The port imports PyTorch, numpy and scipy (PyYAML only to read a config
+file), and never JAX, nor anything of ``open3d_ml_tpu``: its registries
+and configuration are its own (``utils``).
 """
 
 from . import dataloaders, datasets, metrics, models, pipelines, utils

@@ -40,6 +40,15 @@
 // merging their lists, measured no faster on the H100 than up to 8 warps
 // in one block at the eval pyramid's small levels, so there is none.
 //
+// k is 3, 8 or 16, each its own instance: the lists hold KL = 4, 8 or 16
+// entries (the bitonic sort and merge of knn_select.cuh need a power of
+// two), and a block writes the first k of its merged list. The exact
+// KL best by (d2, index) hold the exact k best as their first k, so k = 3
+// keeps the tie rule of k = 16; the bounds the warps post are KL-th bests,
+// looser than k-th ones by one entry. PointTransformer asks for all three:
+// k = 8 and 16 for its grouping and attention, k = 3 for its 3-NN
+// interpolation.
+//
 // Not carried over from the TPU kernel: the [TQ, k + TP] concatenation and
 // its k min-extraction rounds (the TPU has no top-k), the broadcast-select
 // column writes, and the zero-padded fourth coordinate for the MXU.
@@ -53,7 +62,6 @@ namespace {
 
 using knn_select::TopK;
 
-constexpr int kK = 16;         // the one k the kernel is built for
 constexpr int kMaxWarps = 8;   // warps of a block (a power of two)
 constexpr int kMaxChunk = 128; // tile entries per warp, a multiple of 32
 constexpr float kBig = 1e30f;  // |p|^2 of a masked point
@@ -71,25 +79,26 @@ __device__ __forceinline__ float raw_d2(float qx, float qy, float qz,
   return __fmaf_rn(-2.0f, cross, __fadd_rn(qn, p.w));
 }
 
-// Shared memory of a block of nw warps with QPT queries a thread: the tile
-// (and a batch of slack, which a warp's last batch may read past its end),
-// reused by the merge, and the posted bounds (two parities x two values).
-template <int QPT>
+// Shared memory of a block of nw warps with QPT queries a thread and lists
+// of KL entries: the tile (and a batch of slack, which a warp's last batch
+// may read past its end), reused by the merge, and the posted bounds (two
+// parities x two values). ops/cuda/knn.py exact_shared is the same formula.
+template <int KL, int QPT>
 __host__ __device__ constexpr size_t shared_bytes(int nw, int chunk) {
   const size_t tile =
       ((size_t)nw * chunk + knn_select::kBatch) * sizeof(float4);
-  const size_t merge = knn_select::tree_merge_bytes<kK, QPT>(nw);
+  const size_t merge = knn_select::tree_merge_bytes<KL, QPT>(nw);
   return (tile > merge ? tile : merge) +
          (size_t)2 * 2 * nw * 32 * QPT * sizeof(float);
 }
 
-template <int QPT>
+template <int KL, int QPT>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     knn_exact_kernel(const float* __restrict__ points,
                      const float* __restrict__ queries,
                      const unsigned char* __restrict__ mask,
                      int* __restrict__ idx, float* __restrict__ d2,
-                     int n, int q, int chunk) {
+                     int n, int q, int k, int chunk) {
   extern __shared__ float4 smem[];
   const int nw = blockDim.x / 32, warp = threadIdx.x / 32,
             lane = threadIdx.x % 32;
@@ -98,7 +107,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const unsigned char* msk = mask == nullptr ? nullptr : mask + b * n;
   float4* tile = smem;
   const size_t tile_bytes =
-      shared_bytes<QPT>(nw, chunk) - (size_t)2 * 2 * nw * 32 * QPT * 4;
+      shared_bytes<KL, QPT>(nw, chunk) - (size_t)2 * 2 * nw * 32 * QPT * 4;
   // posts[parity][value][warp][slot], slot = s * 32 + lane
   float* posts = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(smem) + tile_bytes);
@@ -108,7 +117,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   // nothing; they meet every barrier
   float qx[QPT], qy[QPT], qz[QPT], qn[QPT], lim[QPT];
   int qi[QPT];
-  TopK<kK> top[QPT];
+  TopK<KL> top[QPT];
 #pragma unroll
   for (int s = 0; s < QPT; ++s) {
     qi[s] = blockIdx.x * 32 * QPT + s * 32 + lane;
@@ -123,8 +132,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     lim[s] = CUDART_INF_F;
     top[s].clear();
   }
-  // the entry each warp posts besides its k-th: the ceil(k / nw)-th
-  const int jpost = (kK + nw - 1) / nw - 1;
+  // the entry each warp posts besides its KL-th: the ceil(KL / nw)-th
+  const int jpost = (KL + nw - 1) / nw - 1;
 
   int parity = 0;
   bool seeded = false;  // whether this warp's lists hold candidates yet
@@ -167,7 +176,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     const int c0 = warp * chunk, c1 = min(len, c0 + chunk);
     int first = c0;
     if (!seeded && c1 > c0) {
-      first = min(c1, c0 + kK);
+      first = min(c1, c0 + KL);
 #pragma unroll
       for (int s = 0; s < QPT; ++s) {
         top[s].seed(first - c0, start + c0, [&](int j) {
@@ -183,7 +192,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 #pragma unroll
       for (int s = 0; s < QPT; ++s) {
         hits[s] = 0u;
-        thr[s] = fminf(top[s].d[kK - 1], lim[s]);
+        thr[s] = fminf(top[s].d[KL - 1], lim[s]);
       }
       // entries past the tile's end are stale; their bits are cleared below
 #pragma unroll
@@ -208,68 +217,97 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       float* mine = posts + parity * 2 * post_stride + warp * 32 * QPT + lane;
 #pragma unroll
       for (int s = 0; s < QPT; ++s) {
-        float part = top[s].d[kK - 1];
+        float part = top[s].d[KL - 1];
 #pragma unroll
-        for (int j = 0; j < kK; ++j)
+        for (int j = 0; j < KL; ++j)
           if (j == jpost) part = top[s].d[j];
-        mine[s * 32] = top[s].d[kK - 1];
+        mine[s * 32] = top[s].d[KL - 1];
         mine[post_stride + s * 32] = part;
       }
     }
     parity ^= 1;
   }
 
-  knn_select::tree_merge<kK, QPT>(top, smem, nw, warp, lane);
+  knn_select::tree_merge<KL, QPT>(top, smem, nw, warp, lane);
   if (warp != 0) return;
 #pragma unroll
   for (int s = 0; s < QPT; ++s) {
     if (qi[s] >= q) continue;
-    const long long at = (b * q + qi[s]) * kK;
-    top[s].store(d2 + at, idx + at, 1);
+    const long long at = (b * q + qi[s]) * k;
+#pragma unroll
+    for (int j = 0; j < KL; ++j) {
+      if (j < k) {
+        d2[at + j] = top[s].d[j];
+        idx[at + j] = top[s].i[j];
+      }
+    }
   }
 }
 
-template <int QPT>
+template <int KL, int QPT>
 cudaError_t launch(const float* points, const float* queries,
                    const unsigned char* mask, int* idx, float* d2,
-                   int b, int n, int q, int warps, int chunk,
-                   cudaStream_t stream) {
-  const size_t shared = shared_bytes<QPT>(warps, chunk);
+                   int b, int n, int q, int k, int warps, int chunk,
+                   int shared, cudaStream_t stream) {
+  if ((size_t)shared != shared_bytes<KL, QPT>(warps, chunk))
+    return cudaErrorInvalidValue;
   if (shared > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        knn_exact_kernel<QPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shared);
+        knn_exact_kernel<KL, QPT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((q + 32 * QPT - 1) / (32 * QPT), b);
-  knn_exact_kernel<QPT><<<grid, warps * 32, shared, stream>>>(
-      points, queries, mask, idx, d2, n, q, chunk);
+  knn_exact_kernel<KL, QPT><<<grid, warps * 32, shared, stream>>>(
+      points, queries, mask, idx, d2, n, q, k, chunk);
   return cudaGetLastError();
+}
+
+template <int KL>
+cudaError_t launch_qpt(const float* points, const float* queries,
+                       const unsigned char* mask, int* idx, float* d2,
+                       int b, int n, int q, int k, int qpt, int warps,
+                       int chunk, int shared, cudaStream_t stream) {
+  switch (qpt) {
+    case 1:
+      return launch<KL, 1>(points, queries, mask, idx, d2, b, n, q, k, warps,
+                           chunk, shared, stream);
+    case 2:
+      return launch<KL, 2>(points, queries, mask, idx, d2, b, n, q, k, warps,
+                           chunk, shared, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // points [B, N, 3] and queries [B, Q, 3] float32, mask [B, N] bool or null;
-// idx [B, Q, k] int32 and d2 [B, Q, k] float32 are written. k must be 16.
-// The plan (ops/cuda/knn.py, exact_plan): qpt queries a thread (1 or 2),
-// warps a block (1, 2, 4 or 8), chunk tile entries a warp (a multiple of
-// 32, at most 128).
+// idx [B, Q, k] int32 and d2 [B, Q, k] float32 are written. k is 3, 8 or
+// 16. The plan (ops/cuda/knn.py, exact_plan): qpt queries a thread (1 or
+// 2), warps a block (1, 2, 4 or 8), chunk tile entries a warp (a multiple
+// of 32, at most 128), and the block's shared memory in bytes, which must
+// equal shared_bytes for the plan.
 extern "C" int knn_exact_launch(const float* points, const float* queries,
                                 const unsigned char* mask, int* idx,
                                 float* d2, int b, int n, int q, int k,
-                                int qpt, int warps, int chunk, void* stream) {
+                                int qpt, int warps, int chunk, int shared,
+                                void* stream) {
   const bool pow2 = warps > 0 && (warps & (warps - 1)) == 0;
-  if (k != kK || b < 1 || b > 65535 || n < k || q < 1 || !pow2 ||
-      warps > kMaxWarps || chunk < 32 || chunk > kMaxChunk || chunk % 32)
+  if (b < 1 || b > 65535 || n < k || q < 1 || !pow2 || warps > kMaxWarps ||
+      chunk < 32 || chunk > kMaxChunk || chunk % 32)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (qpt) {
-    case 1:
-      return launch<1>(points, queries, mask, idx, d2, b, n, q, warps, chunk,
-                       st);
-    case 2:
-      return launch<2>(points, queries, mask, idx, d2, b, n, q, warps, chunk,
-                       st);
+  switch (k) {
+    case 3:
+      return launch_qpt<4>(points, queries, mask, idx, d2, b, n, q, k, qpt,
+                           warps, chunk, shared, st);
+    case 8:
+      return launch_qpt<8>(points, queries, mask, idx, d2, b, n, q, k, qpt,
+                           warps, chunk, shared, st);
+    case 16:
+      return launch_qpt<16>(points, queries, mask, idx, d2, b, n, q, k, qpt,
+                            warps, chunk, shared, st);
     default:
       return cudaErrorInvalidValue;
   }

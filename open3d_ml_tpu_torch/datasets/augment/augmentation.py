@@ -4,16 +4,16 @@ Counterpart of ``open3d_ml_tpu/datasets/augment/augmentation.py``: the
 shared geometric steps (``Augmentation``: ``recenter``, ``normalize``,
 ``rotate``, ``scale``, ``noise``); ``SemsegAugmentation`` with the steps
 of the segmentation recipes, ``RandomDropout``, ``RandomHorizontalFlip``,
-``ChromaticAutoContrast``, ``ChromaticTranslation`` and
-``ChromaticJitter`` (SparseConvUnet's); and ``ObjdetAugmentation`` with
+``ChromaticAutoContrast``, ``ChromaticTranslation``, ``ChromaticJitter``
+(SparseConvUnet's) and ``HueSaturationTranslation`` (PointTransformer's);
+and ``ObjdetAugmentation`` with
 ``PointShuffle``, ``ObjectRangeFilter`` and ``ObjectSample`` (gt boxes
 pasted from a database that ``utils/collect_bboxes.py`` writes), in the
 JAX package's order and with its draws. Random steps draw from ``rng``, a
 ``numpy.random.Generator`` made from ``seed`` (a generator passed as the
 seed is used as it is, so the model's generator drives them), so one
-seed gives the JAX package's arrays. The other augmentations of the JAX
-package (``HueSaturationTranslation``, ``rotate`` with ``method="all"``)
-raise.
+seed gives the JAX package's arrays. The one other augmentation of the
+JAX package, ``rotate`` with ``method="all"``, raises.
 """
 
 import pickle
@@ -97,7 +97,7 @@ class SemsegAugmentation(Augmentation):
     _PORTED = ("recenter", "normalize", "rotate", "scale", "noise",
                "RandomDropout", "RandomHorizontalFlip",
                "ChromaticAutoContrast", "ChromaticTranslation",
-               "ChromaticJitter")
+               "ChromaticJitter", "HueSaturationTranslation")
 
     def RandomDropout(self, pc, feats, labels, cfg):
         """With probability ``dropout_ratio``, keep a random
@@ -155,6 +155,61 @@ class SemsegAugmentation(Augmentation):
             feats[:, :3] = np.clip(noise + feats[:, :3], 0, 255)
         return feats
 
+    @staticmethod
+    def _rgb_to_hsv(rgb):
+        """``colorsys.rgb_to_hsv`` over [..., 3] colours in 0-255, in
+        float64: h and s in [0, 1], v in 0-255."""
+        rgb = rgb.astype(np.float64)
+        hsv = np.zeros_like(rgb)
+        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+        maxc = np.max(rgb[..., :3], axis=-1)
+        minc = np.min(rgb[..., :3], axis=-1)
+        hsv[..., 2] = maxc
+        grey = maxc == minc
+        span = np.where(grey, 1.0, maxc - minc)
+        hsv[..., 1] = np.where(grey, 0.0, (maxc - minc) /
+                               np.where(maxc == 0, 1, maxc))
+        rc = np.where(grey, 0.0, (maxc - r) / span)
+        gc = np.where(grey, 0.0, (maxc - g) / span)
+        bc = np.where(grey, 0.0, (maxc - b) / span)
+        h = np.select([r == maxc, g == maxc], [bc - gc, 2.0 + rc - bc],
+                      default=4.0 + gc - rc)
+        hsv[..., 0] = (h / 6.0) % 1.0
+        return hsv
+
+    @staticmethod
+    def _hsv_to_rgb(hsv):
+        """``colorsys.hsv_to_rgb`` over [..., 3] (h, s in [0, 1], v in
+        0-255), cast to uint8 as the JAX package casts it."""
+        rgb = np.empty_like(hsv)
+        h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+        i = (h * 6.0).astype(np.uint8)
+        f = (h * 6.0) - i
+        p = v * (1.0 - s)
+        q = v * (1.0 - s * f)
+        t = v * (1.0 - s * (1.0 - f))
+        i = i % 6
+        conds = [s == 0.0, i == 1, i == 2, i == 3, i == 4, i == 5]
+        rgb[..., 0] = np.select(conds, [v, q, p, p, t, v], default=v)
+        rgb[..., 1] = np.select(conds, [v, v, v, q, p, p], default=t)
+        rgb[..., 2] = np.select(conds, [v, p, t, v, v, q], default=p)
+        return rgb.astype(np.uint8)
+
+    def HueSaturationTranslation(self, feat, cfg):
+        """Shift the hue by a random offset of at most ``hue_max`` (mod 1)
+        and scale the saturation by a random factor within
+        1 +- ``saturation_max`` (clipped to [0, 1]), in place: the colours
+        come back as whole numbers, through uint8."""
+        hue_max = cfg.get("hue_max", 0.5)
+        sat_max = cfg.get("saturation_max", 0.2)
+        hsv = self._rgb_to_hsv(feat[:, :3])
+        hue_val = (self.rng.random() - 0.5) * 2 * hue_max
+        sat_ratio = 1 + (self.rng.random() - 0.5) * 2 * sat_max
+        hsv[..., 0] = np.remainder(hue_val + hsv[..., 0] + 1, 1)
+        hsv[..., 1] = np.clip(sat_ratio * hsv[..., 1], 0, 1)
+        feat[:, :3] = np.clip(self._hsv_to_rgb(hsv), 0, 255)
+        return feat
+
     def augment(self, point, feat, labels, cfg, seed=None):
         """Apply the steps that ``cfg`` names, in the JAX package's order;
         a ``seed`` replaces the generator first. Returns (point, feat,
@@ -192,6 +247,9 @@ class SemsegAugmentation(Augmentation):
                                              cfg["ChromaticTranslation"])
         if "ChromaticJitter" in cfg:
             feat = self.ChromaticJitter(feat, cfg["ChromaticJitter"])
+        if "HueSaturationTranslation" in cfg:
+            feat = self.HueSaturationTranslation(
+                feat, cfg["HueSaturationTranslation"])
         return point, feat, labels
 
 

@@ -22,6 +22,9 @@ class BaseModel(ABC):
     # which advances the possibility map that the pipeline's test and
     # inference loop runs until every point is covered
     draws_patches = True
+    # where ``draws_patches`` is False: the ROADMAP item that queues the
+    # test and inference loop, which the pipeline names when it refuses
+    patch_loop_queue = None
 
     def __init__(self, **kwargs):
         self.cfg = ModuleConfig(kwargs)

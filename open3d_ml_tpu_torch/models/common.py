@@ -17,7 +17,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     0.99 is torch's 0.01); ``nn.BatchNorm1d`` would move them towards the
     unbiased one. In eval mode it is ``F.batch_norm`` on the running
     statistics. A bf16 input is read in float32, as flax promotes it; the
-    output is float32. The parameter and buffer names are torch's.
+    output is float32 (float64 for a float64 input, on float64 weights).
+    The parameter and buffer names are torch's.
     """
 
     def __init__(self, dim, eps=1e-5, momentum=0.01, axis=-1):
@@ -27,7 +28,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         self.axis = axis
 
     def forward(self, x):
-        x = x.float()
+        if x.dtype != torch.float64:
+            x = x.float()
         rows = x.reshape(-1, x.shape[-1]) if self.axis == -1 else x
         if not self.training:
             out = F.batch_norm(rows, self.running_mean, self.running_var,

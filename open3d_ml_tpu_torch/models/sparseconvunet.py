@@ -484,6 +484,8 @@ class SparseConvUnet(BaseModel):
     # ``transform`` crops the room itself: the possibility-map loop of the
     # pipeline's test and inference would never end (not ported)
     draws_patches = False
+    patch_loop_queue = ("ROADMAP queue 1 item 2, 'SCU through "
+                        "run_inference/run_test'")
 
     def __init__(self,
                  name="SparseConvUnet",

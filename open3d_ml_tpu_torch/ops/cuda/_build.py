@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("bucket_knn.cu", "bucket_gather.cu", "bucket_gather_bwd.cu",
-           "knn_exact.cu", "stencil_conv.cu", "stencil_match.cu")
+           "knn_exact.cu", "stencil_conv.cu", "stencil_match.cu", "fps.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,9 +44,11 @@ ENTRY_POINTS = {
     "bucket_gather_bwd_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _P),
     # points, queries, mask (or NULL), idx, d2, B, N, Q, k, qpt, warps,
-    # chunk, stream
+    # chunk, shared, stream
     "knn_exact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P),
+                         _I, _P),
+    # points, mask (or NULL), out, B, N, m, threads, stream
+    "fps_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     # values, keys, qkeys, seg_ids, w, out, B, V, npad, Q, K, Cin, Cout, nqb,
     # S, seg, qblock, route, ct, mw, stages, shared, stream
     "stencil_conv_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -4,7 +4,9 @@ wrapper that ``ops/neighbors.py`` calls.
 The wrapper takes the plain version for tensors on the CPU and launches
 the ``knn_exact`` kernel (``csrc/knn_exact.cu``) for tensors on a CUDA
 device; it has no other route. ``LAUNCHES`` counts the kernel launches,
-one a call. ``exact_plan`` sizes a call.
+one a call. ``exact_plan`` sizes a call. The kernel is built for k = 3, 8
+and 16 (``KNN_KS``): RandLA-Net's 16, PointTransformer's 8 and 16 and its
+3-NN interpolation's 3; any other k raises on a CUDA tensor.
 
 The contract is the TPU kernel's: d2 = max(|q|^2 + |p|^2 - 2 q.p, 0),
 masked points carry |p|^2 = 1e30, and the k results come ascending by d2,
@@ -17,11 +19,11 @@ its d2 equals the plain version's bit for bit.
 
 import torch
 
-from ._launch import check, ptr, raise_on, route, sm_count, stream
+from ._launch import check, fits, ptr, raise_on, route, sm_count, stream
 
 LAUNCHES = {"knn_exact": 0}
 
-KNN_K = 16  # the one k the kernel is built for
+KNN_KS = (3, 8, 16)  # the k the kernel is built for
 # the kernel's plan: warps a block (a power of two up to MAX_WARPS) and
 # tile entries a warp (up to MAX_CHUNK, whole batches of 32)
 MAX_WARPS = 8
@@ -91,7 +93,25 @@ def knn_exact_plain(points, queries, k, *, points_mask=None):
     return torch.cat(idx, 1), torch.cat(d2, 1)
 
 
-def exact_plan(b, n, q, *, sms):
+def list_len(k):
+    """Entries of the kernel's per-thread lists for ``k``: the least power
+    of two >= k, at least 4 (its sort and merge networks need a power of
+    two; the first k of the KL best are the k best)."""
+    return max(4, 1 << (k - 1).bit_length())
+
+
+def exact_shared(kl, qpt, warps, chunk):
+    """Bytes of shared memory of a ``knn_exact`` block (``shared_bytes`` in
+    ``csrc/knn_exact.cu``): the float4 tile of warps * chunk entries and a
+    batch of slack, or the tree merge's lists (warps / 2 * qpt lists of kl
+    (d2, index) pairs a lane) where they are larger, and the posted bounds
+    (2 parities x 2 values x warps x 32 x qpt floats)."""
+    tile = (warps * chunk + BATCH) * 16
+    merge = warps // 2 * qpt * kl * 32 * 8
+    return max(tile, merge) + 2 * 2 * warps * 32 * qpt * 4
+
+
+def exact_plan(b, n, q, *, sms, k=16):
     """How the ``knn_exact`` kernel runs a call: {"qpt": queries a thread,
     2 where the query groups of 64 alone give every SM (``sms`` of them)
     four blocks, else 1: each tile entry read from shared memory
@@ -105,7 +125,9 @@ def exact_plan(b, n, q, *, sms):
     SM and each warp keeps two batches a tile. A query's slices each keep
     a list, merged at the end, so they are no more than the card needs;
     at the small levels, where the query groups leave SMs idle, a block
-    takes the most warps."""
+    takes the most warps. "list": the lists' length for ``k``
+    (``list_len``), and "shared": the block's shared memory in bytes
+    (``exact_shared``), which the merge of longer lists makes larger."""
     qpt = 2 if b * -(-q // (2 * BATCH)) >= 4 * sms else 1
     qgroups = b * -(-q // (BATCH * qpt))
     warps = 1
@@ -114,13 +136,16 @@ def exact_plan(b, n, q, *, sms):
            n >= 2 * warps * 2 * BATCH):
         warps *= 2
     chunk = min(MAX_CHUNK, BATCH * -(-n // (BATCH * warps)))
-    return {"qpt": qpt, "warps": warps, "chunk": chunk}
+    kl = list_len(k)
+    return {"qpt": qpt, "warps": warps, "chunk": chunk, "list": kl,
+            "shared": fits("knn_exact",
+                           exact_shared(kl, qpt, warps, chunk))}
 
 
 def knn_exact(points, queries, k, *, points_mask=None):
     """``knn_exact_plain``'s contract, checked for both routes; on a CUDA
-    device it launches the ``knn_exact`` kernel, which is built for
-    k = 16 only, as ``exact_plan`` sizes it."""
+    device it launches the ``knn_exact`` kernel, which is built for the k
+    of ``KNN_KS`` only, as ``exact_plan`` sizes it."""
     dev = points.device
     check(points, "points", torch.float32, 3, dev)
     check(queries, "queries", torch.float32, 3, dev)
@@ -139,17 +164,17 @@ def knn_exact(points, queries, k, *, points_mask=None):
                          f"B {b}, N {n}, Q {q}, k {k}")
     if route(points, "knn_exact") == "plain":
         return knn_exact_plain(points, queries, k, points_mask=points_mask)
-    if k != KNN_K:
-        raise ValueError(f"the knn_exact kernel is built for k={KNN_K}, "
+    if k not in KNN_KS:
+        raise ValueError(f"the knn_exact kernel is built for k in {KNN_KS}, "
                          f"not {k}")
     from ._build import library
-    plan = exact_plan(b, n, q, sms=sm_count(dev.index))
+    plan = exact_plan(b, n, q, sms=sm_count(dev.index), k=k)
     idx = torch.empty((b, q, k), dtype=torch.int32, device=dev)
     d2 = torch.empty((b, q, k), dtype=torch.float32, device=dev)
     err = library().knn_exact_launch(
         points.data_ptr(), queries.data_ptr(), ptr(points_mask),
         idx.data_ptr(), d2.data_ptr(), b, n, q, k, plan["qpt"],
-        plan["warps"], plan["chunk"], stream())
+        plan["warps"], plan["chunk"], plan["shared"], stream())
     raise_on(err, "knn_exact")
     LAUNCHES["knn_exact"] += 1
     return idx, d2

@@ -40,10 +40,13 @@ def knn_search(points, queries, k, *, points_mask=None):
     by d2 = max(|q|^2 + |p|^2 - 2 q.p, 0), the lower index first among
     equal d2; k is cut to N.
 
-    k > 1 goes to the ``knn_exact`` kernel for every N: the TPU kernel held
-    all points in VMEM and so served N <= 200,000 only, while this one
-    streams them. k = 1 is a chunked minimum in plain torch, as the JAX
-    package's is plain XLA.
+    k > 1 goes to the ``knn_exact`` wrapper for every N: the TPU kernel
+    held all points in VMEM and so served N <= 200,000 only, while this
+    one streams them. On a card the kernel is built for k = 3, 8 and 16
+    (``KNN_KS``: PointTransformer's 3-NN and groupings, RandLA-Net's 16),
+    and any other k > 1 raises; on the CPU the plain version takes any k.
+    k = 1 is a chunked minimum in plain torch, as the JAX package's is
+    plain XLA.
     """
     single = points.dim() == 2
     if single:

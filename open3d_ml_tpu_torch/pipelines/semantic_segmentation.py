@@ -302,8 +302,9 @@ class SemanticSegmentation(BasePipeline):
         if not model.draws_patches:
             raise NotImplementedError(
                 f"{type(model).__name__}: test and inference through the "
-                "possibility-map loop are not ported (ROADMAP queue 1 item "
-                "2, 'SCU through run_inference/run_test'); run_train runs")
+                "possibility-map loop are not ported: its transform never "
+                "advances the possibility map, so the loop would not end "
+                f"({model.patch_loop_queue}); run_train runs")
         self.eval_net.load_state_dict(self.net.state_dict())
         batcher = DefaultBatcher()
         test_sampler.initialize_with_dataloader(test_split)

@@ -19,8 +19,9 @@ there, as in JAX.
 It runs on ``--device cuda`` (the default) or ``cpu``, and on no other
 device: ``tpu`` raises, as does ``cuda`` with no card visible; nothing
 falls back to the CPU. ``--distributed`` raises (data parallelism is not
-ported). SparseConvUnet's test and valid splits raise in the pipeline
-(``run_test_on_split``): its test and inference are not ported.
+ported). SparseConvUnet's and PointTransformer's test and valid splits
+raise in the pipeline (``run_test_on_split``): their ``transform`` never
+advances the possibility map, so the loop would not end.
 
     python -m open3d_ml_tpu_torch.run_pipeline \\
         -c open3d_ml_tpu_torch/configs/randlanet_semantickitti.yml \\

@@ -107,9 +107,12 @@ def test_training_augmentations_equal():
             SemsegAugmentation(aniso).augment(pc, None, None, aniso,
                                               seed=gen_p)[0],
             JaxAugment(aniso).augment(pc, None, None, aniso, seed=gen_j)[0])
-    with pytest.raises(NotImplementedError, match="HueSaturation"):
-        SemsegAugmentation({}).augment(pc, None, None,
-                                       {"HueSaturationTranslation": {}})
+    hue = {"HueSaturationTranslation": {}}  # ported with PointTransformer
+    colours = rng.uniform(0, 255, (700, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        SemsegAugmentation(hue, seed=8).augment(pc, colours.copy(), None,
+                                                hue)[1],
+        JaxAugment(hue, seed=8).augment(pc, colours.copy(), None, hue)[1])
     with pytest.raises(NotImplementedError, match="all"):
         SemsegAugmentation({}).augment(pc, None, None,
                                        {"rotate": {"method": "all"}})

@@ -154,9 +154,9 @@ def test_augment_recenter_normalize_equal():
     want = JaxAugment(cfg).augment(pc.copy(), feat.copy(), None, cfg)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
-    with pytest.raises(NotImplementedError, match="HueSaturation"):
+    with pytest.raises(NotImplementedError, match="all"):
         SemsegAugmentation({}).augment(pc, feat, None,
-                                       {"HueSaturationTranslation": {}})
+                                       {"rotate": {"method": "all"}})
 
 
 def _cloud(n=1000, seed=7):

@@ -402,10 +402,93 @@ def test_knn_exact_wrapper_passes_the_plan(monkeypatch):
         plan = ck.exact_plan(1, n, n, sms=132)
         args = calls[-1]
         # points, queries, mask, idx, d2, B, N, Q, k, qpt, warps, chunk,
-        # stream
+        # shared, stream
         assert args[2] == mask.data_ptr()
         assert args[5:] == (1, n, n, K, plan["qpt"], plan["warps"],
-                            plan["chunk"], 0)
+                            plan["chunk"], plan["shared"], 0)
     assert ck.LAUNCHES == {"knn_exact": 2}
-    with pytest.raises(ValueError, match="k=16"):
-        ck.knn_exact(torch.zeros((1, 64, 3)), torch.zeros((1, 64, 3)), 8)
+    # PointTransformer's k: each launches with its own list's plan
+    for k in (3, 8):
+        idx, d2 = ck.knn_exact(torch.zeros((2, 4096, 3)),
+                               torch.zeros((2, 16384, 3)), k)
+        assert idx.shape == d2.shape == (2, 16384, k)
+        plan = ck.exact_plan(2, 4096, 16384, sms=132, k=k)
+        assert calls[-1][5:] == (2, 4096, 16384, k, plan["qpt"],
+                                 plan["warps"], plan["chunk"],
+                                 plan["shared"], 0)
+    assert ck.LAUNCHES == {"knn_exact": 4}
+    for k in (1, 2, 5, 12, 32):
+        with pytest.raises(ValueError, match=r"k in \(3, 8, 16\)"):
+            ck.knn_exact(torch.zeros((1, 64, 3)), torch.zeros((1, 64, 3)), k)
+    assert ck.LAUNCHES == {"knn_exact": 4}
+
+
+# ---------------------------------------- PointTransformer's k = 3 and 8
+
+@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("ref", sorted(REFERENCES))
+def test_lattice_equal_index_for_index_at_pt_k(ref, k):
+    """The plain version at PointTransformer's other k against both JAX
+    references, index for index on lattice points (ties lower index
+    first), queries the sampled points and their duplicates, with and
+    without a mask."""
+    rng = np.random.default_rng(50)
+    pts = lattice_cloud(rng, 1, N)[0]
+    pts[600:] = pts[rng.choice(600, N - 600)]  # a patch padded by repeats
+    qs = np.ascontiguousarray(pts[::4])
+    mask = rng.random(N) < 0.7
+    for m in (None, mask):
+        idx, d2 = _port(pts, qs, k, m)
+        ridx, rd2 = REFERENCES[ref](pts, qs, k, m)
+        assert idx.shape == (len(qs), k)
+        np.testing.assert_array_equal(idx, ridx)
+        np.testing.assert_array_equal(d2, rd2)
+    tied = d2[:, 1:] == d2[:, :-1]
+    assert tied.any() and (idx[:, 1:][tied] > idx[:, :-1][tied]).all()
+
+
+@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("case", ["lattice", "uniform", "masked"])
+def test_kernel_emulation_short_lists(case, k):
+    """The kernel at k = 3 and 8 keeps lists of ``list_len(k)`` (4 and 8)
+    entries; its first k, emulated with the plan for k, equal the plain
+    version at k."""
+    _, pts, _, mask = next(c for c in _cases() if c[0] == case)
+    qs = pts[:, ::5].contiguous()
+    n = pts.shape[1]
+    plan = ck.exact_plan(1, n, qs.shape[1], sms=132, k=k)
+    kl = plan["list"]
+    assert kl == {3: 4, 8: 8}[k]
+    for b in range(pts.shape[0]):
+        m = None if mask is None else mask[b:b + 1]
+        want = ck.knn_exact_plain(pts[b:b + 1], qs[b:b + 1], k, points_mask=m)
+        for p in (plan, {"warps": 8, "chunk": 32}):
+            got = _emulate_exact(pts[b:b + 1], qs[b:b + 1], m, p, k=kl)
+            assert torch.equal(got[0][..., :k], want[0]), p
+            assert torch.equal(got[1][..., :k], want[1]), p
+
+
+PT_SHAPES = [(16384, 16384, 8), (16384, 4096, 16), (4096, 4096, 16),
+             (1024, 256, 16), (64, 64, 16), (4096, 16384, 3), (64, 256, 3)]
+
+
+@pytest.mark.parametrize("n,q,k", PT_SHAPES)
+def test_exact_plan_per_k(n, q, k):
+    """The plan's list length and shared memory per k at
+    PointTransformer's shapes (B = 2): lists of 4, 8 or 16 entries; the
+    shared memory the larger of the tile and the tree merge's lists plus
+    the posted bounds, as ``shared_bytes`` in ``knn_exact.cu`` computes
+    it, within what a block may have; the rest of the plan as at k = 16."""
+    plan = ck.exact_plan(2, n, q, sms=132, k=k)
+    base = ck.exact_plan(2, n, q, sms=132)
+    assert {key: plan[key] for key in ("qpt", "warps", "chunk")} == {
+        key: base[key] for key in ("qpt", "warps", "chunk")}
+    kl, qpt, nw, chunk = plan["list"], plan["qpt"], plan["warps"], \
+        plan["chunk"]
+    assert kl == ck.list_len(k) and kl >= k and kl & (kl - 1) == 0
+    tile = (nw * chunk + 32) * 16
+    merge = nw // 2 * qpt * kl * 32 * 8
+    assert plan["shared"] == max(tile, merge) + 4 * nw * 32 * qpt * 4
+    assert 0 < plan["shared"] <= 232_448
+    assert [ck.list_len(k) for k in (3, 4, 5, 8, 9, 16)] == [
+        4, 4, 8, 8, 16, 16]

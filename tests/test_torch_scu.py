@@ -307,14 +307,13 @@ def test_update_probs_matches_jax():
 def test_training_split_augmentation_is_not_ported():
     """The shipped recipe runs on the training split (bit-equal to the JAX
     package's: tests/test_torch_scu_train.py); the one augmentation still
-    unported, ``HueSaturationTranslation``, raises there."""
+    unported, ``rotate`` with ``method="all"``, raises there."""
     data = {"point": np.random.default_rng(0).uniform(0, 2, (50, 3)),
             "feat": np.full((50, 3), 100.0, np.float32)}
     out = SparseConvUnet(seed=1).preprocess(data, {"split": "train"})
     assert 0 < len(out["point"]) <= 50
-    augment = dict(SparseConvUnet().cfg.augment,
-                   HueSaturationTranslation={"hue_max": 0.5})
-    with pytest.raises(NotImplementedError, match="HueSaturationTranslation"):
+    augment = dict(SparseConvUnet().cfg.augment, rotate={"method": "all"})
+    with pytest.raises(NotImplementedError, match="all"):
         SparseConvUnet(augment=augment).preprocess(data, {"split": "train"})
 
 

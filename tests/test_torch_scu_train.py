@@ -633,9 +633,8 @@ def test_scannet_augmentation_seeds_take_every_branch(monkeypatch):
 def test_unported_augmentations_raise():
     pc = np.zeros((10, 3), np.float32)
     feat = np.zeros((10, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="HueSaturation"):
-        SemsegAugmentation({}).augment(pc, feat, None,
-                                       {"HueSaturationTranslation": {}})
+    with pytest.raises(NotImplementedError, match="not ported"):
+        SemsegAugmentation({}).augment(pc, feat, None, {"Unknown": {}})
     with pytest.raises(NotImplementedError, match="all"):
         SemsegAugmentation({}).augment(pc, feat, None,
                                        {"rotate": {"method": "all"}})
