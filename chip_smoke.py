@@ -44,7 +44,13 @@ config, with random weights drawn from a seeded generator:
 * PointTransformer: the eval forward at the bench's 2 x 16,384 points
   (``bench.py:530-564``), and ``run_train`` from the port's
   ``pointtransformer_s3dis.yml`` through the command line on S3DIS rooms
-  (3 x 16,384 a step, SGD, the YAML's augmentations), with validation.
+  (3 x 16,384 a step, SGD, the YAML's augmentations), with validation;
+* KPConv (KPFCNN): the eval forward on the bench's request (a
+  120,000-point lidar cloud, one 16,384-point patch, ``bench.py:430``),
+  one training step against the CPU, ``run_train`` from the port's
+  ``kpconv_semantickitti.yml`` through the command line on SemanticKITTI
+  scans, and ``run_test`` and ``run_inference`` from
+  ``kpconv_s3dis.yml`` on an S3DIS room of the test area.
 
 The models are the port's ``RandLANet()`` and ``SparseConvUnet()`` at their
 defaults, which equal the model sections of
@@ -63,7 +69,7 @@ its own branches and on the card's. ``python3 chip_smoke.py
 --pointpillars`` runs only the pointpillars phase, ``--pp-train`` only
 the pp_train phase (neither builds a kernel), ``--cli`` the build and
 the cli phase, ``--pointtransformer`` the build and the pointtransformer
-phase.
+phase, ``--kpconv`` only the kpconv phase (no kernel of the port's).
 ``python3 chip_smoke.py --stencil-calls`` times only the room request's
 39 stencil convolutions,
 alone and inside a forward; ``python3 chip_smoke.py --knn-calls`` only
@@ -230,6 +236,25 @@ Phases, one line each (or more), in this order:
    profiled eval forward and training step in a child process
    (``--pt-profile``).
 
+15. kpconv (~70 s): KPFCNN from the port's ``kpconv_semantickitti.yml``
+   at full width and depth, seeded random weights: the bench's request
+   (``kp_request``: a 120,000-point cloud of ``bench.py:421-427``'s
+   formula, the test split's ``preprocess``, the random sampler, one
+   16,384-point patch) through the eval forward, card vs CPU within
+   ``KP_TOL``, the median of 10, peak memory, the host ``transform``'s
+   median and each level's rows at the neighbour limit; one float32
+   training step, card vs CPU (loss ``KP_LOSS_TOL``, gradients and BN
+   statistics ``KP_TOL``) with the CPU on the card's LeakyReLU and
+   max-pool branches (``_SameBranches(net="kpconv")``); ``run_pipeline
+   .main`` on that YAML over 4 + 1 SemanticKITTI scans (4 train steps,
+   1 validation step, the step median, the host share, peak memory, the
+   set-up's parts); on ``kpconv_s3dis.yml`` ``--split test`` over one
+   room of area 5 (``write_s3dis_rooms``) until it is covered, every
+   point labelled, features of width 4, then ``run_inference`` on the
+   room; a profiled forward and step in a child process
+   (``--kpconv-profile``). No port kernel: every launch count stays 0.
+   One JSON line ``{"kpconv": ...}`` holds the phase's numbers.
+
 Every path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is not 0. The
 second-last line is a JSON record of the kernels (each with its bound: the
@@ -260,7 +285,7 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
-from open3d_ml_tpu_torch import DATASET, MODEL, run_pipeline
+from open3d_ml_tpu_torch import DATASET, MODEL, SAMPLER, run_pipeline
 from open3d_ml_tpu_torch.dataloaders import (BatchLoader, DefaultBatcher,
                                              PointCloudDataloader)
 from open3d_ml_tpu_torch.datasets import (KITTI, SyntheticBoxes,
@@ -269,6 +294,7 @@ from open3d_ml_tpu_torch.datasets._resources.semantickitti import (
     LEARNING_MAP, LEARNING_MAP_INV)
 from open3d_ml_tpu_torch.datasets.synthetic import make_semseg_scene
 from open3d_ml_tpu_torch.datasets.utils import BEVBox3D
+from open3d_ml_tpu_torch.models import kpconv as tkp
 from open3d_ml_tpu_torch.models import point_pillars as tpp
 from open3d_ml_tpu_torch.models import point_transformer as tpt
 from open3d_ml_tpu_torch.models import randlanet as trl
@@ -472,6 +498,24 @@ PT_ROOMS = ("Area_1_office_1", "Area_1_office_2", "Area_2_office_1",
 PT_ROOM_POINTS = 80_000
 # fps beyond what a block can stage in shared memory (12 N bytes)
 PT_FPS_UNSTAGED = (24_576, 2_048)
+# KPConv (KPFCNN): the port's YAMLs, the bench's lidar request
+# (bench.py:430, ``child_kpconv``), the command line's SemanticKITTI
+# scans and the S3DIS room of the test area
+KP_CONFIGS = {"semantickitti":
+              "open3d_ml_tpu_torch/configs/kpconv_semantickitti.yml",
+              "s3dis": "open3d_ml_tpu_torch/configs/kpconv_s3dis.yml"}
+KP_TOL = 1e-4  # card vs CPU: the forward's relative L2, the step's gradient
+KP_LOSS_TOL = 1e-5  # card vs CPU: the step's loss, relative
+KP_TRAIN_SCANS = {"00": 4, "08": 1}  # 4 train steps of 1, 1 validation
+KP_TEST_ROOM = "Area_5_office_1"  # test_area_idx: 5
+# the methods whose seconds a command-line run of the phase reports
+KP_TIMED = ((tkp.KPFCNN, "transform"), (tkp.KPFCNN, "preprocess"),
+            (SemanticSegmentation, "__init__"),
+            (PointCloudDataloader, "__init__"),
+            (SemanticSegmentation, "save_ckpt"),
+            (SemanticSegmentation, "load_ckpt"))
+KP_RANGES = ("kpconv eval forward", "kpconv train forward",
+             "kpconv backward", "kpconv sgd")
 KITTI_CALIB = (f"P0: {KITTI_P}", f"P1: {KITTI_P}", f"P2: {KITTI_P}",
                f"P3: {KITTI_P}", "R0_rect: 1 0 0 0 1 0 0 0 1",
                f"Tr_velo_to_cam: {KITTI_TR}", f"Tr_imu_to_velo: {KITTI_TR}")
@@ -1385,7 +1429,10 @@ class _SameBranches:
     "scu": SparseConvUnet's ReLUs, whose inputs near 0 after BatchNorm
     route the gradient the same way; with "pp": PointPillars' ReLUs, and
     its pillar max, whose near ties route the gradient to the points
-    rounding makes the largest): the first run records its choices,
+    rounding makes the largest; with "kpconv": KPFCNN's LeakyReLUs and
+    its max pools, ``models/kpconv.py`` ``leaky_relu`` and ``max_pool``,
+    whose near ties would split or move the gradient): the first run
+    records its choices,
     the run after ``replay()`` takes them and counts in ``differ`` the
     choices its own values would have made otherwise. Like the fixed
     dropout mask, this gives both runs one function. With ``active`` false
@@ -1393,7 +1440,8 @@ class _SameBranches:
 
     def __init__(self, active=True, net="randla"):
         self.active = active
-        self.module = {"randla": trl, "scu": tscu, "pp": tpp}[net]
+        self.module = {"randla": trl, "scu": tscu, "pp": tpp,
+                       "kpconv": tkp}[net]
         self.recorded, self.replaying, self.differ = [], False, 0
         self.total = 0  # choices recorded
 
@@ -1452,6 +1500,19 @@ class _SameBranches:
             return (vmax.detach() + moved[:num_segments] /
                     share[:num_segments].clamp(min=1))
 
+        if self.module is tkp:
+            def kp_max_pool(x, inds):
+                rows = tkp.gather_rows(tkp._with_zero_row(x), inds)
+                pick = choose(rows.argmax(dim=2, keepdim=True))
+                return torch.gather(rows, 2, pick).squeeze(2)
+
+            def kp_leaky_relu(x, slope):
+                return torch.where(choose(x >= 0), x, x * slope)
+
+            self._saved = [(tkp, "max_pool", tkp.max_pool),
+                           (tkp, "leaky_relu", tkp.leaky_relu)]
+            tkp.max_pool, tkp.leaky_relu = kp_max_pool, kp_leaky_relu
+            return self
         self._saved = [(self.module, "F", self.module.F),
                        (trl._BucketLevel, "pool_max",
                         trl._BucketLevel.pool_max),
@@ -4565,6 +4626,406 @@ def phase_pointtransformer(card):
     return launches, knn_rec, fps_rec
 
 
+# ------------------------------------------------------------------ KPConv
+
+def kp_model(name, **overrides):
+    """The port's KPFCNN from the model section of its ``name`` YAML
+    (``KP_CONFIGS``), seeded, and the YAML's config."""
+    from open3d_ml_tpu_torch.utils import Config
+    cfg = Config.load_from_file(REPO / KP_CONFIGS[name])
+    kwargs = dict(cfg.model.to_dict(), seed=SEED, **overrides)
+    kwargs.pop("name")
+    return MODEL.get("KPFCNN")(**kwargs), cfg
+
+
+def kp_cloud(n, seed=SEED, r_max=50.0):
+    """The bench's lidar cloud (``bench.py:421-427`` ``_lidar_cloud``): the
+    radius log-distributed in 2-``r_max`` m, height uniform in -2-1 m."""
+    rng = np.random.default_rng(seed)
+    r = 2.0 * (r_max / 2.0) ** rng.uniform(0, 1, n)
+    th = rng.uniform(0, 2 * np.pi, n)
+    return np.stack([r * np.cos(th), r * np.sin(th),
+                     rng.uniform(-2, 1, n)], 1).astype(np.float32)
+
+
+def kp_request(model, split="test", draws=3):
+    """The bench's request: a 120,000-point cloud, the split's
+    ``preprocess``, the random point sampler and one patch at B = 1
+    (``child_kpconv``). Returns (the collated batch, the median host
+    ``transform`` ms over ``draws`` draws)."""
+    data = {"point": kp_cloud(SCAN_POINTS), "feat": None,
+            "label": np.zeros(SCAN_POINTS, np.int32)}
+    attr = {"split": split}
+    pre = model.preprocess(data, attr)
+    model.trans_point_sampler = SAMPLER.get(
+        "SemSegRandomSampler").get_point_sampler()
+    times, samples = [], []
+    for _ in range(draws):
+        t0 = time.perf_counter()
+        samples.append(model.transform(pre, attr))
+        times.append((time.perf_counter() - t0) * 1e3)
+    batch = DefaultBatcher().collate_fn([{"data": samples[0]}])["data"]
+    return batch, statistics.median(times)
+
+
+def kp_tensors(batch, device):
+    return {k: ([torch.from_numpy(x).to(device) for x in v]
+                if isinstance(v, list) else torch.from_numpy(v).to(device))
+            for k, v in batch.items() if k != "point_inds"}
+
+
+def kp_caps_line(batch):
+    """Each level's valid rows and the share of them whose radius search
+    reached the level's neighbour limit (no sentinel in the row)."""
+    parts = []
+    for lvl, nb in enumerate(batch["neighbors"]):
+        cap = batch["points"][lvl].shape[1]
+        valid = batch["points"][lvl][0, :, 0] < 1e5
+        at_limit = (nb[0][valid] != cap).all(-1).mean()
+        parts.append(f"level {lvl}: {int(valid.sum())} of {cap} rows, "
+                     f"limit {nb.shape[-1]} reached by {at_limit:.1%}")
+    return "; ".join(parts)
+
+
+def _kp_setup_line(spent):
+    """Where a command-line run's set-up went (``KP_TIMED``)."""
+    return ", ".join(f"{key} {spent[key]:.2f} s x{spent[key + ' calls']}"
+                     for key in ("SemanticSegmentation.__init__",
+                                 "PointCloudDataloader.__init__",
+                                 "KPFCNN.preprocess",
+                                 "SemanticSegmentation.save_ckpt",
+                                 "SemanticSegmentation.load_ckpt"))
+
+
+def _kp_eval(card):
+    """(a) The eval forward on the bench's request at B = 1 in float32:
+    card vs CPU, the median of 10, peak memory, the host transform."""
+    model, _ = kp_model("semantickitti")
+    batch, transform_ms = kp_request(model)
+    net = random_weights(model.get_net(), SEED).eval()
+    cpu_x = kp_tensors(batch, "cpu")
+    with torch.no_grad():
+        cpu_out = net(cpu_x)
+    net = net.to(DEVICE)
+    x = kp_tensors(batch, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        out = net(x)
+    torch.cuda.synchronize()
+    check_counts("kpconv", read_counts(), {})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rel, agree = _compare(out, cpu_out)
+    n = model.cfg.num_points
+    if out.shape != (1, n, model.cfg.num_classes) or \
+            not torch.isfinite(out).all():
+        raise AssertionError(f"kpconv: logits of shape {tuple(out.shape)}, "
+                             f"finite {bool(torch.isfinite(out).all())}")
+    if rel > KP_TOL:
+        raise AssertionError(f"kpconv: eval forward card vs CPU relative L2 "
+                             f"{rel:.3e} > {KP_TOL}")
+    med, _ = median_forward_s(net, x)
+    say("kpconv", f"bench request ({SCAN_POINTS} lidar points, the test "
+        f"split's preprocess, 1 x {n}-point patch of the random sampler): "
+        + kp_caps_line(batch))
+    say("kpconv", f"eval forward 1 x {n} (kpconv_semantickitti.yml, "
+        f"seeded random weights, float32): card vs CPU relative L2 "
+        f"{rel:.3e} (<= {KP_TOL}), argmax agreement {agree:.4%}; median "
+        f"of 10 {med * 1e3:.3f} ms ({n / med:.0f} points/s); host transform "
+        f"median {transform_ms:.1f} ms a patch; peak device memory "
+        f"{peak:.3f} GiB on {card}")
+    return {"forward_ms": med * 1e3, "transform_ms": transform_ms,
+            "forward_rel_l2": rel, "peak_gib": peak}
+
+
+def _kp_step(card):
+    """(b) One float32 training step at B = 1 on a training patch of the
+    bench's cloud (augmented), card vs CPU from the same seeded weights,
+    the CPU on the card's LeakyReLU and max-pool branches."""
+    model, cfg = kp_model("semantickitti")
+    batch, _ = kp_request(model, split="train", draws=1)
+    batch["labels"] = np.random.default_rng(SEED).integers(
+        0, model.cfg.num_classes + 1, batch["labels"].shape).astype(np.int32)
+
+    class Dataset:
+        pass
+
+    Dataset.cfg = cfg.dataset
+    state = random_weights(model.get_net(), SEED).state_dict()
+    out = {}
+    with _SameBranches(net="kpconv") as branches:
+        for card_run, device in ((True, DEVICE), (False, "cpu")):
+            net = model.get_net()
+            net.load_state_dict(state)
+            net = net.to(device).train()
+            x = kp_tensors(batch, device)
+            reset_counts()
+            t0 = time.perf_counter()
+            logits = net(x)
+            loss, _, _ = model.get_loss(SemSegLoss(None, model, Dataset),
+                                        logits, x)
+            loss = loss + model.regularizer_loss(net)
+            loss.backward()
+            if card_run:
+                torch.cuda.synchronize()
+                check_counts("kpconv", read_counts(), {})
+                branches.replay()
+            out[card_run] = {
+                "seconds": time.perf_counter() - t0,
+                "loss": loss.detach().double().cpu(),
+                "grads": {k: p.grad.cpu() for k, p in
+                          net.named_parameters()},
+                "stats": torch.cat([b.reshape(-1).cpu() for k, b in
+                                    net.state_dict().items()
+                                    if k.endswith(("running_mean",
+                                                   "running_var"))])}
+        if branches.recorded:
+            raise AssertionError("kpconv: the CPU step took fewer branches "
+                                 "than the card's")
+    gpu, cpu = out[True], out[False]
+    loss_rel = (abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])).item()
+    grad_rel = _rel_l2(torch.cat([g.reshape(-1) for g in
+                                  gpu["grads"].values()]),
+                       torch.cat([g.reshape(-1) for g in
+                                  cpu["grads"].values()]))
+    worst = max(((k, _rel_l2(gpu["grads"][k], g))
+                 for k, g in cpu["grads"].items() if g.norm() > 0),
+                key=lambda kv: kv[1])
+    stats_rel = _rel_l2(gpu["stats"], cpu["stats"])
+    say("kpconv", f"one float32 training step 1 x {model.cfg.num_points} "
+        f"(augmented patch, seeded weights, random labels): loss "
+        f"{cpu['loss'].item():.5f}, card vs CPU loss relative difference "
+        f"{loss_rel:.3e} (<= {KP_LOSS_TOL}), gradient relative L2 "
+        f"{grad_rel:.3e} (<= {KP_TOL}; worst tensor {worst[0]} "
+        f"{worst[1]:.3e}), BN statistics {stats_rel:.3e}; the CPU on the "
+        f"card's branches ({branches.differ} of {branches.total} choices "
+        f"its own values would have made otherwise); card step "
+        f"{gpu['seconds'] * 1e3:.1f} ms (first), CPU {cpu['seconds']:.2f} s "
+        f"on {card}")
+    if loss_rel > KP_LOSS_TOL or grad_rel > KP_TOL or stats_rel > KP_TOL:
+        raise AssertionError(f"kpconv: training step card vs CPU: loss "
+                             f"{loss_rel:.3e}, gradients {grad_rel:.3e}, "
+                             f"statistics {stats_rel:.3e}")
+    return {"step_loss_rel": loss_rel, "step_grad_rel_l2": grad_rel,
+            "step_stats_rel_l2": stats_rel}
+
+
+def _kp_train_cli(card, root):
+    """(c) ``run_train`` through the command line on
+    ``kpconv_semantickitti.yml`` over SemanticKITTI scans of
+    ``write_semantickitti``: 4 train steps and 1 validation step."""
+    write_semantickitti(root / "kitti", SCAN_POINTS, scans=KP_TRAIN_SCANS)
+    argv = ["-c", REPO / KP_CONFIGS["semantickitti"], "--device", DEVICE,
+            "--dataset.dataset_path", root / "kitti",
+            "--dataset.cache_dir", root / "cache",
+            "--main_log_dir", root / "logs", "--split", "train",
+            "--pipeline.max_epoch", 0]
+    torch.cuda.reset_peak_memory_stats()
+    wall, launches, record, spent = _cli_run(argv, KP_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = KP_TRAIN_SCANS["00"]
+    train_s = _check_steps(record, 0, len(record), {}, {},
+                           ["train"] * steps + ["eval"])
+    check_counts("kpconv", launches, {})
+    ckpt = (root / "logs" / "KPFCNN_SemanticKITTI_torch" / "checkpoint" /
+            "ckpt_00000.pth")
+    if not ckpt.exists():
+        raise AssertionError(f"kpconv: no checkpoint at {ckpt}")
+    steady = statistics.median(train_s[1:])
+    step_s = sum(r[2] - r[1] for r in record)
+    host = spent["KPFCNN.transform"] + spent["KPFCNN.preprocess"]
+    say("kpconv", f"run_pipeline -c {KP_CONFIGS['semantickitti']} --split "
+        f"train --pipeline.max_epoch 0 over {steps} + 1 SemanticKITTI scans "
+        f"of {SCAN_POINTS} points: {steps} train steps of 1 x 16384 and 1 "
+        f"validation step, losses {[round(r[4], 4) for r in record]}, "
+        f"{ckpt.name} written; wall {wall:.2f} s, step median "
+        f"{steady * 1e3:.1f} ms over steps 2..{steps} (first "
+        f"{train_s[0] * 1e3:.1f} ms), the steps {step_s / wall:.1%} of the "
+        f"run; host preprocess + transform {host:.2f} s "
+        f"({spent['KPFCNN.transform calls']} patches, "
+        f"{host / wall:.1%} of the run, in the loader's thread); peak device "
+        f"memory {peak:.3f} GiB on {card}")
+    say("kpconv", "train run's set-up: " + _kp_setup_line(spent))
+    return {"train_step_ms": steady * 1e3, "train_wall_s": wall,
+            "train_host_share": host / wall, "train_peak_gib": peak}
+
+
+def _kp_test_cli(card, root):
+    """(d) ``run_test`` through the command line on ``kpconv_s3dis.yml``
+    over one S3DIS room of the test area (1.5 m balls until the room is
+    covered, the features [1, r, g, b]), then ``run_inference`` on it."""
+    write_s3dis_rooms(root / "s3dis", PT_ROOM_POINTS, rooms=(KP_TEST_ROOM,))
+    with open(root / "s3dis" / "original_pkl" / f"{KP_TEST_ROOM}.pkl",
+              "rb") as f:
+        pc = pickle.load(f)[0]
+    argv = ["-c", REPO / KP_CONFIGS["s3dis"], "--device", DEVICE,
+            "--dataset.dataset_path", root / "s3dis",
+            "--dataset.cache_dir", root / "cache",
+            "--dataset.test_result_folder", root / "test",
+            "--main_log_dir", root / "logs"]
+    widths = []
+    real_forward = tkp.KPFCNNNet.forward
+
+    def forward(self, batch):
+        widths.append(batch["features"].shape[-1])
+        return real_forward(self, batch)
+
+    with mock.patch.object(tkp.KPFCNNNet, "forward", forward):
+        wall, launches, _, spent = _cli_run(argv + ["--split", "test"],
+                                            KP_TIMED)
+    check_counts("kpconv", launches, {})
+    pred = np.load(root / "test" / "S3DIS" / f"{KP_TEST_ROOM}.npy")
+    if pred.shape != (len(pc),) or pred.min() < 0 or pred.max() >= 13:
+        raise AssertionError(f"kpconv: run_test labelled {pred.shape} points "
+                             f"in [{pred.min()}, {pred.max()}] of "
+                             f"{len(pc)}")
+    if set(widths) != {4}:
+        raise AssertionError(f"kpconv: S3DIS features of widths {widths}")
+    host = spent["KPFCNN.transform"] + spent["KPFCNN.preprocess"]
+    say("kpconv", f"run_pipeline -c {KP_CONFIGS['s3dis']} --split test on "
+        f"{KP_TEST_ROOM} ({len(pc)} points): the loop ended after "
+        f"{len(widths)} patches (1.5 m balls, features [1, r, g, b]), every "
+        f"point labelled; wall {wall:.2f} s ({1 / wall:.3f} scans/s), host "
+        f"preprocess + transform {host:.2f} s ({host / wall:.1%} of the "
+        f"run) on {card}")
+    say("kpconv", "test run's set-up: " + _kp_setup_line(spent))
+    pipeline, _ = run_pipeline.build_pipeline(*run_pipeline.parse_args(
+        [str(a) for a in argv]))
+    reset_counts()
+    test_patches = len(widths)
+    t0 = time.perf_counter()
+    with mock.patch.object(tkp.KPFCNNNet, "forward", forward):
+        result = pipeline.run_inference({"point": pc[:, :3],
+                                         "feat": pc[:, 3:6], "label": None})
+    infer_s = time.perf_counter() - t0
+    check_counts("kpconv", read_counts(), {})
+    labels = result["predict_labels"]
+    if labels.shape != (len(pc),):
+        raise AssertionError(f"kpconv: run_inference gave {labels.shape} "
+                             f"labels for {len(pc)} points")
+    say("kpconv", f"run_inference on {KP_TEST_ROOM}: one label per point "
+        f"({len(pc)}), {len(widths) - test_patches} patches, {infer_s:.2f} s "
+        f"on {card}")
+    return {"test_patches": test_patches, "test_wall_s": wall,
+            "test_scans_per_s": 1 / wall, "test_host_share": host / wall,
+            "inference_s": infer_s}
+
+
+def kp_profile():
+    """``--kpconv-profile``: one torch.profiler pass over one eval forward
+    and one training step (train-mode forward, loss and backward, SGD) of
+    KPFCNN at the SemanticKITTI config on the bench's request, split by
+    record_function ranges; prints one JSON line per range: device ms
+    (kernel rows), kernels, wall ms and the top 8 kernels. Run in a
+    process of its own: the profiler traces the card once a process."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    phase_device()
+    model, cfg = kp_model("semantickitti")
+    batch, _ = kp_request(model, draws=1)
+    batch["labels"] = np.random.default_rng(SEED).integers(
+        0, model.cfg.num_classes + 1, batch["labels"].shape).astype(np.int32)
+    net = random_weights(model.get_net(), SEED).to(DEVICE)
+    x = kp_tensors(batch, DEVICE)
+
+    class Dataset:
+        pass
+
+    Dataset.cfg = cfg.dataset
+    loss_fn = SemSegLoss(None, model, Dataset)
+    optimizer, _ = model.get_optimizer(cfg.pipeline, net)
+
+    def step(ranges=False):
+        def scope(name):
+            return (record_function(name) if ranges else
+                    contextlib.nullcontext())
+        net.eval()
+        with scope(KP_RANGES[0]), torch.no_grad():
+            net(x)
+            torch.cuda.synchronize()
+        net.train()
+        with scope(KP_RANGES[1]):
+            loss, _, _ = model.get_loss(loss_fn, net(x), x)
+            torch.cuda.synchronize()
+        with scope(KP_RANGES[2]):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            torch.cuda.synchronize()
+        with scope(KP_RANGES[3]):
+            optimizer.step()
+            torch.cuda.synchronize()
+
+    for _ in range(2):
+        step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(ranges=True)
+    events = prof.events()
+    for name in KP_RANGES:
+        rng = next(e for e in events if e.name == name and
+                   e.device_type == torch.autograd.DeviceType.CPU)
+        start, end = rng.time_range.start, rng.time_range.end
+        kernels, calls = collections.Counter(), collections.Counter()
+        for e in events:
+            if (e.device_type == torch.autograd.DeviceType.CUDA and
+                    not e.name.startswith("kpconv ") and
+                    start <= e.time_range.start <= end):
+                kernels[e.name] += e.time_range.elapsed_us() / 1e3
+                calls[e.name] += 1
+        print(json.dumps({
+            "range": name, "device_ms": sum(kernels.values()),
+            "kernels": sum(calls.values()), "wall_ms": (end - start) / 1e3,
+            "top": [[k[:64], ms, calls[k]]
+                    for k, ms in kernels.most_common(8)]}), flush=True)
+
+
+def _kp_profiles(card):
+    """``kp_profile`` in a child process; returns {range: device ms, busy
+    share} and prints each range's line."""
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--kpconv-profile"], cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"kpconv: the profiler run failed:\n"
+                             f"{run.stderr[-4000:]}")
+    records = [json.loads(line) for line in run.stdout.splitlines()
+               if line.startswith('{"range"')]
+    if len(records) != len(KP_RANGES) or any(r["device_ms"] <= 0
+                                            for r in records):
+        raise AssertionError(f"kpconv: the profiler saw no device time: "
+                             f"{run.stdout[-2000:]}")
+    out = {}
+    for r in records:
+        busy = r["device_ms"] / r["wall_ms"]
+        out[r["range"]] = {"device_ms": r["device_ms"], "busy": busy,
+                           "kernels": r["kernels"]}
+        say("kpconv", f"profiled {r['range']}: device {r['device_ms']:.3f} "
+            f"ms over {r['kernels']} kernels in a {r['wall_ms']:.3f} ms span "
+            f"(busy {busy:.1%}); top: " + ", ".join(
+                f"{k} {ms:.3f} ms x{n}" for k, ms, n in r["top"]) +
+            f" (on {card})")
+    return out
+
+
+def phase_kpconv(card):
+    """KPConv (KPFCNN) at the shipped SemanticKITTI and S3DIS configs, full
+    width and depth, seeded weights: (a) the eval forward on the bench's
+    request, (b) one training step against the CPU, (c) ``run_train`` and
+    (d) ``run_test`` and ``run_inference`` through the command line, and a
+    profiled forward and step. KPConv reaches no kernel of the port's:
+    every launch count stays 0. Prints one JSON record of the phase."""
+    t_phase = time.perf_counter()
+    record = _kp_eval(card)
+    record.update(_kp_step(card))
+    with tempfile.TemporaryDirectory() as tmp:
+        record.update(_kp_train_cli(card, Path(tmp)))
+        record.update(_kp_test_cli(card, Path(tmp)))
+    record["profile"] = _kp_profiles(card)
+    record["phase_s"] = time.perf_counter() - t_phase
+    say("kpconv", f"phase {record['phase_s']:.1f} s")
+    print(json.dumps({"kpconv": record, "card": card}), flush=True)
+    return record
+
+
 def step_branches():
     """The float32 card-vs-CPU step on the patches of model seeds 0-3, with
     the CPU on its own branches and then on the card's."""
@@ -4664,6 +5125,11 @@ def main():
         return None
     if sys.argv[1:] == ["--pt-profile"]:
         return pt_profile()
+    if sys.argv[1:] == ["--kpconv"]:
+        phase_kpconv(phase_device())
+        return None
+    if sys.argv[1:] == ["--kpconv-profile"]:
+        return kp_profile()
     card = phase_device()
     model = MODEL.get("RandLANet")()
     phase_build()
@@ -4689,6 +5155,7 @@ def main():
     phase_pp_train(card)
     phase_cli(card)
     pt_launches, pt_knn, measured["fps"] = phase_pointtransformer(card)
+    phase_kpconv(card)
     # knn_exact: one RandLA eval forward's 4 launches and one
     # PointTransformer forward's 26; its launches, run_inference's and the
     # PointTransformer forward's

@@ -15,9 +15,12 @@ pillars, float32) with ``ObjectDetection``'s ``run_valid`` (mAP),
 ``run_test`` and ``run_inference`` on ``KITTI`` and ``SyntheticBoxes``;
 and PointTransformer on the exact path (furthest point sampling on the
 ``fps`` kernel, its k-NN searches at k = 3, 8 and 16 on ``knn_exact``)
-with ``run_train`` on ``S3DIS``. Each kernel is CUDA C++ for Hopper with
-a plain PyTorch version for CPU tensors; PointPillars' path reaches no
-kernel of the JAX package, and its convolutions are PyTorch's. The
+with ``run_train`` on ``S3DIS``; and KPConv (KPFCNN) at its five shipped
+configs, its radius pyramid built on the host over the port's own C++
+KD-tree (``native``), with ``run_train``, ``run_test`` and
+``run_inference``. Each kernel is CUDA C++ for Hopper with a plain
+PyTorch version for CPU tensors; PointPillars' and KPConv's paths reach
+no kernel of the JAX package, and their convolutions are PyTorch's. The
 command line ``python -m open3d_ml_tpu_torch.run_pipeline`` trains,
 validates and tests from a config file (the port's copies of the
 shipped YAMLs are in ``configs/``) on the readers those configs name.

@@ -6,7 +6,9 @@ epoch visits the clouds in a fresh random order; a patch is the
 random repeats when it is smaller), shuffled, so that a model may take
 pc[:n // r] as a random subsample. The JAX sampler's generator is unseeded;
 this one takes an optional ``seed`` with the same default. The point
-sampler draws from the ``rng`` it is called with.
+sampler draws from the ``rng`` it is called with, and ignores a
+``radius`` (KPConv's ``in_radius``), as the JAX sampler does: KPConv
+trains and validates on ``num_points``-nearest patches, not balls.
 """
 
 import numpy as np

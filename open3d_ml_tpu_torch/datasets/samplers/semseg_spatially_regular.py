@@ -3,15 +3,18 @@
 Counterpart of ``open3d_ml_tpu/datasets/samplers/semseg_spatially_regular.py``:
 every point of a cloud carries a possibility score; a patch is centred on
 the least covered point; its points gain (1 - d^2 / max d^2)^2; a cloud is
-done when its least possibility exceeds 0.5. The JAX sampler draws from an
-unseeded generator; this one takes an optional ``seed`` with the same
-default. The training splits' cloud order and the radius (ball) patches
-of KPConv are not ported.
+done when its least possibility exceeds 0.5. A patch is the ``num_points``
+nearest points of the centre or, when the caller gives a ``radius``
+(KPConv's ``in_radius``), every point within it (a ball). The JAX sampler
+draws from an unseeded generator; this one takes an optional ``seed``
+with the same default.
 """
 
 import numpy as np
 
 from ...utils.registry import SAMPLER
+
+TRAIN_SPLITS = ("train", "training", "valid", "validation")
 
 
 @SAMPLER.register_module()
@@ -20,6 +23,7 @@ class SemSegSpatiallyRegularSampler:
     def __init__(self, dataset, seed=None):
         self.dataset = dataset
         self.length = len(dataset)
+        self.split = dataset.split
         self.rng = np.random.default_rng(seed)
         self.cloud_id = 0
 
@@ -43,34 +47,72 @@ class SemSegSpatiallyRegularSampler:
                 float(np.min(self.possibilities[-1])))
 
     def get_cloud_sampler(self):
-        """Generator of the test split's cloud ids: each cloud in turn
-        until it is covered."""
-        curr = 0
-        while curr < self.length:
-            if self.min_possibilities[curr] > 0.5:
-                curr += 1
-                continue
-            self.cloud_id = curr
-            yield self.cloud_id
+        """Generator of cloud ids. On a training or validation split,
+        ``length`` draws, each the cloud whose least possibility is lowest;
+        on any other, each cloud in turn until it is covered."""
+
+        def gen_train():
+            for _ in range(self.length):
+                self.cloud_id = int(np.argmin(self.min_possibilities))
+                yield self.cloud_id
+
+        def gen_test():
+            curr = 0
+            while curr < self.length:
+                if self.min_possibilities[curr] > 0.5:
+                    curr += 1
+                    continue
+                self.cloud_id = curr
+                yield self.cloud_id
+
+        return gen_train() if self.split in TRAIN_SPLITS else gen_test()
 
     def get_point_sampler(self):
-        """The patch sampler that ``transform`` calls: (pc, num_points,
-        search_tree, rng) -> (patch points, their indices, the centre)."""
+        """The patch sampler that ``transform`` calls with keywords ``pc``,
+        ``num_points``, ``radius``, ``search_tree`` and ``rng``: (patch
+        points, their indices, the centre). With ``radius`` the patch is
+        the ball, from a scipy ``cKDTree`` (``query_ball_point``) or an
+        sklearn-style tree (``query_radius``); a centre with fewer than 2
+        points in it gains 0.001 and the next least covered point is
+        tried. ``patchwise=False`` marks the whole cloud covered and
+        returns None. Raises KeyError without ``pc``, or without both
+        ``search_tree`` and ``radius``."""
 
-        def _sampler(pc, num_points, search_tree, rng=None, **kwargs):
-            rng = rng or self.rng
+        def _sampler(patchwise=True, **kwargs):
+            if not patchwise:
+                self.possibilities[self.cloud_id][:] = 1.0
+                self.min_possibilities[self.cloud_id] = 1.0
+                return None
+            pc = kwargs.get("pc")
+            num_points = kwargs.get("num_points")
+            radius = kwargs.get("radius")
+            search_tree = kwargs.get("search_tree")
+            rng = kwargs.get("rng") or self.rng
+            if pc is None or (search_tree is None and radius is None):
+                raise KeyError("Provide pc and (search_tree or radius) to "
+                               "the spatially-regular point sampler")
+
             cid = self.cloud_id
             n = 0
             while n < 2:
                 center_id = int(np.argmin(self.possibilities[cid]))
                 center_point = pc[center_id, :].reshape(1, -1)
-                if pc.shape[0] < num_points:
-                    diff = num_points - pc.shape[0]
-                    idxs = np.concatenate([np.arange(pc.shape[0]),
-                                           rng.choice(pc.shape[0], diff)])
-                else:
-                    idxs = np.asarray(search_tree.query(center_point,
-                                                        k=num_points)[1][0])
+                if radius is not None:
+                    if hasattr(search_tree, "query_radius"):
+                        idxs = search_tree.query_radius(center_point,
+                                                        r=radius)[0]
+                    else:
+                        idxs = np.asarray(search_tree.query_ball_point(
+                            center_point[0], r=radius), dtype=np.int64)
+                elif num_points is not None:
+                    if pc.shape[0] < num_points:
+                        diff = num_points - pc.shape[0]
+                        idxs = np.concatenate([
+                            np.arange(pc.shape[0]),
+                            rng.choice(pc.shape[0], diff)])
+                    else:
+                        idxs = np.asarray(search_tree.query(
+                            center_point, k=num_points)[1][0])
                 n = len(idxs)
                 if n < 2:
                     self.possibilities[cid][center_id] += 0.001

@@ -5,7 +5,8 @@ as inference needs it: a model holds its configuration (``cfg``), a host
 random generator (``rng``, seeded by ``cfg.seed``), the point sampler its
 ``transform`` draws patches with (``trans_point_sampler``, set by the
 pipeline), and builds its networks (``get_net``, ``get_eval_net``), each a
-``torch.nn.Module``.
+``torch.nn.Module``; ``regularizer_loss`` is what a training step adds to
+the loss.
 """
 
 from abc import ABC, abstractmethod
@@ -36,6 +37,12 @@ class BaseModel(ABC):
     @abstractmethod
     def get_net(self):
         """Return the ``torch.nn.Module`` implementing the network."""
+
+    def regularizer_loss(self, net):
+        """A term the training step adds to the loss, read from ``net``
+        after its train-mode forward (KPConv's deformable convolutions').
+        Default: 0."""
+        return 0.0
 
     def get_eval_net(self):
         """Network that ``run_inference`` runs. Models whose training net

@@ -4,8 +4,10 @@ Counterpart of ``open3d_ml_tpu/pipelines/semantic_segmentation.py``:
 
 * ``run_train``: epochs of training steps over the train split (the
   model's net, ``get_net``: on the fused path, at the training table
-  budget), each step the forward, the loss, the backward, the optional
-  clip by value, the Adam step, the scheduler step and the step's
+  budget), each step the forward, the loss plus the model's
+  ``regularizer_loss`` (KPConv's deformable convolutions'), the
+  backward, the optional clip by value, the optimizer's step (the
+  model's ``get_optimizer``), the scheduler step and the step's
   confusion matrix counted on the device; then validation through the
   same net in eval mode (the inference budget); scalars to the log;
   checkpoints every ``save_ckpt_freq`` epochs and at the last, and resume
@@ -75,6 +77,18 @@ def init_weights(net, gen):
     return net
 
 
+def _levels(v):
+    """Whether ``v`` is a collated list of arrays (a pyramid's levels)."""
+    return isinstance(v, list) and bool(v) and isinstance(v[0], np.ndarray)
+
+
+def _sample(data, j):
+    """Sample ``j`` of a collated batch, as a batch of one: arrays sliced,
+    and lists of arrays level by level."""
+    return {k: [x[j:j + 1] for x in v] if _levels(v) else v[j:j + 1]
+            for k, v in data.items()}
+
+
 @PIPELINE.register_module()
 class SemanticSegmentation(BasePipeline):
     """Training, validation, test and inference for point cloud semantic
@@ -101,10 +115,18 @@ class SemanticSegmentation(BasePipeline):
         self.optimizer = self.scheduler = None
 
     def _device_batch(self, batch):
-        """The batch's arrays as tensors on the pipeline's device."""
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in batch["data"].items()
-                if isinstance(v, np.ndarray)}
+        """The batch's arrays, and its lists of arrays (a host-built
+        pyramid's levels), as tensors on the pipeline's device."""
+        def move(v):
+            return torch.from_numpy(v).to(self.device)
+
+        out = {}
+        for k, v in batch["data"].items():
+            if isinstance(v, np.ndarray):
+                out[k] = move(v)
+            elif _levels(v):
+                out[k] = [move(x) for x in v]
+        return out
 
     # ----------------------------------------------------------------- steps
 
@@ -115,6 +137,7 @@ class SemanticSegmentation(BasePipeline):
         net.train()
         results = net(inputs)
         loss, labels, scores = model.get_loss(loss_fn, results, inputs)
+        loss = loss + model.regularizer_loss(net)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         clip = model.cfg.get("grad_clip_norm", -1)
@@ -341,8 +364,8 @@ class SemanticSegmentation(BasePipeline):
                                                np.float16)
             for j, cid in enumerate(cloud_ids):
                 test_probs[cid] = model.update_probs(
-                    {k: v[j:j + 1] for k, v in batch["data"].items()},
-                    results[j:j + 1], test_probs[cid])
+                    _sample(batch["data"], j), results[j:j + 1],
+                    test_probs[cid])
             for cid in set(cloud_ids) - set(results_per_cloud):
                 self._maybe_finalize_cloud(cid, test_split, test_sampler,
                                            test_probs, results_per_cloud,

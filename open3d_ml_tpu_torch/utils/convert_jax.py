@@ -22,7 +22,11 @@ Leaves map as follows:
   parameter of the same name, as it is;
 * Dense, Conv and BatchNorm ``bias`` -> ``bias``;
 * BatchNorm ``scale`` -> ``weight``;
-* batch_stats ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
+* batch_stats ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
+* KPConv's leaves keep their names: ``weights [P, Cin, Cout]`` (not
+  transposed), ``offset_bias``, a block's ``{prefix}_bias`` (its bias
+  where it has no batch norm), and the ``kp_points`` collection's
+  ``points`` (the kernel points), which is a buffer.
 
 ``state_dict_to_jax`` is the inverse map, so weights trained on the card
 can be applied by the JAX package. BatchNorm hyper-parameters need no
@@ -38,6 +42,16 @@ _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 # a weight leaf named after its layer, not inside a scope of its own
 _NAMED_KERNEL = "_kernel"
+# KPConv's parameter leaves that keep their names (and every "*_bias")
+_KEPT = ("weights",)
+_KEPT_SUFFIX = "_bias"
+# KPConv's kernel points: the collection and its one leaf, a buffer
+_KP_COLLECTION, _KP_LEAF = "kp_points", "points"
+
+
+def _kept(leaf):
+    return leaf in _KEPT or leaf.endswith(_KEPT_SUFFIX) or \
+        leaf.endswith(_NAMED_KERNEL)
 
 
 def _flatten(tree, prefix=()):
@@ -77,13 +91,15 @@ def net_layout(net):
 
 
 def jax_to_state_dict(variables, scope="net", transposed=frozenset()):
-    """``{"params": ..., "batch_stats": ...}`` (numpy leaves, the net's
-    tree under ``scope``, or at the root for ``scope=None``) -> a port
-    state_dict of float32 tensors. ``transposed``: the dotted paths of the
-    modules whose 4-d kernel is a ConvTranspose's."""
+    """``{"params": ..., "batch_stats": ...}`` and, for KPConv,
+    ``"kp_points"`` (numpy leaves, the net's tree under ``scope``, or at
+    the root for ``scope=None``) -> a port state_dict of float32 tensors.
+    ``transposed``: the dotted paths of the modules whose 4-d kernel is a
+    ConvTranspose's."""
     out = {}
     for collection, leaves in (("params", _PARAM_LEAVES),
-                               ("batch_stats", _STAT_LEAVES)):
+                               ("batch_stats", _STAT_LEAVES),
+                               (_KP_COLLECTION, {_KP_LEAF: _KP_LEAF})):
         tree = variables.get(collection, {})
         if scope is not None:
             if tree and set(tree) != {scope}:
@@ -92,7 +108,7 @@ def jax_to_state_dict(variables, scope="net", transposed=frozenset()):
             tree = tree.get(scope, {})
         for path, value in _flatten(tree):
             value = np.asarray(value, np.float32)
-            if collection == "params" and path[-1].endswith(_NAMED_KERNEL):
+            if collection == "params" and _kept(path[-1]):
                 out[".".join(path)] = torch.tensor(value)
                 continue
             if path[-1] not in leaves:
@@ -147,7 +163,10 @@ def state_dict_to_jax(state_dict, scope="net", transposed=frozenset()):
         value = value.detach().cpu().float().numpy()
         if leaf in stats:
             collection, name = "batch_stats", stats[leaf]
-        elif leaf.endswith(_NAMED_KERNEL):
+        elif leaf == _KP_LEAF:
+            collection, name = _KP_COLLECTION, leaf
+            out.setdefault(collection, {} if scope is None else {scope: {}})
+        elif _kept(leaf):
             collection, name = "params", leaf
         elif leaf == "weight":
             collection = "params"

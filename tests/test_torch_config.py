@@ -25,7 +25,9 @@ DEFAULTS = sorted((JAX_CONFIGS / "default_cfgs").glob("*.yml"))
 # the YAMLs the port ships: each a copy of the JAX file of the same name
 PORTED = ("randlanet_semantickitti", "sparseconvunet_scannet",
           "randlanet_s3dis", "randlanet_semantic3d", "randlanet_toronto3d",
-          "randlanet_parislille3d", "pointtransformer_s3dis")
+          "randlanet_parislille3d", "pointtransformer_s3dis",
+          "kpconv_semantickitti", "kpconv_s3dis", "kpconv_semantic3d",
+          "kpconv_toronto3d", "kpconv_parislille3d")
 # dotted extras as the command line gives them: coerced to bool, None,
 # int and float, a nested key new to the file, and a string
 EXTRAS = {"dataset.use_cache": "true", "model.ckpt_path": "none",

@@ -231,6 +231,8 @@ def test_port_imports_no_jax():
             "import open3d_ml_tpu_torch.ops.sampling\n"
             "import open3d_ml_tpu_torch.ops.interpolation\n"
             "import open3d_ml_tpu_torch.ops.cuda.sampling\n"
+            "import open3d_ml_tpu_torch.models.kpconv\n"
+            "import open3d_ml_tpu_torch.native\n"
             "import chip_smoke\n"
             "bad = [m for m in ('jax', 'flax', 'optax', 'yaml',\n"
             "                   'open3d_ml_tpu') if m in sys.modules]\n"
