@@ -50,7 +50,12 @@ config, with random weights drawn from a seeded generator:
   one training step against the CPU, ``run_train`` from the port's
   ``kpconv_semantickitti.yml`` through the command line on SemanticKITTI
   scans, and ``run_test`` and ``run_inference`` from
-  ``kpconv_s3dis.yml`` on an S3DIS room of the test area.
+  ``kpconv_s3dis.yml`` on an S3DIS room of the test area;
+* PointRCNN serving (``pointrcnn_kitti.yml`` in mode RCNN): one KITTI
+  frame of 16,384 points through the RPN, the proposal layer (the
+  ``nms_bev`` kernel), ``roipool3d``, the RCNN net and
+  ``inference_end``, and ``run_inference``, ``run_test``, ``run_valid``
+  and the command line on KITTI frames.
 
 The models are the port's ``RandLANet()`` and ``SparseConvUnet()`` at their
 defaults, which equal the model sections of
@@ -67,9 +72,11 @@ Run from the root of the repository, with one card:
 step against the CPU, on the patches of model seeds 0-3, with the CPU on
 its own branches and on the card's. ``python3 chip_smoke.py
 --pointpillars`` runs only the pointpillars phase, ``--pp-train`` only
-the pp_train phase (neither builds a kernel), ``--cli`` the build and
-the cli phase, ``--pointtransformer`` the build and the pointtransformer
-phase, ``--kpconv`` only the kpconv phase (no kernel of the port's).
+the pp_train phase (each builds the kernels at its first decode, whose
+NMS is the ``nms_bev`` kernel), ``--cli`` the build and the cli phase,
+``--pointtransformer`` the build and the pointtransformer phase,
+``--kpconv`` only the kpconv phase (no kernel of the port's),
+``--pointrcnn`` the build and the pointrcnn phase.
 ``python3 chip_smoke.py --stencil-calls`` times only the room request's
 39 stencil convolutions,
 alone and inside a forward; ``python3 chip_smoke.py --knn-calls`` only
@@ -182,8 +189,8 @@ Phases, one line each (or more), in this order:
    seeds 0-7 (result files counted; frames/s and where the wall time
    went), ``run_inference`` on frame 0, ``run_valid`` on
    ``SyntheticBoxes`` (finite mAP), and a checkpoint saved and loaded by
-   a fresh pipeline whose head outputs are bit-equal. No kernel of the
-   port is launched.
+   a fresh pipeline whose head outputs are bit-equal. The port's one
+   kernel on the path is ``nms_bev``, once a decode on the card.
 12. pp_train: ``run_train`` for one epoch of 6 steps of 6 KITTI frames
    (8 training and 2 validation frames written from
    ``make_objdet_scene`` seeds 100-109, a gt database of their boxes),
@@ -200,8 +207,9 @@ Phases, one line each (or more), in this order:
    each BN statistic within 1e-4 relative L2); the median step, frames
    trained per second, the host's share, the peak memory, and one
    profiled step (``--pp-train-profile``, in a child process): kernels,
-   busy share, the convolutions' share and the top 10 kernels. No kernel
-   of the port is launched.
+   busy share, the convolutions' share and the top 10 kernels. The
+   training steps launch no kernel of the port's; each decode of the
+   validation on the card launches ``nms_bev`` once.
 13. cli: ``run_pipeline.main`` on ``CLI_CONFIGS``, with the launch counts
    reset before and read after each run. RandLA-Net: a SemanticKITTI tree
    (``write_semantickitti``: 4, 2 and 2 lidar scans of 120,000 points in
@@ -254,6 +262,35 @@ Phases, one line each (or more), in this order:
    room; a profiled forward and step in a child process
    (``--kpconv-profile``). No port kernel: every launch count stays 0.
    One JSON line ``{"kpconv": ...}`` holds the phase's numbers.
+16. pointrcnn (~45 s): ``PointRCNN(**POINTRCNN_KITTI, mode="RCNN")``
+   with seeded ``random_weights`` on one KITTI frame (``prcnn_request``:
+   ``prcnn_scene`` written by ``write_kitti_frame``, ~17,400 points in
+   the camera's view out to 70.4 m, the test split's draw of 16,384
+   points without repeats): every kernel call of the forward and
+   its refinement, captured, against its plain version on the card
+   (``knn_exact`` at k = 16 and 32 over the RPN's levels, k = 3 for the
+   four 3-NN and k = 64 at B = 100 for the RCNN; d2 bit-equal, indices
+   equal off exact ties, and the same shapes on lattice points row for
+   row; ``fps`` 16,384 -> 4,096 ... and at B = 100, 512 -> 128 and
+   128 -> 32, indices equal; ``nms_bev`` on the proposal layer's two
+   buckets of 6,300 and 2,700 candidates and on the refinement's 100
+   rois, each bucket's valid count printed: every keep decision of the
+   kernel traced through the plain IoU (``nms_trace``: kept exactly when
+   valid and no kept earlier box overlaps it above the threshold, but
+   where a kept earlier box's plain IoU lies within ``PRCNN_IOU_NEAR`` of
+   it), the decisions apart from the plain version's counted and their
+   share the record's error), each with its device ms,
+   bound and plain call span; the served frame's launch counts
+   (``PRCNN_FORWARD_LAUNCHES``, ``PRCNN_SERVE_LAUNCHES``), its median of
+   10, the stage split (RPN, proposal, roipool3d, RCNN, inference_end),
+   peak memory; the card against the CPU (the RPN's outputs, and the
+   RCNN stage replayed on the card's rois, within ``PRCNN_TOL``; the
+   rois the proposal layer selects alike from the CPU's RPN outputs);
+   ``run_inference``, ``run_test`` over 4 frames, ``run_valid`` with mAP
+   over 2 and ``run_pipeline.main`` with ``--model.mode RCNN --split
+   test``, each with its launch counts, frames/s and host share; a
+   profiled frame in a child process (``--prcnn-profile``). One JSON line
+   ``{"pointrcnn": ...}``.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is not 0. The
@@ -296,19 +333,23 @@ from open3d_ml_tpu_torch.datasets.synthetic import make_semseg_scene
 from open3d_ml_tpu_torch.datasets.utils import BEVBox3D
 from open3d_ml_tpu_torch.models import kpconv as tkp
 from open3d_ml_tpu_torch.models import point_pillars as tpp
+from open3d_ml_tpu_torch.models import point_rcnn as tprc
 from open3d_ml_tpu_torch.models import point_transformer as tpt
 from open3d_ml_tpu_torch.models import randlanet as trl
 from open3d_ml_tpu_torch.models import sparseconvunet as tscu
 from open3d_ml_tpu_torch.modules.losses import SemSegLoss
 from open3d_ml_tpu_torch.ops import bucket as tb
 from open3d_ml_tpu_torch.ops import neighbors as tn
+from open3d_ml_tpu_torch.ops import sampling as tsmp
 from open3d_ml_tpu_torch.ops import sparse as tsp
 from open3d_ml_tpu_torch.ops import sparse_bucket as tsb
 from open3d_ml_tpu_torch.ops.cuda import _build
 from open3d_ml_tpu_torch.ops.cuda import bucket as cb
 from open3d_ml_tpu_torch.ops.cuda import knn as ck
+from open3d_ml_tpu_torch.ops.cuda import nms as cnms
 from open3d_ml_tpu_torch.ops.cuda import sampling as cfps
 from open3d_ml_tpu_torch.ops.cuda import stencil as cs
+from open3d_ml_tpu_torch.ops.iou import iou_bev
 from open3d_ml_tpu_torch.ops.morton import hilbert_sort
 from open3d_ml_tpu_torch.ops.voxelize import voxelize
 from open3d_ml_tpu_torch.pipelines import (ObjectDetection,
@@ -333,7 +374,8 @@ SEMANTICKITTI_CLASS_WEIGHTS = [
 TRAIN_PIPELINE = {"batch_size": 4, "val_batch_size": 2,
                   "optimizer": {"lr": 0.001}, "scheduler_gamma": 0.9886,
                   "save_ckpt_freq": 5, "num_workers": 2}
-COUNTERS = (cb.LAUNCHES, ck.LAUNCHES, cs.LAUNCHES, cfps.LAUNCHES)
+COUNTERS = (cb.LAUNCHES, ck.LAUNCHES, cs.LAUNCHES, cfps.LAUNCHES,
+            cnms.LAUNCHES)
 # the H100 SXM's device memory rate and its dense peaks (NVIDIA's
 # datasheet): a kernel's bound is the larger of its bytes over the rate
 # and its operations over the peak for their type
@@ -447,6 +489,12 @@ PP_TRAIN_FRAMES, PP_VALID_FRAMES, PP_TRAIN_STEPS = 8, 2, 6
 PP_CPU_BATCH = 2  # frames of the float32 card-vs-CPU step
 PP_BATCH, PP_POINTS = 4, 20_000  # the request bench.py:321-341 times
 PP_TEST_FRAMES = 8  # make_objdet_scene seeds 0-7 as KITTI test frames
+# nms_bev launches of the PointPillars phases, one a decode on the card:
+# pointpillars' gates decode once and time 5 more, run_test decodes its 8
+# frames, run_inference 1 and run_valid SyntheticBoxes' 2 validation
+# frames; pp_train's two run_train calls each validate on its 2 frames
+PP_SERVE_LAUNCHES = {"nms_bev": 1 + 5 + PP_TEST_FRAMES + 1 + 2}
+PP_TRAIN_LAUNCHES = {"nms_bev": 2 * PP_VALID_FRAMES}
 # bf16 serving net vs float32, relative L2 of the head outputs: a sanity
 # bound (measured 0.0115 on an H100 80GB HBM3, 700 W). The casts are held
 # by pp_cast_faults and PP_BF16_STAGE_SHARE.
@@ -516,6 +564,79 @@ KP_TIMED = ((tkp.KPFCNN, "transform"), (tkp.KPFCNN, "preprocess"),
             (SemanticSegmentation, "load_ckpt"))
 KP_RANGES = ("kpconv eval forward", "kpconv train forward",
              "kpconv backward", "kpconv sgd")
+# the model section of open3d_ml_tpu_torch/configs/pointrcnn_kitti.yml but
+# for its name, checkpoint and augment section (a CPU test pins it); it
+# says mode RPN, the first training stage, and serving runs mode RCNN
+POINTRCNN_KITTI = {
+    "point_cloud_range": [0, -40, -1, 70.4, 40, 3],
+    "classes": ["Car"], "npoints": 16384, "score_thres": 0.3, "mode": "RPN",
+    "rpn": {"backbone": {"in_channels": 0,
+                         "SA_config": {
+                             "npoints": [4096, 1024, 256, 64],
+                             "radius": [[0.1, 0.5], [0.5, 1.0], [1.0, 2.0],
+                                        [2.0, 4.0]],
+                             "nsample": [[16, 32], [16, 32], [16, 32],
+                                         [16, 32]],
+                             "mlps": [[[16, 16, 32], [32, 32, 64]],
+                                      [[64, 64, 128], [64, 96, 128]],
+                                      [[128, 196, 256], [128, 196, 256]],
+                                      [[256, 256, 512], [256, 384, 512]]]},
+                         "fp_mlps": [[128, 128], [256, 256], [512, 512],
+                                     [512, 512]]},
+            "cls_in_ch": 128, "cls_out_ch": [128], "reg_in_ch": 128,
+            "reg_out_ch": [128], "db_ratio": 0.5,
+            "focal_loss": {"gamma": 2.0, "alpha": 0.25, "loss_weight": 1.0},
+            "loss_weight": [1.0, 1.0],
+            "head": {"loc_xz_fine": True, "loc_scope": 3.0,
+                     "loc_bin_size": 0.5, "num_head_bin": 12,
+                     "nms_pre": 9000, "nms_post": 512, "nms_thres": 0.85,
+                     "nms_post_val": 100, "nms_thres_val": 0.8,
+                     "mean_size": [1.52563191462, 1.62856739989,
+                                   3.88311640418]}},
+    "rcnn": {"in_channels": 128, "xyz_up_layer": [128, 128],
+             "cls_out_ch": [256, 256], "reg_out_ch": [256, 256],
+             "SA_config": {"npoints": [128, 32, -1],
+                           "radius": [0.2, 0.4, 100],
+                           "nsample": [64, 64, 64],
+                           "mlps": [[128, 128, 128], [128, 128, 256],
+                                    [256, 256, 512]]},
+             "head": {"loc_xz_fine": True, "get_y_by_bin": False,
+                      "loc_y_scope": 0.5, "loc_y_bin_size": 0.25,
+                      "get_ry_fine": True, "loc_scope": 1.5,
+                      "loc_bin_size": 0.5, "num_head_bin": 9,
+                      "mean_size": [1.52563191462, 1.62856739989,
+                                    3.88311640418],
+                      "post_process": False, "nms_thres": 0.1,
+                      "nms_pre": 100, "nms_post": 100},
+             "target_head": {"pool_extra_width": 1.0, "num_points": 512,
+                             "reg_fg_thresh": 0.55, "cls_fg_thresh": 0.6,
+                             "cls_bg_thresh": 0.45, "cls_bg_thresh_lo": 0.05,
+                             "fg_ratio": 0.5, "roi_per_image": 100,
+                             "aug_rot_range": 18, "hard_bg_ratio": 0.8,
+                             "roi_fg_aug_times": 10}},
+}
+POINTRCNN_PIPELINE = {"val_batch_size": 1, "test_batch_size": 1,
+                      "overlaps": [0.7], "difficulties": [0, 1, 2],
+                      "similar_classes": {"Van": "Car"}}
+PRCNN_CONFIG = "open3d_ml_tpu_torch/configs/pointrcnn_kitti.yml"
+# one RCNN-mode forward of a frame: 8 RPN ball queries (k = 16 and 32),
+# 4 three-NN (k = 3), 2 RCNN ball queries (k = 64); 4 + 2 FPS; one NMS
+# call for both proposal buckets; inference_end adds one NMS call
+PRCNN_FORWARD_LAUNCHES = {"knn_exact": 14, "fps": 6, "nms_bev": 1}
+PRCNN_SERVE_LAUNCHES = dict(PRCNN_FORWARD_LAUNCHES, nms_bev=2)
+PRCNN_TOL = 1e-4  # card vs CPU, relative L2
+PRCNN_IOU_NEAR = 1e-6  # a keep decision may differ only this near the
+                       # threshold
+# float operations of one overlapping pair's clip in csrc/nms_bev.cu, at
+# about 8 candidate vertices: 8 inside tests (12 each), 16 edge
+# intersections (22 each: differences, cross products, two divisions, the
+# tests, the point), the centroid (20), 8 angles (atan2f ~20 and two
+# differences each), the sort (16) and the shoelace (32), the IoU (4)
+NMS_PAIR_OPS = 700
+PRCNN_TEST_FRAMES = 4  # prcnn_scene seeds 200-203 as KITTI frames
+PRCNN_VALID_FRAMES = 2  # seeds 210-211, the validation split
+PRCNN_STAGES = ("rpn", "proposal", "roipool3d", "rcnn", "inference_end")
+PRCNN_R_MAX = 70.4  # the YAML's point_cloud_range reaches 70.4 m ahead
 KITTI_CALIB = (f"P0: {KITTI_P}", f"P1: {KITTI_P}", f"P2: {KITTI_P}",
                f"P3: {KITTI_P}", "R0_rect: 1 0 0 0 1 0 0 0 1",
                f"Tr_velo_to_cam: {KITTI_TR}", f"Tr_imu_to_velo: {KITTI_TR}")
@@ -2820,9 +2941,10 @@ def phase_scu_train(card):
     return launches
 
 
-def write_kitti_frame(root, split, idx, seed):
-    """``make_objdet_scene(seed)`` as KITTI frame ``idx`` of ``split``
-    under ``root``: the velodyne ``.bin``, the calib file
+def write_kitti_frame(root, split, idx, seed, scene=make_objdet_scene):
+    """``scene(seed)`` (points [N, 4], box dicts; ``make_objdet_scene``
+    by default) as KITTI frame ``idx`` of ``split`` under ``root``: the
+    velodyne ``.bin``, the calib file
     (``KITTI_CALIB``) and a label file whose boxes are the scene's, with
     each box's image rectangle projected through P2 and a truncation and
     occlusion drawn from ``seed``, so their difficulties vary."""
@@ -2831,7 +2953,7 @@ def write_kitti_frame(root, split, idx, seed):
             ("velodyne", "calib", "label_2")}
     for d in dirs.values():
         d.mkdir(parents=True, exist_ok=True)
-    points, boxes = make_objdet_scene(seed)
+    points, boxes = scene(seed)
     points.tofile(dirs["velodyne"] / f"{idx:06d}.bin")
     calib_path = dirs["calib"] / f"{idx:06d}.txt"
     calib_path.write_text("\n".join(KITTI_CALIB) + "\n")
@@ -3457,7 +3579,8 @@ def phase_pointpillars(card):
     """PointPillars at the KITTI config: (a) the bench's request through
     the serving and the eval net, timed and profiled; (b) the gates; (c)
     run_test, run_valid, run_inference and a checkpoint round trip. The
-    path launches none of the port's kernels."""
+    path launches one of the port's kernels: ``nms_bev``, once a decode
+    on the card."""
     t0 = time.perf_counter()
     model = MODEL.get("PointPillars")(**POINTPILLARS_KITTI)
     state = pp_random_weights(model.get_net(training=False)).state_dict()
@@ -3469,7 +3592,7 @@ def phase_pointpillars(card):
     _pp_gates(model, nets, batch, x)
     _pp_entry_points(model, state, x, card)
     torch.cuda.synchronize()
-    check_counts("pointpillars", read_counts(), {})
+    check_counts("pointpillars", read_counts(), PP_SERVE_LAUNCHES)
     say("pointpillars", f"phase {time.perf_counter() - t0:.1f} s")
 
 
@@ -3734,7 +3857,9 @@ def phase_pp_train(card):
     step's parts on CUDA events, the anchor targets and a float32 step
     card vs CPU from the seeded weights and from those after the overfit
     steps (there with the step in float64 beside it), and a profiled step
-    in a child process. The path launches none of the port's kernels."""
+    in a child process. The training steps launch none of the port's
+    kernels; each decode of the validation on the card launches
+    ``nms_bev`` once."""
     t0 = time.perf_counter()
     b = POINTPILLARS_TRAIN_PIPELINE["batch_size"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -3896,7 +4021,7 @@ def phase_pp_train(card):
                 raise AssertionError(f"pp_train: the card's step from {name} "
                                      f"disagrees")
         torch.cuda.synchronize()
-        check_counts("pp_train", read_counts(), {})
+        check_counts("pp_train", read_counts(), PP_TRAIN_LAUNCHES)
 
     prof = _pp_train_profile()
     top = "; ".join(f"{k} {v:.3f} ms ({n})" for k, v, n in prof["top"])
@@ -5026,6 +5151,543 @@ def phase_kpconv(card):
     return record
 
 
+# --------------------------------------------------------------- PointRCNN
+
+
+def prcnn_model(**overrides):
+    """``PointRCNN(**POINTRCNN_KITTI)`` in mode RCNN, the serving mode."""
+    return MODEL.get("PointRCNN")(**dict(POINTRCNN_KITTI, mode="RCNN",
+                                         seed=SEED, **overrides))
+
+
+def prcnn_scene(seed):
+    """A KITTI front-view crop for PointRCNN: ``make_objdet_scene(seed,
+    r_max=PRCNN_R_MAX)`` beside the ground and clutter of a second scene
+    (seed + 10,000, no objects): about 19,500 points out to 70.4 m, of
+    which the KITTI reader keeps the ~17,400 in the camera's view, so
+    that the test split draws its 16,384 without repeats and a third of
+    them lie beyond 40 m, where the proposal layer's far bucket takes
+    its candidates."""
+    points, boxes = make_objdet_scene(seed, r_max=PRCNN_R_MAX)
+    extra, _ = make_objdet_scene(seed + 10_000, n_objects=0, r_max=PRCNN_R_MAX)
+    return np.concatenate([points, extra]), boxes
+
+
+def prcnn_request(model, root, seed=SEED):
+    """One KITTI frame (``prcnn_scene(seed)`` written by
+    ``write_kitti_frame`` under ``root``) through the test split's
+    ``preprocess`` and ``transform``: {"point" [1, 16,384, 3] on the
+    CPU, "calib"}, and the frame's point count. Raises if the frame
+    holds fewer points than the model draws."""
+    write_kitti_frame(root, "testing", 0, seed, prcnn_scene)
+    data = KITTI(dataset_path=str(root)).get_split("test").get_data(0)
+    if len(data["point"]) < model.npoints:
+        raise AssertionError(f"pointrcnn: the frame holds "
+                             f"{len(data['point'])} points, fewer than "
+                             f"the {model.npoints} drawn")
+    attr = {"split": "test"}
+    sample = model.transform(model.preprocess(data, attr), attr)
+    batch = DefaultBatcher().collate_fn([{"data": sample, "attr": attr}])
+    return batch["data"], len(data["point"])
+
+
+def _prcnn_calls(net, x):
+    """The kernel wrappers' calls of one forward and its refinement:
+    {"knn_exact": [(args, kwargs)], "fps": [...], "nms_bev": [...]}, each
+    call run once as the forward runs it."""
+    calls, out = {}, {}
+
+    def forward():
+        with torch.no_grad():
+            out["net"] = net(x)
+
+    def nms():
+        calls["nms_bev"] = _captured(cnms, "nms_bev", forward)
+
+    def knn():
+        calls["knn_exact"] = _captured(tn, "knn_exact", nms)
+
+    calls["fps"] = _captured(tsmp, "fps", knn)
+    return calls, out["net"]
+
+
+def _prcnn_knn_check(args, kwargs):
+    """knn_exact on one captured call of the forward against its plain
+    version on the card: d2 bit-equal, indices equal off exact d2 ties;
+    the same search on lattice points (many ties), indices row for row.
+    Returns its record."""
+    points, queries, k = args
+    b, n, _ = points.shape
+    q = queries.shape[1]
+    got = ck.knn_exact(points, queries, k, **kwargs)
+    want = ck.knn_exact_plain(points, queries, k, **kwargs)
+    rows = _exact_equal(f"knn_exact B={b} N={n} Q={q} k={k}", got, want,
+                        False)
+    lat = lattice_points(b, max(n, q), SEED + n + k)
+    lp, lq = lat[:, :n].contiguous(), lat[:, :q].contiguous()
+    _exact_equal(f"knn_exact B={b} N={n} Q={q} k={k} lattice",
+                 ck.knn_exact(lp, lq, k), ck.knn_exact_plain(lp, lq, k),
+                 True)
+    ms = device_ms(lambda: ck.knn_exact(points, queries, k, **kwargs))
+    plain_ms = span_ms(lambda: ck.knn_exact_plain(points, queries, k,
+                                                  **kwargs),
+                       iters=3, warmup=1)
+    bounds = bound(nbytes(points, queries) + b * q * k * 8, b * n * q * 8)
+    plan = ck.exact_plan(b, n, q, sms=ck.sm_count(points.device.index), k=k)
+    say("pointrcnn", f"knn_exact B={b} N={n} Q={q} k={k} (plan {plan}): d2 "
+        f"bit-equal, {int(rows.sum())} rows apart only at exact d2 ties, "
+        f"lattice row for row; device ms {ms:.4f}, bound "
+        f"{max(bounds):.4f}, plain call span {plain_ms:.4f}")
+    return kernel_record(0.0, ms, plain_ms, bounds)
+
+
+def _prcnn_fps_check(args, kwargs):
+    """fps on one captured call against its plain version on the card,
+    indices equal; returns its record."""
+    points, m = args
+    b, n, _ = points.shape
+    if not torch.equal(cfps.fps(points, m, **kwargs),
+                       cfps.fps_plain(points, m, **kwargs)):
+        raise AssertionError(f"pointrcnn fps B={b} N={n} m={m}: indices "
+                             "differ from the plain version")
+    ms = device_ms(lambda: cfps.fps(points, m, **kwargs), iters=10)
+    plain_ms = span_ms(lambda: cfps.fps_plain(points, m, **kwargs), iters=1,
+                       warmup=0)
+    bounds = bound(nbytes(points) + b * m * 4, b * (m - 1) * n * 9)
+    say("pointrcnn", f"fps B={b} N={n} m={m} ({cfps.fps_threads(n)} threads "
+        f"a cloud): indices equal to the plain version's; device ms "
+        f"{ms:.4f} ({ms / max(m - 1, 1) * 1e3:.3f} us a step), bound "
+        f"{max(bounds):.4f}, plain call span {plain_ms:.4f}")
+    return kernel_record(0.0, ms, plain_ms, bounds)
+
+
+def _overlapping_pairs(boxes, valid):
+    """Pairs (i < j, both valid) of boxes [R, N, 5] whose bounding circles
+    meet: the pairs whose IoU needs the clip."""
+    r = 0.5 * torch.sqrt(boxes[..., 2] ** 2 + boxes[..., 3] ** 2)
+    total = 0
+    n = boxes.shape[1]
+    for s in range(0, n, 1024):
+        c = boxes[:, s:s + 1024, None, :2] - boxes[:, None, :, :2]
+        near = (c ** 2).sum(-1) <= (r[:, s:s + 1024, None] +
+                                    r[:, None]) ** 2
+        later = (torch.arange(n, device=boxes.device)[None] >
+                 torch.arange(s, min(s + 1024, n),
+                              device=boxes.device)[:, None])
+        ok = valid[:, s:s + 1024, None] & valid[:, None]
+        total += int((near & later & ok).sum())
+    return total
+
+
+def nms_trace(boxes, valid, thr, keep):
+    """Trace every keep decision of ``keep`` [R, N] (boxes [R, N, 5] in
+    score order, ``valid`` [R, N]) through the plain IoU: box j must be
+    kept exactly when it is valid and no box i < j that ``keep`` keeps has
+    a plain IoU with it above ``thr``, unless one of those i lies within
+    ``PRCNN_IOU_NEAR`` of ``thr``. Raises at a decision that breaks it;
+    returns how many decisions the rule alone would have made otherwise
+    (each decided by such a near pair). A mask that passes differs from
+    ``nms_bev_plain``'s only through those decisions."""
+    r, n, _ = boxes.shape
+    over = torch.zeros((r, n), dtype=torch.bool, device=boxes.device)
+    near = torch.zeros_like(over)
+    cols = torch.arange(n, device=boxes.device)
+    step = max(1, cnms.PLAIN_PAIRS // n)
+    for row in range(r):
+        kept = torch.nonzero(keep[row]).flatten()
+        for s in range(0, len(kept), step):
+            i = kept[s:s + step]
+            iou = iou_bev(boxes[row, i], boxes[row])
+            after = cols[None] > i[:, None]
+            over[row] |= ((iou > thr) & after).any(0)
+            near[row] |= (((iou - thr).abs() <= PRCNN_IOU_NEAR) &
+                          after).any(0)
+    off = keep != (valid & ~over)
+    bad = torch.nonzero(off & ~(near & valid))
+    if len(bad):
+        row, j = (int(v) for v in bad[0])
+        raise AssertionError(
+            f"nms_bev: row {row} box {j} kept {bool(keep[row, j])}, valid "
+            f"{bool(valid[row, j])}, suppressed by a kept box "
+            f"{bool(over[row, j])}, with no kept box near the threshold "
+            f"({len(bad)} such decisions)")
+    return int(off.sum())
+
+
+def _prcnn_nms_check(label, args):
+    """nms_bev on one captured call (boxes [R, N, 5] in score order, valid,
+    threshold) against its plain version on the card: every keep decision
+    of the kernel traced through the plain IoU (``nms_trace``), and the
+    decisions apart from the plain version's counted. Its record's
+    ``max_abs_err`` is the share of keep decisions apart. Returns its
+    record."""
+    boxes, valid, thr = args
+    r, n, _ = boxes.shape
+    got = cnms.nms_bev(boxes, valid, thr)
+    t0 = time.perf_counter()
+    want = cnms.nms_bev_plain(boxes, valid, thr)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    near = nms_trace(boxes, valid, thr, got)
+    differ = int((got != want).sum())
+    ms = device_ms(lambda: cnms.nms_bev(boxes, valid, thr), iters=10)
+    pairs = _overlapping_pairs(boxes, valid)
+    bounds = bound(nbytes(boxes, valid) + r * n, pairs * NMS_PAIR_OPS)
+    rows_valid = valid.sum(1).tolist()
+    say("pointrcnn", f"nms_bev {label} R={r} N={n} threshold {thr}: valid "
+        f"boxes a row {rows_valid}, kernel keeps {got.sum(1).tolist()}, "
+        f"plain {want.sum(1).tolist()}; every kernel decision traced "
+        f"through the plain IoU, {near} decided by a kept pair within "
+        f"{PRCNN_IOU_NEAR:g} of the threshold; {differ} keep decisions "
+        f"apart from the plain version's; {pairs} overlapping pairs; "
+        f"device ms {ms:.4f}, bound {max(bounds):.4f} "
+        f"({'bytes' if bounds[0] >= bounds[1] else 'ops'}; the sweep is {n} "
+        f"dependent steps), plain call span {plain_ms:.2f} (its IoU matrix "
+        f"in blocks of {cnms.PLAIN_PAIRS} pairs)")
+    return dict(kernel_record(differ / got.numel(), ms, plain_ms, bounds),
+                differ=differ, near=near, valid=rows_valid)
+
+
+def _prcnn_stage_split(net, model, x, data, runs=10, warmup=3):
+    """Median device-timeline ms of each stage of a served frame (CUDA
+    events between the stages, the whole in one synchronised run), the
+    median of the whole, and the whole's times."""
+    per = collections.defaultdict(list)
+    whole = []
+    with torch.no_grad():
+        for i in range(warmup + runs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            cls, reg, xyz, feats = net.rpn(x["point"])
+            ev[1].record()
+            rois, scores, valid = net.proposals(cls, reg, xyz)
+            ev[2].record()
+            pts_input = net.pool(cls, xyz, feats, rois)
+            ev[3].record()
+            b, r = pts_input.shape[:2]
+            rcls, rreg = net.rcnn(pts_input.reshape(b * r,
+                                                    *pts_input.shape[2:]))
+            ev[4].record()
+            model.inference_end(
+                {"rois": rois, "scores": scores, "valid": valid,
+                 "cls": rcls.reshape(b, r, -1),
+                 "reg": rreg.reshape(b, r, -1)}, data)
+            ev[5].record()
+            ev[5].synchronize()
+            if i >= warmup:
+                for k, name in enumerate(PRCNN_STAGES):
+                    per[name].append(ev[k].elapsed_time(ev[k + 1]))
+                whole.append(ev[0].elapsed_time(ev[5]))
+    return ({k: statistics.median(v) for k, v in per.items()},
+            statistics.median(whole), whole)
+
+
+def _prcnn_serving(model, net, x, data, card):
+    """The served frame: the launch counts of one forward and of its
+    refinement, finite outputs, peak memory, the median and the stage
+    split. Returns (launches, median ms, peak GiB, outputs)."""
+    with torch.no_grad():
+        net(x)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = net(x)
+        torch.cuda.synchronize()
+        check_counts("pointrcnn", read_counts(), PRCNN_FORWARD_LAUNCHES)
+        boxes = model.inference_end(out, data)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    check_counts("pointrcnn", launches, PRCNN_SERVE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the scores of the slots no proposal fills are -inf
+    for key, value in (("rois", out["rois"]), ("cls", out["cls"]),
+                       ("reg", out["reg"]),
+                       ("scores", out["scores"][out["valid"]])):
+        if not torch.isfinite(value).all():
+            raise AssertionError(f"pointrcnn: non-finite {key}")
+    if tuple(out["rois"].shape) != (1, 100, 7) or not out["valid"].any():
+        raise AssertionError(f"pointrcnn: rois {tuple(out['rois'].shape)}, "
+                             f"{int(out['valid'].sum())} valid")
+    stages, ms, times = _prcnn_stage_split(net, model, x, data)
+    say("pointrcnn", f"served frame 1 x {model.npoints} points, mode RCNN, "
+        f"float32: {int(out['valid'].sum())} valid rois of 100, "
+        f"{len(boxes[0])} boxes; launches {launches}; median "
+        f"{ms:.3f} ms over {len(times)} runs (min {min(times):.3f}, max "
+        f"{max(times):.3f}), {1e3 / ms:.2f} frames/s; stages (device "
+        f"timeline, medians): " + ", ".join(
+            f"{k} {v:.3f} ms ({v / ms:.1%})" for k, v in stages.items()) +
+        f"; peak device memory {peak:.2f} GiB on {card}")
+    return launches, ms, stages, peak, out
+
+
+def _prcnn_vs_cpu(model, net, state, x, out):
+    """The card against the CPU: the RPN's four outputs (relative L2 <=
+    ``PRCNN_TOL``); the card's rois replayed on the CPU through
+    ``roipool3d`` and the RCNN net (the pooled input and cls and reg <=
+    ``PRCNN_TOL``); and how many rois the proposal layer selects alike
+    from the card's and the CPU's RPN outputs (both on the card)."""
+    cpu = model.get_net()
+    cpu.load_state_dict(state)
+    cpu.eval()
+    points = x["point"].cpu()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        rpn_cpu = cpu.rpn(points)
+        cpu_s = time.perf_counter() - t0
+        rpn_card = net.rpn(x["point"])
+        rels = {k: _rel_l2(a, b) for k, a, b in
+                zip(("cls", "reg", "xyz", "feats"), rpn_card, rpn_cpu)}
+        cls, _, xyz, feats = rpn_cpu
+        pooled_cpu = cpu.pool(cls, xyz, feats, out["rois"].cpu())
+        pooled_card = net.pool(rpn_card[0], rpn_card[2], rpn_card[3],
+                               out["rois"])
+        rels["pooled"] = _rel_l2(pooled_card, pooled_cpu)
+        b, r = pooled_cpu.shape[:2]
+        t0 = time.perf_counter()
+        rcls, rreg = cpu.rcnn(pooled_cpu.reshape(b * r,
+                                                 *pooled_cpu.shape[2:]))
+        cpu_s += time.perf_counter() - t0
+        rels["rcnn cls"] = _rel_l2(out["cls"], rcls.reshape(b, r, -1))
+        rels["rcnn reg"] = _rel_l2(out["reg"], rreg.reshape(b, r, -1))
+        alt = net.proposals(*(t.to(DEVICE) for t in rpn_cpu[:3]))
+    same = ((alt[0] - out["rois"]).abs().amax(-1) <=
+            1e-4 * out["rois"].abs().amax(-1).clamp(min=1))
+    alike = int((same & out["valid"] & alt[2]).sum())
+    say("pointrcnn", "card vs CPU (relative L2): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in rels.items()) + f" (bound {PRCNN_TOL:g}; "
+        f"the RCNN stage replays the card's rois; CPU {cpu_s:.1f} s); the "
+        f"proposal layer on the CPU's RPN outputs selects {alike} of the "
+        f"card's {int(out['valid'].sum())} rois alike")
+    bad = {k: v for k, v in rels.items() if not v <= PRCNN_TOL}
+    if bad:
+        raise AssertionError(f"pointrcnn card vs CPU: {bad}")
+    return rels, alike
+
+
+def _prcnn_entry_points(model, state, card, root):
+    """run_inference, run_test over ``PRCNN_TEST_FRAMES`` KITTI frames,
+    run_valid with mAP over ``PRCNN_VALID_FRAMES``, and the command line
+    (``--model.mode RCNN --split test``) on them: the launch counts of
+    each, wall time, frames/s and the host's share."""
+    kitti = root / "kitti"
+    for i in range(PRCNN_TEST_FRAMES):
+        write_kitti_frame(kitti, "testing", i, 200 + i, prcnn_scene)
+    for i in range(PRCNN_VALID_FRAMES):
+        write_kitti_frame(kitti, "training", i, 210 + i, prcnn_scene)
+    dataset = KITTI(dataset_path=str(kitti), val_split=0,
+                    test_result_folder=str(root / "results"))
+    pipeline = ObjectDetection(model, dataset=dataset, device=DEVICE,
+                               seed=SEED, main_log_dir=str(root / "logs"),
+                               num_workers=0, **POINTRCNN_PIPELINE)
+    pipeline.net.load_state_dict(state)
+    record = {}
+
+    def timed(name, fn, frames):
+        spent = collections.Counter()
+        net = pipeline.eval_net
+        net.forward = _timed(net.forward, spent, "forward", sync=True)
+        model.inference_end = _timed(model.inference_end, spent, "decode")
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            del net.forward, model.inference_end
+        check_counts("pointrcnn", launches,
+                     {k: v * frames for k, v in
+                      PRCNN_SERVE_LAUNCHES.items()})
+        host = wall - spent["forward"] - spent["decode"]
+        record[name] = {"wall_s": wall, "frames_per_s": frames / wall,
+                        "host_share": host / wall}
+        say("pointrcnn", f"{name}: {frames} frame(s), wall {wall:.3f} s, "
+            f"{frames / wall:.2f} frames/s; forward {spent['forward']:.3f} s "
+            f"(synchronised), refinement and boxes {spent['decode']:.3f} s, "
+            f"host (read, preprocess, transform, batch, write) {host:.3f} s "
+            f"({host / wall:.1%}) on {card}")
+        return result
+
+    frame = dataset.get_split("test").get_data(0)
+    found = timed("run_inference", lambda: pipeline.run_inference(frame), 1)
+    results = timed("run_test", pipeline.run_test, PRCNN_TEST_FRAMES)
+    files = sorted((root / "results").glob("*.txt"))
+    lines = sum(len(f.read_text().splitlines()) for f in files)
+    if len(files) != PRCNN_TEST_FRAMES or lines != sum(map(len, results)):
+        raise AssertionError(f"pointrcnn run_test: {len(files)} files, "
+                             f"{lines} lines for {list(map(len, results))}")
+    if not found or not all(np.isfinite(b.to_xyzwhlr()).all()
+                            for b in found):
+        raise AssertionError(f"pointrcnn run_inference: {len(found)} boxes")
+    ap_bev, ap_3d = timed("run_valid", pipeline.run_valid,
+                          PRCNN_VALID_FRAMES)
+    if not (np.isfinite(ap_bev).all() and np.isfinite(ap_3d).all()):
+        raise AssertionError("pointrcnn run_valid: non-finite mAP")
+    say("pointrcnn", f"run_test boxes a frame {list(map(len, results))}, "
+        f"{len(files)} result files; run_inference {len(found)} boxes; "
+        f"run_valid mAP BEV {ap_bev.mean():.4f}, 3D {ap_3d.mean():.4f} "
+        f"(random weights: finite, no floor)")
+    argv = ["-c", REPO / PRCNN_CONFIG, "--device", DEVICE,
+            "--dataset.dataset_path", kitti,
+            "--dataset.test_result_folder", root / "cli_results",
+            "--main_log_dir", root / "cli_logs",
+            "--pipeline.num_workers", "0", "--model.mode", "RCNN",
+            "--split", "test"]
+    wall, launches, _, _ = _cli_run(argv)
+    check_counts("pointrcnn", launches,
+                 {k: v * PRCNN_TEST_FRAMES for k, v in
+                  PRCNN_SERVE_LAUNCHES.items()})
+    files = sorted((root / "cli_results").glob("*.txt"))
+    if len(files) != PRCNN_TEST_FRAMES:
+        raise AssertionError(f"pointrcnn cli: {len(files)} result files")
+    record["cli"] = {"wall_s": wall,
+                     "frames_per_s": PRCNN_TEST_FRAMES / wall}
+    say("pointrcnn", f"run_pipeline -c {PRCNN_CONFIG} --model.mode RCNN "
+        f"--split test: {len(files)} result files, wall {wall:.3f} s (the "
+        f"model, the pipeline and the seeded weights built in it), "
+        f"{PRCNN_TEST_FRAMES / wall:.2f} frames/s on {card}")
+    return record
+
+
+def prcnn_profile():
+    """``--prcnn-profile``: one torch.profiler pass over one served frame
+    (the forward and ``inference_end``) on seeded weights; prints one
+    JSON line: device ms (kernel rows), kernels, wall ms, the three port
+    kernels' device ms and the top 8 kernels. Run in a process of its own:
+    the profiler traces the card once a process."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    phase_device()
+    model = prcnn_model()
+    net = random_weights(model.get_net(), SEED).eval().to(DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, _ = prcnn_request(model, Path(tmp))
+    x = {"point": torch.from_numpy(data["point"]).to(DEVICE)}
+
+    def serve():
+        with torch.no_grad():
+            model.inference_end(net(x), data)
+        torch.cuda.synchronize()
+
+    for _ in range(2):
+        serve()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("prcnn serve"):
+            serve()
+    events = prof.events()
+    rng = next(e for e in events if e.name == "prcnn serve" and
+               e.device_type == torch.autograd.DeviceType.CPU)
+    kernels, calls = collections.Counter(), collections.Counter()
+    for e in events:
+        # the range itself has a device row too
+        if (e.device_type == torch.autograd.DeviceType.CUDA and
+                e.name != "prcnn serve"):
+            kernels[e.name] += e.time_range.elapsed_us() / 1e3
+            calls[e.name] += 1
+    ours = {name: sum(ms for k, ms in kernels.items() if key in k)
+            for name, key in (("knn_exact", "knn_exact_kernel"),
+                              ("fps", "fps_kernel"),
+                              ("nms_bev", "nms_"))}
+    print(json.dumps({
+        "range": "prcnn serve", "device_ms": sum(kernels.values()),
+        "kernels": sum(calls.values()),
+        "wall_ms": (rng.time_range.end - rng.time_range.start) / 1e3,
+        "ours": ours,
+        "top": [[k[:64], ms, calls[k]] for k, ms in
+                kernels.most_common(8)]}), flush=True)
+
+
+def _prcnn_profile(card):
+    """``prcnn_profile`` in a child process: the busy share of a served
+    frame."""
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--prcnn-profile"], cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"pointrcnn: the profiler run failed:\n"
+                             f"{run.stderr[-4000:]}")
+    rec = next(json.loads(line) for line in run.stdout.splitlines()
+               if line.startswith('{"range"'))
+    if rec["device_ms"] <= 0:
+        raise AssertionError("pointrcnn: the profiler saw no device time")
+    busy = rec["device_ms"] / rec["wall_ms"]
+    say("pointrcnn", f"profiled served frame: device {rec['device_ms']:.3f} "
+        f"ms over {rec['kernels']} kernels in a {rec['wall_ms']:.3f} ms span "
+        f"(busy {busy:.1%}); the port's kernels: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in rec["ours"].items()) +
+        "; top: " + ", ".join(f"{k} {ms:.3f} ms x{n}"
+                              for k, ms, n in rec["top"]) + f" (on {card})")
+    return dict(rec, busy=busy)
+
+
+def phase_pointrcnn(card):
+    """PointRCNN serving at the shipped KITTI config (mode RCNN, seeded
+    weights, one frame of 16,384 points): (a) each kernel call of the
+    forward and its refinement against its plain version on the card
+    (knn_exact at k = 16, 32, 3 and 64, fps down to 128 and 32 points at
+    B = 100, nms_bev on the proposal layer's two buckets and on the
+    refinement's 100 rois); (b) the served frame: launch counts, median,
+    stage split, peak memory and busy share; (c) the card against the
+    CPU, the RCNN stage on the card's rois; (d) run_inference, run_test,
+    run_valid and the command line. Prints one JSON line of the phase's
+    numbers and returns (the served frame's launches, knn_exact's record
+    for its 14 calls, fps's for its 6, nms_bev's for its 2)."""
+    t_phase = time.perf_counter()
+    model = prcnn_model()
+    net = random_weights(model.get_net(), SEED).eval()
+    state = {k: v.clone() for k, v in net.state_dict().items()}
+    net = net.to(DEVICE)
+    record = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data, frame_points = prcnn_request(model, root / "request")
+        x = {"point": torch.from_numpy(data["point"]).to(DEVICE)}
+        # camera frame: z is the depth ahead
+        far = int((x["point"][..., 2] > 40.0).sum())
+        say("pointrcnn", f"request: one KITTI frame of {frame_points} points"
+            f" out to {PRCNN_R_MAX} m (prcnn_scene), {model.npoints} drawn "
+            f"without repeats, {far} of them beyond 40 m")
+        calls, out = _prcnn_calls(net, x)
+        refine = _captured(cnms, "nms_bev",
+                           lambda: model.inference_end(out, data))
+        if {k: len(v) for k, v in calls.items()} != \
+                PRCNN_FORWARD_LAUNCHES or len(refine) != 1:
+            raise AssertionError(f"pointrcnn: captured {calls.keys()} "
+                                 f"{[len(v) for v in calls.values()]}, "
+                                 f"{len(refine)} refinement NMS calls")
+        knn = [_prcnn_knn_check(*c) for c in calls["knn_exact"]]
+        fps = [_prcnn_fps_check(*c) for c in calls["fps"]]
+        nms = [_prcnn_nms_check("proposal buckets", calls["nms_bev"][0][0]),
+               _prcnn_nms_check("refinement", refine[0][0])]
+        knn_rec, fps_rec, nms_rec = combine(knn), combine(fps), combine(nms)
+        launches, ms, stages, peak, out = _prcnn_serving(model, net, x, data,
+                                                         card)
+        say("pointrcnn", f"the kernels' device time in a {ms:.3f} ms served "
+            f"frame, one by one: knn_exact {knn_rec['ms']:.3f} ms (14 "
+            f"calls), fps {fps_rec['ms']:.3f} (6), nms_bev "
+            f"{nms_rec['ms']:.3f} (2)")
+        record["vs_cpu"], record["rois_alike"] = _prcnn_vs_cpu(
+            model, net, state, x, out)
+        record["entry_points"] = _prcnn_entry_points(model, state, card,
+                                                     root)
+    record["profile"] = _prcnn_profile(card)
+    record.update(forward_ms=ms, frames_per_s=1e3 / ms, stages_ms=stages,
+                  peak_gib=peak, launches=launches,
+                  kernels_ms={"knn_exact": knn_rec["ms"],
+                              "fps": fps_rec["ms"],
+                              "nms_bev": nms_rec["ms"]},
+                  nms_keep_differ=sum(r["differ"] for r in nms),
+                  nms_near=sum(r["near"] for r in nms),
+                  nms_valid={"proposal buckets": nms[0]["valid"],
+                             "refinement": nms[1]["valid"]},
+                  frame_points=frame_points,
+                  phase_s=time.perf_counter() - t_phase)
+    say("pointrcnn", f"phase {record['phase_s']:.1f} s")
+    print(json.dumps({"pointrcnn": record, "card": card}), flush=True)
+    return launches, knn_rec, fps_rec, nms_rec
+
+
 def step_branches():
     """The float32 card-vs-CPU step on the patches of model seeds 0-3, with
     the CPU on its own branches and then on the card's."""
@@ -5130,6 +5792,13 @@ def main():
         return None
     if sys.argv[1:] == ["--kpconv-profile"]:
         return kp_profile()
+    if sys.argv[1:] == ["--pointrcnn"]:
+        card = phase_device()
+        phase_build()
+        phase_pointrcnn(card)
+        return None
+    if sys.argv[1:] == ["--prcnn-profile"]:
+        return prcnn_profile()
     card = phase_device()
     model = MODEL.get("RandLANet")()
     phase_build()
@@ -5156,12 +5825,18 @@ def main():
     phase_cli(card)
     pt_launches, pt_knn, measured["fps"] = phase_pointtransformer(card)
     phase_kpconv(card)
-    # knn_exact: one RandLA eval forward's 4 launches and one
-    # PointTransformer forward's 26; its launches, run_inference's and the
-    # PointTransformer forward's
-    measured["knn_exact"] = combine([measured["knn_exact"], pt_knn])
-    launches["knn_exact"] += pt_launches["knn_exact"]
-    launches["fps"] = pt_launches["fps"]
+    (rc_launches, rc_knn, rc_fps,
+     measured["nms_bev"]) = phase_pointrcnn(card)
+    # knn_exact: one RandLA eval forward's 4 launches, one
+    # PointTransformer forward's 26 and one PointRCNN frame's 14; its
+    # launches, run_inference's and the two forwards'
+    measured["knn_exact"] = combine([measured["knn_exact"], pt_knn, rc_knn])
+    launches["knn_exact"] += (pt_launches["knn_exact"] +
+                              rc_launches["knn_exact"])
+    measured["fps"] = combine([measured["fps"], rc_fps])
+    launches["fps"] = pt_launches["fps"] + rc_launches["fps"]
+    # nms_bev: one served PointRCNN frame's 2 calls
+    launches["nms_bev"] = rc_launches["nms_bev"]
     sources = {"bucket_knn": ("open3d_ml_tpu_torch/csrc/bucket_knn.cu",
                               f"{TPU_KERNELS}:261"),
                "bucket_gather": ("open3d_ml_tpu_torch/csrc/bucket_gather.cu",
@@ -5177,7 +5852,10 @@ def main():
                                  "open3d_ml_tpu/ops/pallas/stencil.py:147"),
                "fps": ("open3d_ml_tpu_torch/csrc/fps.cu",
                        "open3d_ml_tpu/ops/sampling.py:13 (an XLA fori_loop, "
-                       "no pallas_call)")}
+                       "no pallas_call)"),
+               "nms_bev": ("open3d_ml_tpu_torch/csrc/nms_bev.cu",
+                           "open3d_ml_tpu/ops/nms.py:17 (an XLA IoU matrix "
+                           "and fori_loop, no pallas_call)")}
     kernels = [json_entry(name, *sources[name], launches[name], rec)
                for name, rec in measured.items()]
     print(json.dumps({"kernels": kernels}))

@@ -40,14 +40,18 @@
 // merging their lists, measured no faster on the H100 than up to 8 warps
 // in one block at the eval pyramid's small levels, so there is none.
 //
-// k is 3, 8 or 16, each its own instance: the lists hold KL = 4, 8 or 16
-// entries (the bitonic sort and merge of knn_select.cuh need a power of
-// two), and a block writes the first k of its merged list. The exact
-// KL best by (d2, index) hold the exact k best as their first k, so k = 3
-// keeps the tie rule of k = 16; the bounds the warps post are KL-th bests,
-// looser than k-th ones by one entry. PointTransformer asks for all three:
-// k = 8 and 16 for its grouping and attention, k = 3 for its 3-NN
-// interpolation.
+// k is 3, 8, 16, 32 or 64, each its own instance: the lists hold KL = 4,
+// 8, 16, 32 or 64 entries (the bitonic sort and merge of knn_select.cuh
+// need a power of two), and a block writes the first k of its merged list.
+// The exact KL best by (d2, index) hold the exact k best as their first k,
+// so k = 3 keeps the tie rule of k = 16; the bounds the warps post are
+// KL-th bests, looser than k-th ones by one entry. PointTransformer asks
+// for k = 8 and 16 for its grouping and attention, k = 3 for its 3-NN
+// interpolation; PointRCNN's ball queries for k = 16 and 32 (the RPN's
+// backbone) and 64 (the RCNN stage), and its 3-NN for k = 3. At k = 32
+// and 64 a thread keeps one query (a list of 64 or 128 registers), and
+// the tree merge reads the other warp's list from shared memory entry by
+// entry rather than copying it into registers.
 //
 // Not carried over from the TPU kernel: the [TQ, k + TP] concatenation and
 // its k min-extraction rounds (the TPU has no top-k), the broadcast-select
@@ -268,26 +272,35 @@ cudaError_t launch_qpt(const float* points, const float* queries,
                        const unsigned char* mask, int* idx, float* d2,
                        int b, int n, int q, int k, int qpt, int warps,
                        int chunk, int shared, cudaStream_t stream) {
-  switch (qpt) {
-    case 1:
-      return launch<KL, 1>(points, queries, mask, idx, d2, b, n, q, k, warps,
-                           chunk, shared, stream);
-    case 2:
-      return launch<KL, 2>(points, queries, mask, idx, d2, b, n, q, k, warps,
-                           chunk, shared, stream);
-    default:
-      return cudaErrorInvalidValue;
+  if constexpr (KL >= 32) {
+    // one query a thread: two lists of 32 or 64 entries would not fit in
+    // a thread's registers
+    if (qpt != 1) return cudaErrorInvalidValue;
+    return launch<KL, 1>(points, queries, mask, idx, d2, b, n, q, k, warps,
+                         chunk, shared, stream);
+  } else {
+    switch (qpt) {
+      case 1:
+        return launch<KL, 1>(points, queries, mask, idx, d2, b, n, q, k,
+                             warps, chunk, shared, stream);
+      case 2:
+        return launch<KL, 2>(points, queries, mask, idx, d2, b, n, q, k,
+                             warps, chunk, shared, stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
 }
 
 }  // namespace
 
 // points [B, N, 3] and queries [B, Q, 3] float32, mask [B, N] bool or null;
-// idx [B, Q, k] int32 and d2 [B, Q, k] float32 are written. k is 3, 8 or
-// 16. The plan (ops/cuda/knn.py, exact_plan): qpt queries a thread (1 or
-// 2), warps a block (1, 2, 4 or 8), chunk tile entries a warp (a multiple
-// of 32, at most 128), and the block's shared memory in bytes, which must
-// equal shared_bytes for the plan.
+// idx [B, Q, k] int32 and d2 [B, Q, k] float32 are written. k is 3, 8,
+// 16, 32 or 64. The plan (ops/cuda/knn.py, exact_plan): qpt queries a
+// thread (1 or 2; 1 at k = 32 and 64), warps a block (1, 2, 4 or 8),
+// chunk tile entries a warp (a multiple of 32, at most 128), and the
+// block's shared memory in bytes, which must equal shared_bytes for the
+// plan.
 extern "C" int knn_exact_launch(const float* points, const float* queries,
                                 const unsigned char* mask, int* idx,
                                 float* d2, int b, int n, int q, int k,
@@ -307,6 +320,12 @@ extern "C" int knn_exact_launch(const float* points, const float* queries,
                            warps, chunk, shared, st);
     case 16:
       return launch_qpt<16>(points, queries, mask, idx, d2, b, n, q, k, qpt,
+                            warps, chunk, shared, st);
+    case 32:
+      return launch_qpt<32>(points, queries, mask, idx, d2, b, n, q, k, qpt,
+                            warps, chunk, shared, st);
+    case 64:
+      return launch_qpt<64>(points, queries, mask, idx, d2, b, n, q, k, qpt,
                             warps, chunk, shared, st);
     default:
       return cudaErrorInvalidValue;

@@ -134,6 +134,11 @@ struct TopK {
         i[j] = oi[K - 1 - j];
       }
     }
+    clean();
+  }
+
+  // Sort a bitonic list by key: log2(K) half-cleaner stages.
+  __device__ __forceinline__ void clean() {
 #pragma unroll
     for (int s = K / 2; s > 0; s /= 2) {
 #pragma unroll
@@ -162,16 +167,21 @@ struct TopK {
     }
   }
 
+  // Merge in the list at sd / si (entry j at [j * stride]), reading each
+  // entry as the first stage takes it: a copy of the other list in
+  // registers beside this one would spill at K = 64 (256 registers).
   __device__ __forceinline__ void merge_from(const float* sd, const int* si,
                                              int stride) {
-    float od[K];
-    int oi[K];
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      od[j] = sd[j * stride];
-      oi[j] = si[j * stride];
+      const float od = sd[(K - 1 - j) * stride];
+      const int oi = si[(K - 1 - j) * stride];
+      if (key_less(od, oi, d[j], i[j])) {
+        d[j] = od;
+        i[j] = oi;
+      }
     }
-    merge(od, oi);
+    clean();
   }
 
   // Merge in a list that another block posted to global memory (entry j at

@@ -102,11 +102,31 @@ class DataProcessing:
         return 1.0 / (weight + 0.02)
 
     @staticmethod
+    def invT(T):
+        """The inverse of a [4, 4] rigid or affine transform in the
+        row-vector convention (points [N, 4] @ T)."""
+        R = T[:3, :3]
+        t = T[3:, :3]
+        Rinv = np.linalg.inv(R)
+        tinv = t @ -Rinv
+        M = np.concatenate([Rinv, tinv], axis=0)
+        return np.concatenate([M, [[0], [0], [0], [1]]], axis=1)
+
+    @staticmethod
     def world2cam(points, world_cam):
         """Lidar (world) -> camera coordinates [N, 3]."""
         pts = np.hstack(
             (points[:, :3], np.ones((points.shape[0], 1), np.float32)))
         return (pts @ world_cam)[..., :3]
+
+    @staticmethod
+    def cam2world(points, world_cam):
+        """Camera -> lidar (world) coordinates [N, 3]: ``world2cam``'s
+        inverse, through ``invT``."""
+        cam_world = DataProcessing.invT(world_cam)
+        pts = np.hstack(
+            (points[:, :3], np.ones((points.shape[0], 1), np.float32)))
+        return (pts @ cam_world)[..., :3]
 
     @staticmethod
     def cam2img(points, cam_img):

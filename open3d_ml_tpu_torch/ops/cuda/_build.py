@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("bucket_knn.cu", "bucket_gather.cu", "bucket_gather_bwd.cu",
-           "knn_exact.cu", "stencil_conv.cu", "stencil_match.cu", "fps.cu")
+           "knn_exact.cu", "stencil_conv.cu", "stencil_match.cu", "fps.cu",
+           "nms_bev.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,6 +58,8 @@ ENTRY_POINTS = {
     # shared, stream
     "stencil_match_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P),
+    # boxes, valid, mask, keep, R, N, threshold, stream
+    "nms_bev_launch": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _P),
     # route, ct, mw, stages, qblock, K, S, seg
     "stencil_conv_shared": (_I, _I, _I, _I, _I, _I, _I, _I),
     # S, seg

@@ -4,9 +4,10 @@ wrapper that ``ops/neighbors.py`` calls.
 The wrapper takes the plain version for tensors on the CPU and launches
 the ``knn_exact`` kernel (``csrc/knn_exact.cu``) for tensors on a CUDA
 device; it has no other route. ``LAUNCHES`` counts the kernel launches,
-one a call. ``exact_plan`` sizes a call. The kernel is built for k = 3, 8
-and 16 (``KNN_KS``): RandLA-Net's 16, PointTransformer's 8 and 16 and its
-3-NN interpolation's 3; any other k raises on a CUDA tensor.
+one a call. ``exact_plan`` sizes a call. The kernel is built for k = 3,
+8, 16, 32 and 64 (``KNN_KS``): RandLA-Net's 16, PointTransformer's 8 and
+16, the 3-NN interpolation's 3, and PointRCNN's ball queries' 16, 32 and
+64; any other k raises on a CUDA tensor.
 
 The contract is the TPU kernel's: d2 = max(|q|^2 + |p|^2 - 2 q.p, 0),
 masked points carry |p|^2 = 1e30, and the k results come ascending by d2,
@@ -23,7 +24,9 @@ from ._launch import check, fits, ptr, raise_on, route, sm_count, stream
 
 LAUNCHES = {"knn_exact": 0}
 
-KNN_KS = (3, 8, 16)  # the k the kernel is built for
+KNN_KS = (3, 8, 16, 32, 64)  # the k the kernel is built for
+# lists of this length or more keep one query a thread (registers)
+ONE_QUERY_LIST = 32
 # the kernel's plan: warps a block (a power of two up to MAX_WARPS) and
 # tile entries a warp (up to MAX_CHUNK, whole batches of 32)
 MAX_WARPS = 8
@@ -127,8 +130,12 @@ def exact_plan(b, n, q, *, sms, k=16):
     at the small levels, where the query groups leave SMs idle, a block
     takes the most warps. "list": the lists' length for ``k``
     (``list_len``), and "shared": the block's shared memory in bytes
-    (``exact_shared``), which the merge of longer lists makes larger."""
-    qpt = 2 if b * -(-q // (2 * BATCH)) >= 4 * sms else 1
+    (``exact_shared``), which the merge of longer lists makes larger.
+    Lists of ``ONE_QUERY_LIST`` entries or more (k = 32 and 64) take one
+    query a thread: two would not fit in a thread's registers."""
+    kl = list_len(k)
+    qpt = 2 if (kl < ONE_QUERY_LIST and
+                b * -(-q // (2 * BATCH)) >= 4 * sms) else 1
     qgroups = b * -(-q // (BATCH * qpt))
     warps = 1
     while (warps < MAX_WARPS and
@@ -136,7 +143,6 @@ def exact_plan(b, n, q, *, sms, k=16):
            n >= 2 * warps * 2 * BATCH):
         warps *= 2
     chunk = min(MAX_CHUNK, BATCH * -(-n // (BATCH * warps)))
-    kl = list_len(k)
     return {"qpt": qpt, "warps": warps, "chunk": chunk, "list": kl,
             "shared": fits("knn_exact",
                            exact_shared(kl, qpt, warps, chunk))}

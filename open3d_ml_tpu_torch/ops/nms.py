@@ -1,22 +1,17 @@
 """Greedy rotated-BEV NMS over a fixed number of boxes, on the device.
 
-Counterpart of ``open3d_ml_tpu/ops/nms.py``. The candidates are few and
-fixed in number (a decode keeps ``nms_pre`` of them), so the whole IoU
-matrix is computed at once, in score order, for every row of a batch
-(every sample and class) together.
-
-Greedy NMS keeps box j (in score order) when it is valid and no kept box
-before it suppresses it. That recurrence has one solution, and iterating
-it on all boxes at once from "every valid box kept" reaches it: after t
-rounds the first t boxes are settled, so it stops at a fixed point within
-N + 1 rounds, mostly within a few (the longest chain of suppressions).
-Each round is a few whole-matrix kernels and one host check, where
-walking the boxes one by one would be three launches a box.
+Counterpart of ``open3d_ml_tpu/ops/nms.py``: the boxes of every row of a
+batch (every sample and class, or every proposal bucket) are put in score
+order by one stable sort, the higher score first and the lower index
+first among equal scores, as the JAX ``jnp.argsort(-scores)`` orders
+them; the greedy pass over them is the ``nms_bev`` wrapper
+(``ops/cuda/nms.py``): the plain version for CPU tensors, the CUDA kernels
+for CUDA ones.
 """
 
 import torch
 
-from .iou import iou_bev
+from .cuda import nms as cnms
 
 
 def nms_bev(boxes, scores, iou_threshold, *, valid_mask=None):
@@ -28,24 +23,20 @@ def nms_bev(boxes, scores, iou_threshold, *, valid_mask=None):
         iou_threshold: a box is suppressed by a kept box of higher score
             (ties: the lower index first) that it overlaps by more.
         valid_mask: optional [..., N] bool; False boxes are suppressed
-            from the start.
+            from the start and suppress nothing.
 
     Returns [..., N] bool, the surviving boxes in their original order.
     """
     n = boxes.shape[-2]
+    lead = scores.shape[:-1]
     order = torch.sort(-scores, dim=-1, stable=True).indices
     sboxes = torch.take_along_dim(boxes, order[..., None], dim=-2)
-    later = torch.ones((n, n), dtype=torch.bool, device=boxes.device).triu(1)
-    suppress = (iou_bev(sboxes, sboxes) > iou_threshold) & later
     valid = (torch.ones(scores.shape, dtype=torch.bool, device=boxes.device)
              if valid_mask is None else
              torch.take_along_dim(valid_mask, order, dim=-1))
-    keep = valid
-    for _ in range(n + 1):
-        new = valid & ~(suppress & keep[..., :, None]).any(dim=-2)
-        if torch.equal(new, keep):
-            break
-        keep = new
+    keep = cnms.nms_bev(sboxes.reshape(-1, n, 5).contiguous(),
+                        valid.reshape(-1, n).contiguous(),
+                        iou_threshold).reshape(*lead, n)
     return torch.zeros_like(keep).scatter_(-1, order, keep)
 
 

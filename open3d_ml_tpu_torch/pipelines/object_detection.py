@@ -114,8 +114,11 @@ class ObjectDetection(BasePipeline):
 
     def run_train(self):
         """Train from the newest checkpoint (or from the start) up to
-        ``max_epoch``, epochs 0 to ``max_epoch`` both included."""
+        ``max_epoch``, epochs 0 to ``max_epoch`` both included. The
+        optimizer comes first, so a model whose ``get_optimizer`` raises
+        leaves no log directory behind."""
         cfg = self.cfg
+        self.optimizer, _ = self.model.get_optimizer(cfg, self.net)
         make_dir(cfg.logs_dir)
         stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
         handler = logging.FileHandler(join(cfg.logs_dir,
@@ -135,7 +138,6 @@ class ObjectDetection(BasePipeline):
         # generator; so does this
         next(iter(self._loader("training", cfg.batch_size, steps,
                                num_workers=0)))
-        self.optimizer, _ = model.get_optimizer(cfg, self.net)
         first_epoch = self.load_ckpt(model.cfg.get("ckpt_path"),
                                      is_resume=model.cfg.get("is_resume",
                                                              True))

@@ -5,7 +5,12 @@ The port names its modules after the flax variable tree, so a flax path
 ``params/net/encoder_0/lse1/mlp/conv/kernel`` becomes the state_dict key
 ``encoder_0.lse1.mlp.conv.weight``. The semantic segmentation nets' trees
 sit in the scope ``"net"`` (the JAX ``BatchedNet`` wrapper);
-PointPillars' tree has no such scope (``JAX_SCOPE = None`` on its net).
+PointPillars' and PointRCNN's trees have no such scope (``JAX_SCOPE =
+None`` on their nets): PointRCNN's leaves are ``rpn/backbone/sa{i}/
+mlp{j}/conv{k}`` and ``bn{k}``, ``rpn/backbone/fp{j}/mlp/...``, the
+heads' ``rpn/{cls,reg}_blocks/{conv0,bn0,final}``, and ``rcnn/...``
+(``xyz_up_layer`` and ``merge_down_layer`` biased, without BatchNorm),
+each a Dense or a BatchNorm mapped as below.
 Leaves map as follows:
 
 * Dense ``kernel [in, out]`` -> Linear ``weight [out, in]`` (transposed);

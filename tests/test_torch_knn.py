@@ -417,10 +417,21 @@ def test_knn_exact_wrapper_passes_the_plan(monkeypatch):
                                  plan["warps"], plan["chunk"],
                                  plan["shared"], 0)
     assert ck.LAUNCHES == {"knn_exact": 4}
-    for k in (1, 2, 5, 12, 32):
-        with pytest.raises(ValueError, match=r"k in \(3, 8, 16\)"):
-            ck.knn_exact(torch.zeros((1, 64, 3)), torch.zeros((1, 64, 3)), k)
-    assert ck.LAUNCHES == {"knn_exact": 4}
+    # PointRCNN's ball queries: lists of 32 and 64, one query a thread
+    for b, n, q, k in ((1, 16384, 4096, 32), (100, 512, 128, 64)):
+        idx, d2 = ck.knn_exact(torch.zeros((b, n, 3)),
+                               torch.zeros((b, q, 3)), k)
+        assert idx.shape == d2.shape == (b, q, k)
+        plan = ck.exact_plan(b, n, q, sms=132, k=k)
+        assert plan["qpt"] == 1 and plan["list"] == k
+        assert calls[-1][5:] == (b, n, q, k, 1, plan["warps"],
+                                 plan["chunk"], plan["shared"], 0)
+    assert ck.LAUNCHES == {"knn_exact": 6}
+    for k in (1, 2, 5, 12, 48, 128):
+        with pytest.raises(ValueError, match=r"k in \(3, 8, 16, 32, 64\)"):
+            ck.knn_exact(torch.zeros((1, 128, 3)),
+                         torch.zeros((1, 64, 3)), k)
+    assert ck.LAUNCHES == {"knn_exact": 6}
 
 
 # ---------------------------------------- PointTransformer's k = 3 and 8

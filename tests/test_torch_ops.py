@@ -244,14 +244,18 @@ def test_entry_points_match_the_sources():
     them)."""
     import re
     from open3d_ml_tpu_torch.ops.cuda import _build
+    import ctypes
     kinds = {}
     for name in _build.SOURCES:
         text = (_build.CSRC / name).read_text()
         for fn, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
-            kinds[fn] = ["p" if "*" in a else "i" for a in args.split(",")]
+            kinds[fn] = ["p" if "*" in a else
+                         "f" if a.split()[0] == "float" else "i"
+                         for a in args.split(",")]
     assert set(kinds) == set(_build.ENTRY_POINTS)
     for fn, argtypes in _build.ENTRY_POINTS.items():
-        assert kinds[fn] == ["p" if t is _build._P else "i"
+        assert kinds[fn] == ["p" if t is _build._P else
+                             "f" if t is ctypes.c_float else "i"
                              for t in argtypes], fn
 
 

@@ -232,6 +232,10 @@ def test_port_imports_no_jax():
             "import open3d_ml_tpu_torch.ops.interpolation\n"
             "import open3d_ml_tpu_torch.ops.cuda.sampling\n"
             "import open3d_ml_tpu_torch.models.kpconv\n"
+            "import open3d_ml_tpu_torch.models.pointnet2\n"
+            "import open3d_ml_tpu_torch.models.point_rcnn\n"
+            "import open3d_ml_tpu_torch.ops.cuda.nms\n"
+            "import open3d_ml_tpu_torch.ops.nms\n"
             "import open3d_ml_tpu_torch.native\n"
             "import chip_smoke\n"
             "bad = [m for m in ('jax', 'flax', 'optax', 'yaml',\n"
