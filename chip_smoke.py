@@ -83,7 +83,12 @@ alone and inside a forward; ``python3 chip_smoke.py --knn-calls`` only
 the KNN kernels' launches: the 4 ``knn_exact`` calls of an eval pyramid
 and the 5 ``bucket_knn`` calls of a fused pyramid at the inference and at
 the training budget. Copied into a checkout of another version of the
-port, either times that version the same way.
+port, either times that version the same way. ``python3 chip_smoke.py
+--vs-parent DIR`` builds an earlier commit's ``csrc/fps.cu`` and
+``csrc/nms_bev.cu``, copied into DIR (``git show
+<commit>:open3d_ml_tpu_torch/csrc/fps.cu > DIR/fps.cu``), and times them
+against this tree's in turns, in one process, at PointTransformer's
+levels and on a served PointRCNN frame's captured calls.
 
 Phases, one line each (or more), in this order:
 
@@ -229,9 +234,12 @@ Phases, one line each (or more), in this order:
    stride's grouping, each 3-NN at k = 3) on uniform, padded (a quarter
    repeated) and lattice points and with a mask, d2 bit-equal and the
    indices row for row, with its time, bound, the plain version's span
-   and ``torch.cdist`` + ``topk``'s; ``fps`` at the four levels (and at
-   24,576 points, beyond what a block stages), indices equal, with its
-   time a step and the serial floor of the forward's 5,436 steps; the
+   and ``torch.cdist`` + ``topk``'s; ``fps`` at the four levels and at
+   1,025, 24,576 and 32,768 points (uniform, padded, lattice, masked,
+   few-valid and all-masked inputs at B = 2, the last three at B = 1),
+   indices equal, with its time a step, its cluster plan, the times of
+   clusters of 4, 8 and 16 CTAs at 16,384 points, and the serial floor of
+   the forward's 5,436 steps; the
    eval forward at 2 x 16,384 (26 ``knn_exact`` and 4 ``fps``
    launches, the same net on the plain versions on the card within
    ``PT_PLAIN_TOL``, sample 0 against the CPU within 1e-4, the median
@@ -279,7 +287,8 @@ Phases, one line each (or more), in this order:
    valid and no kept earlier box overlaps it above the threshold, but
    where a kept earlier box's plain IoU lies within ``PRCNN_IOU_NEAR`` of
    it), the decisions apart from the plain version's counted and their
-   share the record's error), each with its device ms,
+   share the record's error; the mask kernel and the sweep also timed
+   alone), each with its device ms,
    bound and plain call span; the served frame's launch counts
    (``PRCNN_FORWARD_LAUNCHES``, ``PRCNN_SERVE_LAUNCHES``), its median of
    10, the stage split (RPN, proposal, roipool3d, RCNN, inference_end),
@@ -487,6 +496,9 @@ POINTPILLARS_TRAIN_PIPELINE = dict(
 # the train split and the last 2 validation, and the steps of an epoch
 PP_TRAIN_FRAMES, PP_VALID_FRAMES, PP_TRAIN_STEPS = 8, 2, 6
 PP_CPU_BATCH = 2  # frames of the float32 card-vs-CPU step
+# steps on one batch to the trained weights of that step's float64 check:
+# as many as pp_train takes before its overfit steps end (6 + 6 + 10)
+PP_FIT_STEPS = 22
 PP_BATCH, PP_POINTS = 4, 20_000  # the request bench.py:321-341 times
 PP_TEST_FRAMES = 8  # make_objdet_scene seeds 0-7 as KITTI test frames
 # nms_bev launches of the PointPillars phases, one a decode on the card:
@@ -544,8 +556,11 @@ PT_PLAIN_TOL = 1e-5
 PT_ROOMS = ("Area_1_office_1", "Area_1_office_2", "Area_2_office_1",
             "Area_5_office_1")
 PT_ROOM_POINTS = 80_000
-# fps beyond what a block can stage in shared memory (12 N bytes)
-PT_FPS_UNSTAGED = (24_576, 2_048)
+# fps beyond the forward's levels: (N, m) just past one CTA's share,
+# beyond 16,384 points, and at the kernel's MAX_POINTS
+PT_FPS_EXTRA = ((1_025, 256), (24_576, 512), (32_768, 512))
+# cluster sizes timed at 16,384 points, the forward's first level
+PT_FPS_CLUSTERS = (4, 8, 16)
 # KPConv (KPFCNN): the port's YAMLs, the bench's lidar request
 # (bench.py:430, ``child_kpconv``), the command line's SemanticKITTI
 # scans and the S3DIS room of the test area
@@ -825,9 +840,20 @@ def phase_build():
                       for name, regs, st, ld in kernels))
         if any(st or ld for _, _, st, ld in kernels):
             raise AssertionError("a KNN kernel spills registers")
-        say("build", "fps kernels, registers and spill store/load bytes: " +
-            ", ".join(f"{name} {regs} regs {st}/{ld} B" for name, regs, st, ld
-                      in ptxas_kernels(log.read_text(), ("fps.cu",))))
+        kernels = ptxas_kernels(log.read_text(), ("fps.cu", "nms_bev.cu"))
+        say("build", "fps and nms_bev kernels, registers and spill "
+            "store/load bytes: " + ", ".join(
+                f"{name} {regs} regs {st}/{ld} B"
+                for name, regs, st, ld in kernels))
+        if any(st or ld for _, _, st, ld in kernels):
+            raise AssertionError("an fps or nms_bev kernel spills registers")
+    plans = []
+    for n in (16_384, 4_096, 1_024, 256, 512, 128, *dict(PT_FPS_EXTRA)):
+        cluster, threads = cfps.fps_plan(n)
+        plans.append(f"N={n} {cluster} x {threads} threads, "
+                     f"{cfps.max_clusters(0, cluster, threads, n)}")
+    say("build", "fps plans (CTAs a cloud x threads a CTA, "
+        "cudaOccupancyMaxActiveClusters): " + "; ".join(plans))
 
 
 def _sm_clock_hz():
@@ -3337,7 +3363,12 @@ def _pp_gates(model, nets, batch, x):
     def decode(outs):
         return model.get_bboxes(*outs)
 
-    card_dec = decode(compact)
+    card_dec = []
+    nms_calls = _captured(cnms, "nms_bev",
+                          lambda: card_dec.append(decode(compact)))
+    card_dec = card_dec[0]
+    for args, _ in nms_calls:
+        _nms_decisions("pointpillars", "decode rows", *args)
     cpu_dec = decode([o.cpu() for o in compact])
     valid = card_dec[3].cpu()
     same = (torch.equal(valid, cpu_dec[3]) and
@@ -3834,6 +3865,38 @@ def pp_train_profile():
                       "conv_ms": conv, "top": top}), flush=True)
 
 
+def _pp_fit(model, dataset, root, batch, seeded):
+    """The weights after ``PP_FIT_STEPS`` AdamW steps on ``batch`` of a
+    fresh pipeline seeded as pp_train's first (its net checked equal to
+    ``seeded``), under torch's deterministic algorithms, and the total
+    losses. The card's training steps are not reproducible otherwise
+    (atomic sums), and from weights trained so the float32 step's worst
+    gradient against the float64 one moved from run to run: 2.65e-5 to
+    6.08e-5 over 17 runs on an H100 80GB HBM3, and one whole run of this
+    script failed the check there. These weights are the same in every
+    run on one card and software."""
+    pipeline = ObjectDetection(model, dataset=dataset, device=DEVICE,
+                               seed=SEED, max_epoch=0,
+                               main_log_dir=str(root / "fit"),
+                               **POINTPILLARS_TRAIN_PIPELINE)
+    for key, value in pipeline.net.state_dict().items():
+        if not torch.equal(value.cpu(), seeded[key]):
+            raise AssertionError(f"pp_train fit: {key} is not the seeded "
+                                 f"weights'")
+    pipeline.optimizer, _ = model.get_optimizer(pipeline.cfg, pipeline.net)
+    inputs = pipeline._device_batch(batch)
+    torch.use_deterministic_algorithms(True)
+    try:
+        losses = [sum(pipeline._train_step(inputs).values()).item()
+                  for _ in range(PP_FIT_STEPS)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"pp_train fit: loss did not fall: {losses}")
+    return ({k: v.cpu().clone()
+             for k, v in pipeline.net.state_dict().items()}, losses)
+
+
 def _pp_train_profile():
     run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                           "--pp-train-profile"], cwd=REPO,
@@ -3855,9 +3918,9 @@ def phase_pp_train(card):
     writer builds) for one epoch of ``PP_TRAIN_STEPS`` steps and its
     validation, a resumed epoch, overfit steps on one batch with the
     step's parts on CUDA events, the anchor targets and a float32 step
-    card vs CPU from the seeded weights and from those after the overfit
-    steps (there with the step in float64 beside it), and a profiled step
-    in a child process. The training steps launch none of the port's
+    card vs CPU from the seeded weights and from those after
+    ``PP_FIT_STEPS`` steps on that batch (``_pp_fit``; there with the step
+    in float64 beside it), and a profiled step in a child process. The training steps launch none of the port's
     kernels; each decode of the validation on the card launches
     ``nms_bev`` once."""
     t0 = time.perf_counter()
@@ -3977,24 +4040,26 @@ def phase_pp_train(card):
 
         host = {k: torch.from_numpy(v[:PP_CPU_BATCH])
                 for k, v in batch["data"].items() if isinstance(v, np.ndarray)}
-        overfit = {k: v.cpu().clone()
-                   for k, v in resumed.net.state_dict().items()}
+        fitted, fit_losses = _pp_fit(model, dataset, root, batch, seeded)
+        say("pp_train", f"{PP_FIT_STEPS} steps on that batch from the "
+            f"seeded weights under torch's deterministic algorithms: total "
+            f"loss {fit_losses[0]:.4f} -> {fit_losses[-1]:.4f}")
 
         def worst(pairs):
             return ", ".join(f"{k} {v:.3e}" for v, k in pairs[:3])
 
         # From the seeded weights the card's gradients are held to the
-        # CPU's. After the overfit steps the CPU's own float32 sums lie
-        # near the bound from the exact step (7.514e-5 of a card-vs-CPU
-        # 8.506e-5 on an H100 80GB HBM3, the card's 3.615e-5), so there
-        # the card's are held to the step in float64 and the card-vs-CPU
-        # reading is printed.
+        # CPU's. From trained weights the CPU's own float32 sums lie near
+        # the bound from the exact step (7.514e-5 of a card-vs-CPU 8.506e-5
+        # on an H100 80GB HBM3, the card's 3.615e-5), so there the card's
+        # are held to the step in float64 and the card-vs-CPU reading is
+        # printed.
         for name, state in (("the seeded weights", seeded),
-                            ("the weights after the overfit steps",
-                             overfit)):
+                            (f"the weights after {PP_FIT_STEPS} steps",
+                             fitted)):
             t1 = time.perf_counter()
             loss_rel, grads, stats, branches, cpu_s, exact = \
-                _pp_step_vs_cpu(state, host, witness=state is overfit)
+                _pp_step_vs_cpu(state, host, witness=state is fitted)
             say("pp_train", f"one float32 step B={PP_CPU_BATCH} from {name}, "
                 f"card vs CPU on the card's branches ({branches.differ} of "
                 f"{branches.total} ReLU and pillar-max choices the CPU would "
@@ -4018,8 +4083,12 @@ def phase_pp_train(card):
                     f"{max(b for _, b in exact.values()):.3e}")
             if not (loss_rel <= 1e-5 and worst_grad <= 1e-4 and
                     stats[0][0] <= 1e-4):
-                raise AssertionError(f"pp_train: the card's step from {name} "
-                                     f"disagrees")
+                raise AssertionError(
+                    f"pp_train: the card's step from {name} disagrees: loss "
+                    f"relative difference {loss_rel:.3e} (bound 1e-5), worst "
+                    f"gradient {worst_grad:.3e} (bound 1e-4; card vs CPU: "
+                    f"{worst(grads)}), worst BN statistic {worst(stats)} "
+                    f"(bound 1e-4), {branches.differ} branches differ")
         torch.cuda.synchronize()
         check_counts("pp_train", read_counts(), PP_TRAIN_LAUNCHES)
 
@@ -4417,33 +4486,79 @@ def _pt_knn_check(label, n, q, k, calls, b=PT_EVAL_BATCH):
     return dict(kernel_record(err, ms, plain_ms, bounds), cdist_ms=cdist_ms)
 
 
-def _pt_fps_check(n, m, b=PT_EVAL_BATCH):
-    """fps at one level against its plain version on the card (uniform,
-    padded and lattice points, and a mask), indices equal; returns the
-    level's record (times of one call; the plain version's is its call
-    span: m - 1 steps of several launches)."""
-    for kind in ("uniform", "padded", "lattice"):
-        pts = _pt_points(b, n, SEED + m, kind)
-        if not torch.equal(cfps.fps(pts, m), cfps.fps_plain(pts, m)):
-            raise AssertionError(f"fps N={n} m={m} {kind}: indices differ "
-                                 "from the plain version")
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + n)
+def _fps_inputs(b, n, m, seed):
+    """(kind, points, mask) of the fps inputs at one shape on the card:
+    uniform points; "padded", the last quarter repeating earlier points
+    (exact ties across a cluster's CTAs); lattice points (many exact
+    ties); a mask leaving 3/4; a mask leaving fewer valid points than m;
+    and every point masked."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    pts = _pt_points(b, n, seed)
     mask = torch.rand((b, n), generator=gen, device=DEVICE) < 0.75
-    pts = _pt_points(b, n, SEED + 5, "padded")
+    few = torch.zeros((b, n), dtype=torch.bool, device=DEVICE)
+    for row in range(b):
+        few[row, torch.randperm(n, generator=gen, device=DEVICE)[
+            :max(1, min(n, m // 3))]] = True
+    return (("uniform", pts, None),
+            ("padded", _pt_points(b, n, seed + 1, "padded"), None),
+            ("lattice", _pt_points(b, n, seed + 2, "lattice"), None),
+            ("masked", pts, mask), ("few valid", pts, few),
+            ("all masked", pts, torch.zeros_like(mask)))
+
+
+def _fps_equal(label, n, m, b, kind, pts, mask):
+    """fps on one input against its plain version on the card: indices
+    equal, no masked point chosen while a valid one is left, index 0 at
+    every step where none is valid."""
     got = cfps.fps(pts, m, points_mask=mask)
     if not torch.equal(got, cfps.fps_plain(pts, m, points_mask=mask)):
-        raise AssertionError(f"fps N={n} m={m} masked: indices differ")
-    if not mask.gather(1, got[:, 1:].long()).all():
-        raise AssertionError(f"fps N={n} m={m}: a masked point chosen")
+        raise AssertionError(f"{label} fps B={b} N={n} m={m} {kind}: "
+                             "indices differ from the plain version")
+    if mask is not None:
+        some = mask.any(1)
+        chosen = mask.gather(1, got[:, 1:].long()).all(1)
+        if not bool((chosen | ~some).all()) or \
+                not bool((got[~some] == 0).all()):
+            raise AssertionError(f"{label} fps B={b} N={n} m={m} {kind}: a "
+                                 "masked point chosen")
+
+
+def _pt_fps_check(n, m, b=PT_EVAL_BATCH):
+    """fps at one shape against its plain version on the card, indices
+    equal, on every kind of ``_fps_inputs`` at B = 2 and on the padded,
+    few-valid and all-masked ones at B = 1; at 16,384 points each of
+    ``PT_FPS_CLUSTERS`` timed too. Returns the shape's record at B = ``b``
+    (times of one call; the plain version's is its call span: m - 1 steps
+    of several launches)."""
+    for bb in (1, 2):
+        for kind, pts, mask in _fps_inputs(bb, n, m, SEED + n + m + bb):
+            if bb == 2 or kind in ("padded", "few valid", "all masked"):
+                _fps_equal("pointtransformer", n, m, bb, kind, pts, mask)
     pts = _pt_points(b, n, SEED + 6)
     ms = device_ms(lambda: cfps.fps(pts, m), iters=10)
     plain_ms = span_ms(lambda: cfps.fps_plain(pts, m), iters=3, warmup=1)
     bounds = bound(nbytes(pts) + b * m * 4, b * (m - 1) * n * 9)
-    say("pointtransformer", f"fps B={b} N={n} m={m} ({cfps.fps_threads(n)} "
-        f"threads a cloud): uniform, padded, lattice and masked indices "
-        f"equal to the plain version's; device ms {ms:.4f} "
-        f"({ms / (m - 1) * 1e3:.3f} us a step), bound {max(bounds):.4f}; "
-        f"plain call span {plain_ms:.4f}")
+    cluster, threads = cfps.fps_plan(n)
+    say("pointtransformer", f"fps B={b} N={n} m={m} (a cluster of "
+        f"{cluster} CTAs of {threads} threads a cloud): uniform, padded, "
+        f"lattice, masked, few-valid and all-masked indices equal to the "
+        f"plain version's at B = 2, the last three at B = 1 too; device ms "
+        f"{ms:.4f} ({ms / (m - 1) * 1e3:.3f} us a step), bound "
+        f"{max(bounds):.4f}; plain call span {plain_ms:.4f}")
+    if n == 16_384:
+        times, plan = {}, cfps.fps_plan
+        for bb in (1, 2):
+            one = _pt_points(bb, n, SEED + 6)
+            for c in PT_FPS_CLUSTERS:
+                with mock.patch.object(cfps, "fps_plan",
+                                       lambda n, c=c: plan(n, c)):
+                    times[bb, c] = device_ms(lambda: cfps.fps(one, m),
+                                             iters=10)
+        say("pointtransformer", f"fps N={n} m={m} by cluster size (CTAs "
+            f"a cloud: ms at B=1 / B=2, us a step): " + "; ".join(
+                f"{c}: {times[1, c]:.4f} / {times[2, c]:.4f}, "
+                f"{times[1, c] / (m - 1) * 1e3:.3f}"
+                for c in PT_FPS_CLUSTERS) + f"; the plan takes {cluster}")
     return dict(kernel_record(0.0, ms, plain_ms, bounds), steps=m - 1)
 
 
@@ -4724,10 +4839,10 @@ def phase_pointtransformer(card):
     for s in tpt.STRIDE[1:]:
         fps.append(_pt_fps_check(n, n // s))
         n //= s
-    big = _pt_fps_check(*PT_FPS_UNSTAGED, b=1)
-    say("pointtransformer", f"fps at N={PT_FPS_UNSTAGED[0]} (coordinates "
-        f"read through the cache, not staged in shared memory): equal; "
-        f"{big['ms']:.4f} ms")
+    extra = [_pt_fps_check(n, m) for n, m in PT_FPS_EXTRA]
+    say("pointtransformer", "fps beyond the forward's levels: equal; " +
+        ", ".join(f"N={n} m={m} {r['ms']:.4f} ms" for (n, m), r in
+                  zip(PT_FPS_EXTRA, extra)))
     knn_rec, fps_rec = combine(knn), combine(fps)
     steps = sum(r["steps"] for r in fps)
     floor = steps * fps[-1]["ms"] / fps[-1]["steps"]
@@ -5254,8 +5369,9 @@ def _prcnn_fps_check(args, kwargs):
     plain_ms = span_ms(lambda: cfps.fps_plain(points, m, **kwargs), iters=1,
                        warmup=0)
     bounds = bound(nbytes(points) + b * m * 4, b * (m - 1) * n * 9)
-    say("pointrcnn", f"fps B={b} N={n} m={m} ({cfps.fps_threads(n)} threads "
-        f"a cloud): indices equal to the plain version's; device ms "
+    say("pointrcnn", f"fps B={b} N={n} m={m} (plan {cfps.fps_plan(n)}: CTAs "
+        f"a cloud, threads a CTA): indices equal to the plain version's; "
+        f"device ms "
         f"{ms:.4f} ({ms / max(m - 1, 1) * 1e3:.3f} us a step), bound "
         f"{max(bounds):.4f}, plain call span {plain_ms:.4f}")
     return kernel_record(0.0, ms, plain_ms, bounds)
@@ -5331,6 +5447,7 @@ def _prcnn_nms_check(label, args):
     near = nms_trace(boxes, valid, thr, got)
     differ = int((got != want).sum())
     ms = device_ms(lambda: cnms.nms_bev(boxes, valid, thr), iters=10)
+    mask_ms, sweep_ms = _nms_stage_ms(cnms.launch, boxes, valid, thr)
     pairs = _overlapping_pairs(boxes, valid)
     bounds = bound(nbytes(boxes, valid) + r * n, pairs * NMS_PAIR_OPS)
     rows_valid = valid.sum(1).tolist()
@@ -5340,12 +5457,45 @@ def _prcnn_nms_check(label, args):
         f"through the plain IoU, {near} decided by a kept pair within "
         f"{PRCNN_IOU_NEAR:g} of the threshold; {differ} keep decisions "
         f"apart from the plain version's; {pairs} overlapping pairs; "
-        f"device ms {ms:.4f}, bound {max(bounds):.4f} "
+        f"device ms {ms:.4f} (the mask kernel {mask_ms:.4f}, the sweep "
+        f"{sweep_ms:.4f}), bound {max(bounds):.4f} "
         f"({'bytes' if bounds[0] >= bounds[1] else 'ops'}; the sweep is {n} "
         f"dependent steps), plain call span {plain_ms:.2f} (its IoU matrix "
         f"in blocks of {cnms.PLAIN_PAIRS} pairs)")
     return dict(kernel_record(differ / got.numel(), ms, plain_ms, bounds),
-                differ=differ, near=near, valid=rows_valid)
+                differ=differ, near=near, valid=rows_valid, mask_ms=mask_ms,
+                sweep_ms=sweep_ms)
+
+
+def _nms_decisions(phase, label, boxes, valid, thr):
+    """The nms_bev kernels (``cnms.launch``: no launch counted) on one
+    captured call against ``nms_bev_plain`` on the card: every keep
+    decision traced through the plain IoU (``nms_trace``, which raises
+    at a decision it cannot explain); prints the decisions apart."""
+    r, n, _ = boxes.shape
+    got = cnms.launch(boxes, valid, thr, cnms.scratch(r, n, boxes.device),
+                      cnms.MASK | cnms.SWEEP)
+    want = cnms.nms_bev_plain(boxes, valid, thr)
+    near = nms_trace(boxes, valid, thr, got)
+    say(phase, f"nms_bev {label} R={r} N={n} threshold {thr}: kernel keeps "
+        f"{got.sum(1).tolist()}, plain {want.sum(1).tolist()}; every "
+        f"decision traced through the plain IoU, {near} decided by a kept "
+        f"pair within {PRCNN_IOU_NEAR:g} of the threshold; "
+        f"{int((got != want).sum())} keep decisions apart from the plain "
+        f"version's")
+
+
+def _nms_stage_ms(launch, boxes, valid, thr):
+    """Device ms of the mask kernel alone and of the sweep alone (on the
+    mask the first filled), each as ``device_ms`` times it; ``launch`` is
+    ``ops/cuda/nms.py`` ``launch``."""
+    r, n, _ = boxes.shape
+    mask = cnms.scratch(r, n, boxes.device)
+    mask_ms = device_ms(lambda: launch(boxes, valid, thr, mask, cnms.MASK),
+                        iters=10)
+    sweep_ms = device_ms(lambda: launch(boxes, valid, thr, mask,
+                                        cnms.SWEEP), iters=10)
+    return mask_ms, sweep_ms
 
 
 def _prcnn_stage_split(net, model, x, data, runs=10, warmup=3):
@@ -5677,6 +5827,10 @@ def phase_pointrcnn(card):
                   kernels_ms={"knn_exact": knn_rec["ms"],
                               "fps": fps_rec["ms"],
                               "nms_bev": nms_rec["ms"]},
+                  nms_stages_ms={
+                      label: {"mask": r["mask_ms"], "sweep": r["sweep_ms"]}
+                      for label, r in zip(("proposal buckets", "refinement"),
+                                          nms)},
                   nms_keep_differ=sum(r["differ"] for r in nms),
                   nms_near=sum(r["near"] for r in nms),
                   nms_valid={"proposal buckets": nms[0]["valid"],
@@ -5686,6 +5840,110 @@ def phase_pointrcnn(card):
     say("pointrcnn", f"phase {record['phase_s']:.1f} s")
     print(json.dumps({"pointrcnn": record, "card": card}), flush=True)
     return launches, knn_rec, fps_rec, nms_rec
+
+
+def _parent_library(src):
+    """An earlier commit's ``fps.cu`` and ``nms_bev.cu``, copied into the
+    directory ``src``, built there by nvcc as the port's sources are and
+    bound with that commit's entry points: ``fps_launch`` with one block a
+    cloud of ``threads``, ``nms_bev_launch`` with no ``stages``."""
+    import ctypes
+    names = ("fps.cu", "nms_bev.cu")
+    objs = [src / f"{name}.o" for name in names]
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o",
+                               str(obj), str(src / name)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for name, obj in zip(names, objs)]
+    for name, proc in zip(names, procs):
+        said = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the earlier {name}:\n{said}")
+    lib_path = src / "libparent.so"
+    subprocess.run([_build._nvcc(), "-shared", "-o", str(lib_path),
+                    *map(str, objs)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fps_launch.argtypes = (p, p, p, i, i, i, i, p)
+    lib.nms_bev_launch.argtypes = (p, p, p, p, i, i, ctypes.c_float, p)
+    lib.fps_launch.restype = lib.nms_bev_launch.restype = ctypes.c_int
+    return lib
+
+
+def vs_parent(src):
+    """``--vs-parent DIR``: the ``fps`` and ``nms_bev`` kernels of an
+    earlier commit (its ``csrc/fps.cu`` and ``csrc/nms_bev.cu`` copied
+    into DIR) against this tree's, timed in turns in one process (earlier,
+    this, this, earlier; ``device_ms`` each) at PointTransformer's four
+    levels at B = 2, 16,384 -> 4,096 at B = 1, and on the ``fps`` and
+    ``nms_bev`` calls of a served PointRCNN frame, captured; both
+    kernels' outputs equal at each. Prints one JSON line of the times."""
+    card = phase_device()
+    phase_build()
+    old = _parent_library(Path(src).resolve())
+
+    def old_fps(points, m, mask=None):
+        b, n, _ = points.shape
+        out = torch.empty((b, m), dtype=torch.int32, device=points.device)
+        cfps.raise_on(old.fps_launch(points.data_ptr(), cfps.ptr(mask),
+                                     out.data_ptr(), b, n, m,
+                                     min(1024, 32 * -(-n // 32)),
+                                     cfps.stream()), "earlier fps")
+        return out
+
+    def old_nms(boxes, valid, thr):
+        r, n, _ = boxes.shape
+        mask = cnms.scratch(r, n, boxes.device)
+        keep = torch.empty((r, n), dtype=torch.bool, device=boxes.device)
+        cfps.raise_on(old.nms_bev_launch(boxes.data_ptr(), valid.data_ptr(),
+                                         mask.data_ptr(), keep.data_ptr(), r,
+                                         n, float(thr), cfps.stream()),
+                      "earlier nms_bev")
+        return keep
+
+    rows = []
+
+    def turns(label, old_fn, new_fn):
+        if not torch.equal(old_fn(), new_fn()):
+            raise AssertionError(f"vs-parent {label}: the outputs differ")
+        t = [device_ms(fn, iters=10) for fn in (old_fn, new_fn, new_fn,
+                                                old_fn)]
+        rows.append({"call": label, "parent_ms": [t[0], t[3]],
+                     "ms": [t[1], t[2]]})
+        say("vs-parent", f"{label}: earlier {t[0]:.4f} / {t[3]:.4f} ms, "
+            f"this tree {t[1]:.4f} / {t[2]:.4f} ms (in turns: earlier, "
+            f"this, this, earlier)")
+
+    n = POINTTRANSFORMER_S3DIS["num_points"]
+    for b in (1, 2):
+        pts = _pt_points(b, n, SEED + 6)
+        turns(f"fps B={b} N={n} m={n // 4}", lambda: old_fps(pts, n // 4),
+              lambda: cfps.fps(pts, n // 4))
+    n //= tpt.STRIDE[1]
+    for s in tpt.STRIDE[2:]:
+        pts = _pt_points(PT_EVAL_BATCH, n, SEED + 6)
+        turns(f"fps B={PT_EVAL_BATCH} N={n} m={n // s}",
+              lambda: old_fps(pts, n // s), lambda: cfps.fps(pts, n // s))
+        n //= s
+    model = prcnn_model()
+    net = random_weights(model.get_net(), SEED).eval().to(DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, _ = prcnn_request(model, Path(tmp) / "request")
+    x = {"point": torch.from_numpy(data["point"]).to(DEVICE)}
+    calls, out = _prcnn_calls(net, x)
+    refine = _captured(cnms, "nms_bev", lambda: model.inference_end(out, data))
+    for (points, m), kwargs in calls["fps"]:
+        mask = kwargs.get("points_mask")
+        turns(f"pointrcnn fps B={points.shape[0]} N={points.shape[1]} m={m}",
+              lambda: old_fps(points, m, mask),
+              lambda: cfps.fps(points, m, points_mask=mask))
+    for label, (args, _) in (("proposal buckets", calls["nms_bev"][0]),
+                             ("refinement", refine[0])):
+        boxes, valid, thr = args
+        turns(f"pointrcnn nms_bev {label} R={boxes.shape[0]} "
+              f"N={boxes.shape[1]}", lambda: old_nms(boxes, valid, thr),
+              lambda: cnms.nms_bev(boxes, valid, thr))
+    print(json.dumps({"vs_parent": rows, "card": card}), flush=True)
 
 
 def step_branches():
@@ -5797,6 +6055,8 @@ def main():
         phase_build()
         phase_pointrcnn(card)
         return None
+    if sys.argv[1:2] == ["--vs-parent"] and len(sys.argv) == 3:
+        return vs_parent(sys.argv[2])
     if sys.argv[1:] == ["--prcnn-profile"]:
         return prcnn_profile()
     card = phase_device()

@@ -28,8 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argument types of each C entry point; each returns an int: the
-# cudaError_t of its launch, or for the *_shared ones a kernel's shared
-# memory in bytes
+# cudaError_t of its launch, for the *_shared ones a kernel's shared
+# memory in bytes, for fps_max_clusters a cluster count
 ENTRY_POINTS = {
     # points, queries, seg_ids, rel, d2, part_i, part_d, tickets, B, npad, Q,
     # nqb, S, seg_shift, qblock, k, qpt, threads, groups, span, shared,
@@ -48,8 +48,8 @@ ENTRY_POINTS = {
     # chunk, shared, stream
     "knn_exact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P),
-    # points, mask (or NULL), out, B, N, m, threads, stream
-    "fps_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # points, mask (or NULL), out, B, N, m, cluster, threads, stream
+    "fps_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # values, keys, qkeys, seg_ids, w, out, B, V, npad, Q, K, Cin, Cout, nqb,
     # S, seg, qblock, route, ct, mw, stages, shared, stream
     "stencil_conv_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -58,14 +58,17 @@ ENTRY_POINTS = {
     # shared, stream
     "stencil_match_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P),
-    # boxes, valid, mask, keep, R, N, threshold, stream
-    "nms_bev_launch": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _P),
+    # boxes, valid, mask, keep, R, N, threshold, stages, stream
+    "nms_bev_launch": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
     # route, ct, mw, stages, qblock, K, S, seg
     "stencil_conv_shared": (_I, _I, _I, _I, _I, _I, _I, _I),
     # S, seg
     "stencil_match_shared": (_I, _I),
     # table rows
     "bucket_knn_shared": (_I,),
+    # N, cluster, threads: cudaOccupancyMaxActiveClusters of fps_launch's
+    # launch, or minus a cudaError
+    "fps_max_clusters": (_I, _I, _I),
 }
 
 

@@ -34,8 +34,9 @@ from open3d_ml_tpu_torch.pipelines import SemanticSegmentation
 from open3d_ml_tpu_torch.utils import load_jax_variables, state_dict_to_jax
 
 import chip_smoke
-from test_torch_kpconv import (_batches, _cloud, _flat, _rel, to_jax,
-                               to_torch, warm_cpu_kernels)
+from test_torch_kpconv import (_batches, _cloud, _flat, _rel,
+                               load_jax_native, to_jax, to_torch,
+                               warm_cpu_kernels)
 from test_torch_pointtransformer import write_s3dis
 from test_torch_randlanet import REPO, _randomise_stats
 
@@ -55,6 +56,7 @@ ROOMS = ("Area_1_office_1", "Area_2_office_1", "Area_5_office_1")
 
 @pytest.fixture(scope="module", autouse=True)
 def _warm():
+    load_jax_native()
     warm_cpu_kernels()
 
 

@@ -216,9 +216,13 @@ def test_nms_bev_suppression_chain_and_batch():
 
 def test_nms_bev_kernel_route(monkeypatch):
     """On the kernel route the wrapper hands its entry point the sorted
-    boxes, the valid mask, a [R, N, ceil(N / 64)] mask scratch and the
-    threshold; one launch a call; PointPillars' [B, classes] rows and
-    the proposal layer's two padded buckets each take one call."""
+    boxes, the valid mask, a [R, N, ceil(N / 64) + 1] int64 mask scratch
+    (the last word a box's column word of its own block), the
+    threshold and both kernels (``MASK | SWEEP``); one launch a call;
+    PointPillars' [B, classes] rows and the proposal layer's two padded
+    buckets each take one call; ``launch`` runs either kernel alone on a
+    scratch it is given; rows past ``MAX_BOXES`` (the sweep's bits in
+    46 KB of shared memory) are refused."""
     from open3d_ml_tpu_torch.ops.cuda import _build
     calls = []
 
@@ -231,11 +235,35 @@ def test_nms_bev_kernel_route(monkeypatch):
     monkeypatch.setattr(cnms, "route", lambda t, family: "kernel")
     monkeypatch.setattr(cnms, "stream", lambda: 0)
     monkeypatch.setattr(cnms, "LAUNCHES", {"nms_bev": 0})
+    scratch = []
+    real = cnms.scratch
+    monkeypatch.setattr(cnms, "scratch", lambda *a: scratch.append(
+        real(*a)) or scratch[-1])
     boxes = torch.zeros((2, 3, 100, 5))
     nms_bev(boxes, torch.zeros((2, 3, 100)), 0.01)
     args = calls[-1]
-    assert args[4:] == (6, 100, 0.01, 0)
+    # boxes, valid, mask, keep, R, N, threshold, stages, stream
+    assert args[4:] == (6, 100, 0.01, cnms.MASK | cnms.SWEEP, 0)
+    assert scratch[-1].shape == (6, 100, 3) and \
+        scratch[-1].dtype == torch.int64
+    assert args[2] == scratch[-1].data_ptr()
     assert cnms.LAUNCHES == {"nms_bev": 1}
+    b, v = torch.zeros((2, 6300, 5)), torch.ones((2, 6300), dtype=torch.bool)
+    mask = real(2, 6300, b.device)
+    assert mask.shape == (2, 6300, 100)
+    cnms.launch(b, v, 0.85, mask, cnms.MASK)
+    cnms.launch(b, v, 0.85, mask, cnms.SWEEP)
+    assert [c[7] for c in calls[-2:]] == [cnms.MASK, cnms.SWEEP]
+    assert all(c[2] == mask.data_ptr() for c in calls[-2:])
+    assert cnms.LAUNCHES == {"nms_bev": 1}  # launch alone counts nothing
+    with pytest.raises(ValueError, match="mask scratch"):
+        cnms.launch(b, v, 0.85, real(2, 6299, b.device), cnms.MASK)
+    assert cnms.MAX_BOXES == 376_832
+    n = cnms.MAX_BOXES + 1
+    with pytest.raises(ValueError, match="N <= 376832"):
+        cnms.launch(torch.zeros((1, n, 5)),
+                    torch.ones((1, n), dtype=torch.bool), 0.5,
+                    torch.empty((1, 1, 1), dtype=torch.int64), cnms.MASK)
     with pytest.raises(ValueError, match="contiguous"):
         cnms.nms_bev(torch.zeros((1, 5, 100)).transpose(1, 2),
                      torch.ones((1, 100), dtype=torch.bool), 0.5)

@@ -19,6 +19,7 @@ at blocks [1, 1, 1, 1, 1], B = 2, N = 512 (the widths are fixed by the
 net), in eval and train mode, with one SGD step against ``optax``.
 """
 
+import contextlib
 import pickle
 import subprocess
 import sys
@@ -95,25 +96,42 @@ def _lattice_batch(seed, b=B, n=N, c=3):
 def _fps_case(case):
     rng = np.random.default_rng(10)
     mask = None
+    n = {"past_one_cta": 1025, "past_one_cta_of_two": 2049}.get(case, 600)
     if case == "uniform":
-        pts = rng.uniform(-25, 25, (B, 600, 3)).astype(np.float32)
+        pts = rng.uniform(-25, 25, (B, n, 3)).astype(np.float32)
     else:
-        pts = lattice_cloud(rng, B, 600)
+        pts = lattice_cloud(rng, B, n)
     if case == "duplicates":  # a short room padded by repeating points
         pts[:, 400:] = pts[:, rng.choice(400, 200)]
+    if case == "quarter_repeated":
+        # the last quarter repeats points of the first three: exact ties
+        # between points that a cluster's CTAs hold apart
+        keep = n - n // 4
+        pts[:, keep:] = pts[:, rng.choice(keep, n - keep)]
     if case == "masked":
-        mask = rng.random((B, 600)) < 0.5
+        mask = rng.random((B, n)) < 0.5
         mask[1] = False
-        mask[1, rng.choice(600, 40, replace=False)] = True
+        mask[1, rng.choice(n, 40, replace=False)] = True
+    if case == "few_valid":  # fewer valid points than samples
+        mask = np.zeros((B, n), bool)
+        mask[:, rng.choice(n, 30, replace=False)] = True
+    if case == "all_masked":
+        mask = np.zeros((B, n), bool)
     return pts, mask
 
 
 @pytest.mark.parametrize("case", ["uniform", "lattice", "duplicates",
-                                  "masked"])
+                                  "masked", "past_one_cta",
+                                  "past_one_cta_of_two", "quarter_repeated",
+                                  "few_valid", "all_masked"])
 def test_fps_equals_jax(case):
     """Indices equal ``furthest_point_sampling_batch``'s, ties (duplicate
     points, the lower index first) and masks included; the one-cloud form
-    equals ``furthest_point_sampling``'s."""
+    equals ``furthest_point_sampling``'s. The cases the kernel's split of
+    a cloud over a cluster's CTAs makes risky: N just past one CTA's share
+    (1,025 and 2,049 points), a quarter of the points repeated (exact
+    ties), fewer valid points than samples, and no valid point at all
+    (every step then takes index 0, the lowest of the equal -1s)."""
     pts, mask = _fps_case(case)
     m = 150
     want = np.asarray(furthest_point_sampling_batch(
@@ -124,10 +142,15 @@ def test_fps_equals_jax(case):
         points_mask=None if mask is None else torch.from_numpy(mask))
     assert got.dtype == torch.int32 and got.shape == (B, m)
     np.testing.assert_array_equal(got.numpy(), want)
-    if mask is not None:
+    if case == "masked":
         # sample 1 has 40 valid points: all of them come first (after
         # index 0, where every FPS starts), then valid ones repeat
         assert mask[1][got[1, 1:].numpy()].all()
+    if case == "few_valid":
+        # after index 0 only valid points, repeated once all are taken
+        assert all(mask[row][got[row, 1:].numpy()].all() for row in range(B))
+    if case == "all_masked":
+        assert (got == 0).all()
     one = furthest_point_sampling(torch.from_numpy(pts[0]), m,
                                   points_mask=None if mask is None else
                                   torch.from_numpy(mask[0]))
@@ -137,11 +160,31 @@ def test_fps_equals_jax(case):
 
 
 def test_fps_threads_and_checks():
-    assert [cfps.fps_threads(n) for n in (1, 64, 100, 1024, 4096, 16384,
-                                          32768)] == [
-        32, 64, 128, 1024, 1024, 1024, 1024]
+    """The launch plan: one CTA up to 4,096 points, else the least
+    cluster whose CTAs hold at most 1,024 points (16 CTAs at most);
+    whole warps of 2 points a thread, up to 1,024 threads of up to 8
+    points; a cluster outside (1, 2, 4, 8, 16), a CTA of more than 8,192
+    points and clouds beyond ``MAX_POINTS`` are refused."""
+    assert [cfps.fps_plan(n) for n in (1, 64, 256, 1024, 1025, 2048, 2049,
+                                       4096, 4097, 16384, 24576, 32768)] == [
+        (1, 32), (1, 32), (1, 128), (1, 512), (1, 544), (1, 1024),
+        (1, 1024), (1, 1024), (8, 288), (16, 512), (16, 768), (16, 1024)]
+    assert [cfps.fps_plan(16384, c) for c in (4, 8, 16)] == [
+        (4, 1024), (8, 1024), (16, 512)]
+    for n in (1, 100, 1025, 2049, 4096, 5000, 16384, 24576, 32768):
+        for c in (None, 4, 8, 16):
+            cluster, threads = cfps.fps_plan(n, c)
+            per_cta = -(-n // cluster)
+            assert threads % 32 == 0 and threads <= cfps.MAX_THREADS
+            assert per_cta <= threads * cfps.MAX_PER_THREAD
+            if c is None and n > cfps.ONE_CTA:
+                assert per_cta <= 2 * cfps.CTA_POINTS
     with pytest.raises(ValueError, match="32768"):
-        cfps.fps_threads(32769)
+        cfps.fps_plan(32769)
+    with pytest.raises(ValueError, match="clusters"):
+        cfps.fps_plan(1024, 3)
+    with pytest.raises(ValueError, match="1024 threads"):
+        cfps.fps_plan(32768, 2)
     pts = torch.zeros((1, 20, 3))
     with pytest.raises(ValueError, match="float32"):
         cfps.fps(pts.double(), 4)
@@ -155,30 +198,51 @@ def test_fps_threads_and_checks():
 
 
 def test_fps_wrapper_launches(monkeypatch):
-    """On the kernel route ``fps`` hands its entry point the block's
-    threads, one launch a call, and allocates [B, m] int32."""
+    """On the kernel route ``fps`` asks the stand-in library for the
+    plan's cluster occupancy once a plan, raising where it is 0, and hands
+    its entry point the cluster and the CTA's threads, one launch a call,
+    with [B, m] int32 allocated."""
     from open3d_ml_tpu_torch.ops.cuda import _build
-    calls = []
+    calls, queries = [], []
 
     class Library:
+        clusters = 7
+
         def fps_launch(self, *args):
             calls.append(args)
             return 0
+
+        def fps_max_clusters(self, *args):
+            queries.append(args)
+            return self.clusters
 
     monkeypatch.setattr(_build, "library", Library)
     monkeypatch.setattr(cfps, "route", lambda t, family: "kernel")
     monkeypatch.setattr(cfps, "stream", lambda: 0)
     monkeypatch.setattr(cfps, "LAUNCHES", {"fps": 0})
+    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.
+                        nullcontext())
+    cfps.max_clusters.cache_clear()
     pts = torch.zeros((2, 16384, 3))
     mask = torch.ones((2, 16384), dtype=torch.bool)
     out = cfps.fps(pts, 4096, points_mask=mask)
     assert out.shape == (2, 4096) and out.dtype == torch.int32
-    # points, mask, out, B, N, m, threads, stream
+    # points, mask, out, B, N, m, cluster, threads, stream
     assert calls[0][1] == mask.data_ptr() and calls[0][2] == out.data_ptr()
-    assert calls[0][3:] == (2, 16384, 4096, 1024, 0)
+    assert calls[0][3:] == (2, 16384, 4096, 16, 512, 0)
+    assert queries == [(16384, 16, 512)]  # N, cluster, threads
     cfps.fps(pts[:, :64].contiguous(), 16)
-    assert calls[1][1] is None and calls[1][3:] == (2, 64, 16, 64, 0)
-    assert cfps.LAUNCHES == {"fps": 2}
+    assert calls[1][1] is None and calls[1][3:] == (2, 64, 16, 1, 32, 0)
+    cfps.fps(pts[:, :64].contiguous(), 16)  # the plan's query is kept
+    assert len(queries) == 2 and cfps.LAUNCHES == {"fps": 3}
+    Library.clusters = 0
+    with pytest.raises(RuntimeError, match="no cluster of 8 CTAs"):
+        cfps.fps(pts[:, :8192].contiguous(), 16)
+    Library.clusters = -201
+    with pytest.raises(RuntimeError, match="cudaError 201"):
+        cfps.fps(pts[:, :4000].contiguous(), 16)
+    assert len(calls) == 3 and cfps.LAUNCHES == {"fps": 3}
+    cfps.max_clusters.cache_clear()
 
 
 def test_three_nn_and_interpolation_equal_jax():
