@@ -55,7 +55,13 @@ config, with random weights drawn from a seeded generator:
   frame of 16,384 points through the RPN, the proposal layer (the
   ``nms_bev`` kernel), ``roipool3d``, the RCNN net and
   ``inference_end``, and ``run_inference``, ``run_test``, ``run_valid``
-  and the command line on KITTI frames.
+  and the command line on KITTI frames;
+* PointRCNN training, both stages of ``pointrcnn_kitti.yml``: a step of
+  mode RPN (the RPN in train mode, the per-point labels, the focal and
+  bin losses, AdamW over the RPN) and of mode RCNN (the frozen RPN, the
+  proposals at training's NMS, the roi sampling and jitter, the targets,
+  the RCNN net, AdamW over it), and ``run_pipeline.main --split train``
+  through both on KITTI frames with ObjectSample.
 
 The models are the port's ``RandLANet()`` and ``SparseConvUnet()`` at their
 defaults, which equal the model sections of
@@ -76,7 +82,8 @@ the pp_train phase (each builds the kernels at its first decode, whose
 NMS is the ``nms_bev`` kernel), ``--cli`` the build and the cli phase,
 ``--pointtransformer`` the build and the pointtransformer phase,
 ``--kpconv`` only the kpconv phase (no kernel of the port's),
-``--pointrcnn`` the build and the pointrcnn phase.
+``--pointrcnn`` the build and the pointrcnn phase,
+``--pointrcnn-train`` the build and the pointrcnn_train phase.
 ``python3 chip_smoke.py --stencil-calls`` times only the room request's
 39 stencil convolutions,
 alone and inside a forward; ``python3 chip_smoke.py --knn-calls`` only
@@ -300,6 +307,23 @@ Phases, one line each (or more), in this order:
    test``, each with its launch counts, frames/s and host share; a
    profiled frame in a child process (``--prcnn-profile``). One JSON line
    ``{"pointrcnn": ...}``.
+17. pointrcnn_train: PointRCNN training, both stages of
+   ``pointrcnn_kitti.yml`` (mode RPN, then RCNN), seeded weights, on 4
+   KITTI frames of ``prcnn_scene`` with a gt database from
+   ``utils/collect_bboxes``: every kernel call of one training step
+   against its plain version (mode RPN 12 ``knn_exact`` and 4 ``fps``;
+   mode RCNN 14, 6 and 1 ``nms_bev`` at training's 0.85 and 512
+   survivors, each decision traced), a step's launch counts
+   (``PRCNN_TRAIN_LAUNCHES``), 6 timed steps split by CUDA events
+   (forward, loss, backward, AdamW), frames/s and peak memory, one
+   float32 step against the CPU on the card's branches
+   (``_SameBranches(net="prcnn")``; mode RCNN on the card's RPN outputs
+   and one set of sampling draws; loss ``PRCNN_LOSS_TOL``, the trained
+   stage's gradients and BN statistics ``PRCNN_TOL``), each step's busy
+   share from a profiled child process (``--prcnn-train-profile``), and
+   ``run_pipeline.main --split train`` through both stages, each step's
+   launches and the host share. One JSON line
+   ``{"pointrcnn_train": ...}``.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is not 0. The
@@ -344,6 +368,7 @@ from open3d_ml_tpu_torch.models import kpconv as tkp
 from open3d_ml_tpu_torch.models import point_pillars as tpp
 from open3d_ml_tpu_torch.models import point_rcnn as tprc
 from open3d_ml_tpu_torch.models import point_transformer as tpt
+from open3d_ml_tpu_torch.models import pointnet2 as tp2
 from open3d_ml_tpu_torch.models import randlanet as trl
 from open3d_ml_tpu_torch.models import sparseconvunet as tscu
 from open3d_ml_tpu_torch.modules.losses import SemSegLoss
@@ -639,7 +664,19 @@ PRCNN_CONFIG = "open3d_ml_tpu_torch/configs/pointrcnn_kitti.yml"
 # call for both proposal buckets; inference_end adds one NMS call
 PRCNN_FORWARD_LAUNCHES = {"knn_exact": 14, "fps": 6, "nms_bev": 1}
 PRCNN_SERVE_LAUNCHES = dict(PRCNN_FORWARD_LAUNCHES, nms_bev=2)
+# one training step: mode RPN runs the RPN alone (8 ball queries, 4
+# three-NN, 4 FPS); mode RCNN the whole forward, its proposal layer at
+# training's nms_post 512 and nms_thres 0.85
+PRCNN_TRAIN_LAUNCHES = {"RPN": {"knn_exact": 12, "fps": 4, "nms_bev": 0},
+                        "RCNN": PRCNN_FORWARD_LAUNCHES}
 PRCNN_TOL = 1e-4  # card vs CPU, relative L2
+PRCNN_LOSS_TOL = 1e-5  # card vs CPU, a training step's loss, relative
+PRCNN_TRAIN_FRAMES = 4  # prcnn_scene seeds 220-223 as KITTI training frames
+PRCNN_TRAIN_VALID = 1  # the last of them, the validation split
+PRCNN_TRAIN_STEPS = 6  # timed steps a mode, the first not counted
+# the shipped YAML's pipeline.optimizer
+POINTRCNN_TRAIN_OPTIMIZER = {"optimizer": {"lr": 0.002, "betas": [0.9, 0.99],
+                                           "weight_decay": 0.001}}
 PRCNN_IOU_NEAR = 1e-6  # a keep decision may differ only this near the
                        # threshold
 # float operations of one overlapping pair's clip in csrc/nms_bev.cu, at
@@ -1578,7 +1615,11 @@ class _SameBranches:
     its pillar max, whose near ties route the gradient to the points
     rounding makes the largest; with "kpconv": KPFCNN's LeakyReLUs and
     its max pools, ``models/kpconv.py`` ``leaky_relu`` and ``max_pool``,
-    whose near ties would split or move the gradient): the first run
+    whose near ties would split or move the gradient; with "prcnn":
+    PointNet++'s ReLUs and neighbour maxima (``models/pointnet2.py``), its
+    FPS, ball queries and 3-NN indices, and PointRCNN's proposal NMS,
+    roi IoUs and roi membership, each only while autograd records, so
+    that the frozen RPN of mode RCNN takes none): the first run
     records its choices,
     the run after ``replay()`` takes them and counts in ``differ`` the
     choices its own values would have made otherwise. Like the fixed
@@ -1588,7 +1629,7 @@ class _SameBranches:
     def __init__(self, active=True, net="randla"):
         self.active = active
         self.module = {"randla": trl, "scu": tscu, "pp": tpp,
-                       "kpconv": tkp}[net]
+                       "kpconv": tkp, "prcnn": tp2}[net]
         self.recorded, self.replaying, self.differ = [], False, 0
         self.total = 0  # choices recorded
 
@@ -1599,12 +1640,17 @@ class _SameBranches:
                                  "_SameBranches")
         self.replaying = True
 
-    def _choose(self, own):
+    def _choose(self, own, tol=None):
+        """``own`` recorded, or the recorded choice in its place; with
+        ``tol`` a value replayed, counted as differing beyond ``tol``."""
+        if self.module is tp2 and not torch.is_grad_enabled():
+            return own
         if not self.replaying:
             self.recorded.append(own)
             return own
         want = self.recorded.pop(0).to(own.device)
-        self.differ += int((want != own).sum())
+        self.differ += int((want != own).sum() if tol is None else
+                           ((want - own).abs() > tol).sum())
         return want
 
     def __enter__(self):
@@ -1647,6 +1693,41 @@ class _SameBranches:
             return (vmax.detach() + moved[:num_segments] /
                     share[:num_segments].clamp(min=1))
 
+        if self.module is tp2:
+            self._saved = [(tp2, name, getattr(tp2, name)) for name in
+                           ("F", "neighbour_max", "furthest_point_sampling",
+                            "ball_query", "three_nn")]
+            self._saved += [(tprc, name, getattr(tprc, name)) for name in
+                            ("nms_bev", "iou_3d_elementwise",
+                             "points_in_cam_box")]
+            real = {(obj, name): fn for obj, name, fn in self._saved}
+
+            def nmax(feats):
+                pick = choose(feats.argmax(dim=2, keepdim=True))
+                return torch.gather(feats, 2, pick).squeeze(2)
+
+            def indices(obj, name, first=None):
+                """The call's integer outputs chosen (the first
+                ``first`` of a tuple)."""
+                def call(*args, **kwargs):
+                    out = real[(obj, name)](*args, **kwargs)
+                    if not isinstance(out, tuple):
+                        return choose(out)
+                    return tuple(choose(t) if i in first else t
+                                 for i, t in enumerate(out))
+                return call
+
+            tp2.F = Functional()
+            tp2.neighbour_max = nmax
+            tp2.furthest_point_sampling = indices(
+                tp2, "furthest_point_sampling")
+            tp2.ball_query = indices(tp2, "ball_query", (0, 1))
+            tp2.three_nn = indices(tp2, "three_nn", (1,))
+            tprc.nms_bev = indices(tprc, "nms_bev")
+            tprc.points_in_cam_box = indices(tprc, "points_in_cam_box")
+            tprc.iou_3d_elementwise = lambda *a: choose(
+                real[(tprc, "iou_3d_elementwise")](*a), tol=1e-6)
+            return self
         if self.module is tkp:
             def kp_max_pool(x, inds):
                 rows = tkp.gather_rows(tkp._with_zero_row(x), inds)
@@ -5269,9 +5350,10 @@ def phase_kpconv(card):
 # --------------------------------------------------------------- PointRCNN
 
 
-def prcnn_model(**overrides):
-    """``PointRCNN(**POINTRCNN_KITTI)`` in mode RCNN, the serving mode."""
-    return MODEL.get("PointRCNN")(**dict(POINTRCNN_KITTI, mode="RCNN",
+def prcnn_model(mode="RCNN", **overrides):
+    """``PointRCNN(**POINTRCNN_KITTI)`` in ``mode``: RCNN, the serving
+    mode, unless a training stage asks for RPN."""
+    return MODEL.get("PointRCNN")(**dict(POINTRCNN_KITTI, mode=mode,
                                          seed=SEED, **overrides))
 
 
@@ -5306,14 +5388,15 @@ def prcnn_request(model, root, seed=SEED):
     return batch["data"], len(data["point"])
 
 
-def _prcnn_calls(net, x):
-    """The kernel wrappers' calls of one forward and its refinement:
-    {"knn_exact": [(args, kwargs)], "fps": [...], "nms_bev": [...]}, each
-    call run once as the forward runs it."""
+def _prcnn_calls(net, x, grad=False):
+    """The kernel wrappers' calls of one forward (with autograd where
+    ``grad``, as a training step runs it): {"knn_exact": [(args,
+    kwargs)], "fps": [...], "nms_bev": [...]}, each call run once as the
+    forward runs it."""
     calls, out = {}, {}
 
     def forward():
-        with torch.no_grad():
+        with torch.set_grad_enabled(grad):
             out["net"] = net(x)
 
     def nms():
@@ -5842,6 +5925,453 @@ def phase_pointrcnn(card):
     return launches, knn_rec, fps_rec, nms_rec
 
 
+def prcnn_train_frames(root):
+    """``PRCNN_TRAIN_FRAMES`` KITTI training frames (``prcnn_scene``
+    seeds 220 on) under ``root``, the last ``PRCNN_TRAIN_VALID`` of them
+    the validation split (``val_split``), and the gt database of the
+    train split (``utils/collect_bboxes``) beside them: (dataset, the
+    database's path, its box count)."""
+    for i in range(PRCNN_TRAIN_FRAMES):
+        write_kitti_frame(root, "training", i, 220 + i, prcnn_scene)
+    val_split = PRCNN_TRAIN_FRAMES - PRCNN_TRAIN_VALID
+    dataset = KITTI(dataset_path=str(root), val_split=val_split)
+    db = root / "bboxes.pkl"
+    count = collect_bboxes.collect(KITTI(dataset_path=str(root),
+                                         val_split=val_split), db)
+    return dataset, db, count
+
+
+def prcnn_train_batch(model, dataset, idx=0):
+    """Frame ``idx`` of the train split through the model's training
+    ``preprocess`` and ``transform``: the collated arrays as CPU tensors
+    (mode RPN: the points, per-point labels and box targets; mode RCNN:
+    the points and the padded gt boxes with their count)."""
+    split = dataset.get_split("training")
+    attr = split.get_attr(idx)
+    sample = model.transform(model.preprocess(split.get_data(idx), attr),
+                             attr)
+    batch = DefaultBatcher().collate_fn([{"data": sample, "attr": attr}])
+    return {k: torch.from_numpy(v) for k, v in batch["data"].items()
+            if isinstance(v, np.ndarray)}
+
+
+def prcnn_gt_on_proposals(model, net, x, count=8, seed=SEED):
+    """``x`` (CPU tensors, mode RCNN) with its gt boxes replaced by the
+    ``count`` best proposals of ``net``'s frozen RPN at training's NMS,
+    each moved by N(0, 5 cm): with seeded weights the RPN proposes
+    nothing near the frame's own boxes, so a step would see no
+    foreground roi and train no regression."""
+    dev = next(net.parameters()).device
+    with torch.no_grad():
+        cls, reg, xyz, _ = net.rpn.eval()(x["point"].to(dev))
+        rois, _, valid = tprc.proposal_layer(cls[..., 0], reg, xyz,
+                                             model.rpn_head_cfg,
+                                             training=True)
+    boxes = rois[0][valid[0]][:count].cpu()
+    gen = torch.Generator().manual_seed(seed)
+    gt = torch.zeros_like(x["bboxes"])
+    gt[0, :len(boxes)] = boxes + 0.05 * torch.randn(boxes.shape,
+                                                    generator=gen)
+    return dict(x, bboxes=gt,
+                bbox_count=torch.tensor([len(boxes)], dtype=torch.int32))
+
+
+def _prcnn_step(model, net, opt, x):
+    """One training step on the device batch ``x``; returns the loss."""
+    net.train()
+    losses = model.get_loss(net(x), x)
+    opt.zero_grad(set_to_none=True)
+    total = sum(losses.values())
+    total.backward()
+    opt.step()
+    return total
+
+
+def _prcnn_step_events(model, net, opt, x, steps):
+    """``steps`` training steps, each split by CUDA events into forward,
+    loss, backward and AdamW: (the losses, {part: [ms a step]}, [step
+    ms])."""
+    parts = collections.defaultdict(list)
+    totals, losses = [], []
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        net.train()
+        ev[0].record()
+        out = net(x)
+        ev[1].record()
+        loss = sum(model.get_loss(out, x).values())
+        ev[2].record()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        ev[4].synchronize()
+        losses.append(loss.item())
+        for k, part in enumerate(("forward", "loss", "backward", "adamw")):
+            parts[part].append(ev[k].elapsed_time(ev[k + 1]))
+        totals.append(ev[0].elapsed_time(ev[4]))
+    return losses, parts, totals
+
+
+def _prcnn_step_vs_cpu(mode, state, x, draws, keep):
+    """One float32 training step of ``mode`` on the card and on the CPU
+    from the same weights ``state``, batch ``x`` (CPU tensors), dropout
+    keep mask and roi-sampling draws, the CPU on the card's branches
+    (``_SameBranches(net="prcnn")``) and, in mode RCNN, fed the card's RPN
+    outputs. Returns {"loss", "grad", "stats": relative differences,
+    "differ", "choices", "cpu_s"}; gradients and statistics are the
+    trained stage's."""
+    stage = "rpn." if mode == "RPN" else "rcnn."
+    out = {}
+    rpn_out = {}
+    with _SameBranches(net="prcnn") as branches:
+        for side, device in (("card", DEVICE), ("cpu", "cpu")):
+            model = prcnn_model(mode)
+            net = model.get_net()
+            net.load_state_dict(state)
+            net = net.to(device)
+            if mode == "RPN":
+                for head in ("cls_blocks", "reg_blocks"):
+                    getattr(net.rpn, head).dropout = _FixedDropout(keep)
+            dev_draws = {k: v.to(device) for k, v in draws.items()}
+            net.draw = lambda b, m, dev, d=dev_draws: d
+            real_rpn = net.rpn.forward
+            if side == "card":
+                def rpn(points, real_rpn=real_rpn):
+                    rpn_out["card"] = real_rpn(points)
+                    return rpn_out["card"]
+            else:
+                def rpn(points, real_rpn=real_rpn):
+                    real_rpn(points)
+                    return tuple(t.cpu() for t in rpn_out["card"])
+            if mode == "RCNN":
+                net.rpn.forward = rpn
+            opt, _ = model.get_optimizer(POINTRCNN_TRAIN_OPTIMIZER, net)
+            xd = {k: v.to(device) for k, v in x.items()}
+            t0 = time.perf_counter()
+            net.train()
+            results = net(xd)
+            losses = model.get_loss(results, xd)
+            total = sum(losses.values())
+            total.backward()
+            seconds = time.perf_counter() - t0
+            grads = {n: p.grad.reshape(-1).double().cpu()
+                     for n, p in net.named_parameters()
+                     if n.startswith(stage)}
+            out[side] = {
+                "loss": total.double().cpu(),
+                "grads": grads,
+                "grad": torch.cat(list(grads.values())),
+                "stats": torch.cat([b.reshape(-1).double().cpu()
+                                    for k, b in net.state_dict().items()
+                                    if k.startswith(stage) and k.endswith(
+                                        ("running_mean", "running_var"))]),
+                "seconds": seconds,
+                "labels": {k: int(v) for k, v in (
+                    ("fg", (results["cls_label"] == 1).sum()),
+                    ("reg", results["reg_valid_mask"].sum()))}
+                if mode == "RCNN" else {}}
+            if side == "card":
+                branches.replay()
+        if branches.recorded:
+            raise AssertionError("pointrcnn_train: the CPU step took fewer "
+                                 "branches than the card's")
+    gpu, cpu = out["card"], out["cpu"]
+    # the parameters whose gradients hold most of the difference
+    diff2 = {n: ((g - cpu["grads"][n]) ** 2).sum().item()
+             for n, g in gpu["grads"].items()}
+    total2 = max(sum(diff2.values()), 1e-300)
+    worst = [(n, diff2[n] / total2, _rel_l2(gpu["grads"][n], cpu["grads"][n]))
+             for n in sorted(diff2, key=diff2.get, reverse=True)[:3]]
+    return {"loss": (abs(gpu["loss"] - cpu["loss"]) /
+                     abs(cpu["loss"])).item(),
+            "worst": worst,
+            "grad": _rel_l2(gpu["grad"], cpu["grad"]),
+            "stats": _rel_l2(gpu["stats"], cpu["stats"]),
+            "differ": branches.differ, "choices": branches.total,
+            "cpu_s": cpu["seconds"], "labels": gpu["labels"],
+            "labels_cpu": cpu["labels"]}
+
+
+def prcnn_train_profile():
+    """``--prcnn-train-profile``: one torch.profiler pass over one
+    training step of each mode at the shipped config on seeded weights,
+    each in a range of its own; prints one JSON line a mode: device ms
+    (kernel rows), kernels, wall ms, the port's kernels' device ms and
+    the top 8 kernels. Run in a process of its own: the profiler traces
+    the card once a process."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    phase_device()
+    steps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dataset, _, _ = prcnn_train_frames(Path(tmp))
+        for mode in ("RPN", "RCNN"):
+            model = prcnn_model(mode)
+            net = random_weights(model.get_net(), SEED).to(DEVICE)
+            opt, _ = model.get_optimizer(POINTRCNN_TRAIN_OPTIMIZER, net)
+            x = prcnn_train_batch(model, dataset)
+            if mode == "RCNN":
+                x = prcnn_gt_on_proposals(model, net, x)
+            steps[mode] = (model, net, opt,
+                           {k: v.to(DEVICE) for k, v in x.items()})
+    for mode, args in steps.items():
+        for _ in range(2):
+            _prcnn_step(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for mode, args in steps.items():
+            with record_function(f"prcnn train {mode}"):
+                _prcnn_step(*args).item()
+                torch.cuda.synchronize()
+    events = prof.events()
+    ranges = {e.name for e in events
+              if e.device_type == torch.autograd.DeviceType.CPU}
+    for mode in steps:
+        name = f"prcnn train {mode}"
+        rng = next(e for e in events if e.name == name and
+                   e.device_type == torch.autograd.DeviceType.CPU)
+        t0, t1 = rng.time_range.start, rng.time_range.end
+        kernels, calls = collections.Counter(), collections.Counter()
+        for e in events:
+            if (e.device_type == torch.autograd.DeviceType.CUDA and
+                    e.name not in ranges and
+                    t0 <= e.time_range.start <= t1):
+                kernels[e.name] += e.time_range.elapsed_us() / 1e3
+                calls[e.name] += 1
+        ours = {k: sum(ms for n, ms in kernels.items() if key in n)
+                for k, key in (("knn_exact", "knn_exact_kernel"),
+                               ("fps", "fps_kernel"), ("nms_bev", "nms_"))}
+        print(json.dumps({"range": name, "device_ms": sum(kernels.values()),
+                          "kernels": sum(calls.values()),
+                          "wall_ms": (t1 - t0) / 1e3, "ours": ours,
+                          "top": [[k[:64], ms, calls[k]] for k, ms in
+                                  kernels.most_common(8)]}), flush=True)
+
+
+def _prcnn_train_profile(card):
+    """``prcnn_train_profile`` in a child process: each mode's busy
+    share."""
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--prcnn-train-profile"], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"pointrcnn_train: the profiler run failed:\n"
+                             f"{run.stderr[-4000:]}")
+    out = {}
+    for line in run.stdout.splitlines():
+        if not line.startswith('{"range"'):
+            continue
+        rec = json.loads(line)
+        if rec["device_ms"] <= 0:
+            raise AssertionError("pointrcnn_train: the profiler saw no "
+                                 "device time")
+        rec["busy"] = rec["device_ms"] / rec["wall_ms"]
+        out[rec["range"]] = rec
+        say("pointrcnn_train", f"profiled {rec['range']} step: device "
+            f"{rec['device_ms']:.3f} ms over {rec['kernels']} kernels in a "
+            f"{rec['wall_ms']:.3f} ms span (busy {rec['busy']:.1%}); the "
+            f"port's kernels: " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in rec["ours"].items()) +
+            "; top: " + ", ".join(f"{k} {ms:.3f} ms x{n}"
+                                  for k, ms, n in rec["top"]) +
+            f" (on {card})")
+    if len(out) != 2:
+        raise AssertionError(f"pointrcnn_train: profiled {sorted(out)}")
+    return out
+
+
+def _prcnn_train_cli(card, root, dataset, db):
+    """``run_pipeline.main`` on the shipped YAML, ``--split train``, mode
+    RPN as shipped and then ``--model.mode RCNN`` in a log directory of
+    its own, each one epoch over the train split and a validation, the
+    YAML's augment section on with the gt database ``db``: the launch
+    counts of every step, wall time, steps/s and the host's share."""
+    record = {}
+    val_split = PRCNN_TRAIN_FRAMES - PRCNN_TRAIN_VALID
+    for mode in ("RPN", "RCNN"):
+        steps = []
+        real = ObjectDetection._train_step
+
+        def train_step(self, inputs, real=real, steps=steps):
+            before = read_counts()
+            t0 = time.perf_counter()
+            losses = real(self, inputs)
+            values = [v.item() for v in losses.values()]
+            t1 = time.perf_counter()
+            after = read_counts()
+            steps.append((t1 - t0, {k: after[k] - before[k] for k in after},
+                          values))
+            return losses
+
+        argv = ["-c", REPO / PRCNN_CONFIG, "--device", DEVICE,
+                "--dataset.dataset_path", dataset.cfg.dataset_path,
+                "--dataset.val_split", val_split,
+                "--main_log_dir", root / f"cli_{mode}",
+                "--pipeline.num_workers", "0", "--pipeline.max_epoch", "0",
+                "--model.mode", mode,
+                "--model.augment.ObjectSample.pickle_path", db,
+                "--split", "train"]
+        with mock.patch.object(ObjectDetection, "_train_step", train_step):
+            reset_counts()
+            t0 = time.perf_counter()
+            run_pipeline.main([str(a) for a in argv])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+        if len(steps) != val_split:
+            raise AssertionError(f"pointrcnn_train cli {mode}: "
+                                 f"{len(steps)} steps")
+        for _, counts, values in steps:
+            check_counts("pointrcnn_train", counts,
+                         PRCNN_TRAIN_LAUNCHES[mode])
+            if not np.isfinite(values).all():
+                raise AssertionError(f"pointrcnn_train cli {mode}: loss "
+                                     f"{values}")
+        per_valid = (PRCNN_TRAIN_LAUNCHES["RPN"] if mode == "RPN" else
+                     PRCNN_SERVE_LAUNCHES)
+        check_counts("pointrcnn_train", launches, {
+            k: PRCNN_TRAIN_LAUNCHES[mode][k] * len(steps) +
+            per_valid[k] * PRCNN_TRAIN_VALID for k in per_valid})
+        if not list((root / f"cli_{mode}").glob("**/ckpt_00000.pth")):
+            raise AssertionError(f"pointrcnn_train cli {mode}: no "
+                                 f"checkpoint")
+        step_s = sum(t for t, _, _ in steps)
+        record[mode] = {"wall_s": wall, "steps": len(steps),
+                        "step_s": [t for t, _, _ in steps],
+                        "host_share": (wall - step_s) / wall,
+                        "launches": launches}
+        say("pointrcnn_train", f"run_pipeline -c {PRCNN_CONFIG} --split "
+            f"train --model.mode {mode} (ObjectSample from the gt "
+            f"database): {len(steps)} steps of 1 frame, each "
+            f"{PRCNN_TRAIN_LAUNCHES[mode]} launches, losses "
+            f"{[round(sum(v), 4) for _, _, v in steps]}, and "
+            f"{PRCNN_TRAIN_VALID} validation frame; launches {launches}; "
+            f"wall {wall:.3f} s (the model, the pipeline and the seeded "
+            f"weights built in it), steps "
+            f"{', '.join(f'{t * 1e3:.1f}' for t, _, _ in steps)} ms "
+            f"(synchronised), host share {record[mode]['host_share']:.1%} "
+            f"on {card}")
+    return record
+
+
+def phase_pointrcnn_train(card):
+    """PointRCNN training at the shipped KITTI config, both stages (seeded
+    weights, frames of 16,384 points): for each mode (a) every kernel
+    call of one training step against its plain version on the card
+    (knn_exact, fps, and in mode RCNN nms_bev at training's 0.85 with
+    512 survivors, every keep decision traced); (b) the launch counts of
+    a step; (c) one float32 step on the card against the CPU on the
+    card's branches (mode RCNN: the card's RPN outputs, the same
+    sampling draws); (d) the median step, its forward, loss, backward
+    and AdamW device ms, frames/s and peak memory; then (e) each step's
+    busy share from a profiled child process and (f) the command line
+    through both stages. Prints one JSON line of the phase's numbers and
+    returns ({mode: launches}, the knn_exact, fps and nms_bev records of
+    the checked calls)."""
+    t_phase = time.perf_counter()
+    record, launches = {}, {}
+    checked = collections.defaultdict(list)
+    gen = torch.Generator().manual_seed(SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        dataset, db, boxes = prcnn_train_frames(root / "kitti")
+        say("pointrcnn_train", f"{PRCNN_TRAIN_FRAMES} KITTI frames "
+            f"(prcnn_scene), {PRCNN_TRAIN_VALID} for validation; the gt "
+            f"database holds {boxes} boxes")
+        for mode in ("RPN", "RCNN"):
+            model = prcnn_model(mode)
+            net = random_weights(model.get_net(), SEED)
+            state = {k: v.clone() for k, v in net.state_dict().items()}
+            net = net.to(DEVICE)
+            x_cpu = prcnn_train_batch(model, dataset)
+            if mode == "RCNN":
+                x_cpu = prcnn_gt_on_proposals(model, net, x_cpu)
+            x = {k: v.to(DEVICE) for k, v in x_cpu.items()}
+            # (a) the step's kernel calls, each against its plain version
+            net.train()
+            calls = _prcnn_calls(net, x, grad=True)[0]
+            counts = {k: len(v) for k, v in calls.items()}
+            if counts != PRCNN_TRAIN_LAUNCHES[mode]:
+                raise AssertionError(f"pointrcnn_train {mode}: captured "
+                                     f"{counts}")
+            checked["knn_exact"] += [_prcnn_knn_check(*c)
+                                     for c in calls["knn_exact"]]
+            checked["fps"] += [_prcnn_fps_check(*c) for c in calls["fps"]]
+            for args, _ in calls["nms_bev"]:
+                rec = _prcnn_nms_check("proposal buckets (training)", args)
+                if args[2] != model.rpn_head_cfg.nms_thres:
+                    raise AssertionError(f"pointrcnn_train: NMS at "
+                                         f"{args[2]}")
+                checked["nms_bev"].append(rec)
+            # (b) the launches of one step, (d) its times
+            opt, _ = model.get_optimizer(POINTRCNN_TRAIN_OPTIMIZER, net)
+            _prcnn_step(model, net, opt, x)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            _prcnn_step(model, net, opt, x)
+            torch.cuda.synchronize()
+            launches[mode] = read_counts()
+            check_counts("pointrcnn_train", launches[mode],
+                         PRCNN_TRAIN_LAUNCHES[mode])
+            losses, parts, totals = _prcnn_step_events(
+                model, net, opt, x, PRCNN_TRAIN_STEPS)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"pointrcnn_train {mode}: losses "
+                                     f"{losses}")
+            ms = statistics.median(totals[1:])
+            split = {k: statistics.median(v[1:]) for k, v in parts.items()}
+            # (c) the card against the CPU
+            keep = torch.rand((1, model.npoints, 128), generator=gen) >= 0.5
+            m = model.rpn_head_cfg.nms_post
+            draws = tprc.draw_sampling(gen, 1, m, net.target_cfg, "cpu")
+            vs = _prcnn_step_vs_cpu(mode, state, x_cpu, draws, keep)
+            say("pointrcnn_train", f"mode {mode}, 1 x {model.npoints} "
+                f"points, float32: launches a step {launches[mode]}; "
+                f"losses {[round(v, 4) for v in losses]}; median step "
+                f"{ms:.3f} ms over steps 2-{len(totals)} (min "
+                f"{min(totals[1:]):.3f}, max {max(totals[1:]):.3f}), "
+                f"{1e3 / ms:.2f} frames/s; " + ", ".join(
+                    f"{k} {v:.3f} ms" for k, v in split.items()) +
+                f"; peak device memory {peak:.2f} GiB; card vs CPU: loss "
+                f"{vs['loss']:.3e} (bound {PRCNN_LOSS_TOL:g}), gradients "
+                f"{vs['grad']:.3e}, BN statistics {vs['stats']:.3e} "
+                f"(bound {PRCNN_TOL:g}), the CPU on the card's "
+                f"{vs['choices']} choices ({vs['differ']} its own values "
+                f"would have made otherwise), CPU step {vs['cpu_s']:.1f} s" +
+                "; most of the gradients' difference in " + ", ".join(
+                    f"{n} ({share:.0%}, itself {rel:.2e})"
+                    for n, share, rel in vs["worst"]) +
+                (f"; rois labelled 1 / regressed: card {vs['labels']}, "
+                 f"CPU {vs['labels_cpu']} (gt on the proposals)"
+                 if mode == "RCNN" else "") + f" on {card}")
+            if not (vs["loss"] <= PRCNN_LOSS_TOL and vs["grad"] <= PRCNN_TOL
+                    and vs["stats"] <= PRCNN_TOL and
+                    vs["labels"] == vs["labels_cpu"] and
+                    (mode == "RPN" or vs["labels"]["reg"] > 0)):
+                raise AssertionError(f"pointrcnn_train {mode} card vs CPU: "
+                                     f"{vs}")
+            record[mode] = {"launches": launches[mode], "step_ms": ms,
+                            "step_ms_all": totals,
+                            "frames_per_s": 1e3 / ms, "parts_ms": split,
+                            "peak_gib": peak, "losses": losses,
+                            "vs_cpu": vs}
+            del net, opt
+        record["profile"] = _prcnn_train_profile(card)
+        record["cli"] = _prcnn_train_cli(card, root, dataset, db)
+    recs = {k: combine(v) for k, v in checked.items()}
+    record.update(kernels_ms={k: r["ms"] for k, r in recs.items()},
+                  nms_keep_differ=sum(r["differ"]
+                                      for r in checked["nms_bev"]),
+                  phase_s=time.perf_counter() - t_phase)
+    say("pointrcnn_train", f"phase {record['phase_s']:.1f} s")
+    print(json.dumps({"pointrcnn_train": record, "card": card}), flush=True)
+    return launches, recs
+
+
 def _parent_library(src):
     """An earlier commit's ``fps.cu`` and ``nms_bev.cu``, copied into the
     directory ``src``, built there by nvcc as the port's sources are and
@@ -6059,6 +6589,13 @@ def main():
         return vs_parent(sys.argv[2])
     if sys.argv[1:] == ["--prcnn-profile"]:
         return prcnn_profile()
+    if sys.argv[1:] == ["--pointrcnn-train"]:
+        card = phase_device()
+        phase_build()
+        phase_pointrcnn_train(card)
+        return None
+    if sys.argv[1:] == ["--prcnn-train-profile"]:
+        return prcnn_train_profile()
     card = phase_device()
     model = MODEL.get("RandLANet")()
     phase_build()
@@ -6087,16 +6624,25 @@ def main():
     phase_kpconv(card)
     (rc_launches, rc_knn, rc_fps,
      measured["nms_bev"]) = phase_pointrcnn(card)
+    tr_launches, tr = phase_pointrcnn_train(card)
     # knn_exact: one RandLA eval forward's 4 launches, one
-    # PointTransformer forward's 26 and one PointRCNN frame's 14; its
-    # launches, run_inference's and the two forwards'
-    measured["knn_exact"] = combine([measured["knn_exact"], pt_knn, rc_knn])
+    # PointTransformer forward's 26, one PointRCNN frame's 14 and its two
+    # training steps' 12 and 14; its launches, run_inference's, the three
+    # forwards' and the two steps'
+    measured["knn_exact"] = combine([measured["knn_exact"], pt_knn, rc_knn,
+                                     tr["knn_exact"]])
+    trained = {k: sum(c[k] for c in tr_launches.values())
+               for k in ("knn_exact", "fps", "nms_bev")}
     launches["knn_exact"] += (pt_launches["knn_exact"] +
-                              rc_launches["knn_exact"])
-    measured["fps"] = combine([measured["fps"], rc_fps])
-    launches["fps"] = pt_launches["fps"] + rc_launches["fps"]
-    # nms_bev: one served PointRCNN frame's 2 calls
-    launches["nms_bev"] = rc_launches["nms_bev"]
+                              rc_launches["knn_exact"] +
+                              trained["knn_exact"])
+    measured["fps"] = combine([measured["fps"], rc_fps, tr["fps"]])
+    launches["fps"] = (pt_launches["fps"] + rc_launches["fps"] +
+                       trained["fps"])
+    # nms_bev: one served PointRCNN frame's 2 calls and the RCNN-mode
+    # training step's 1
+    measured["nms_bev"] = combine([measured["nms_bev"], tr["nms_bev"]])
+    launches["nms_bev"] = rc_launches["nms_bev"] + trained["nms_bev"]
     sources = {"bucket_knn": ("open3d_ml_tpu_torch/csrc/bucket_knn.cu",
                               f"{TPU_KERNELS}:261"),
                "bucket_gather": ("open3d_ml_tpu_torch/csrc/bucket_gather.cu",

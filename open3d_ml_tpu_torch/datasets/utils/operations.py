@@ -1,9 +1,11 @@
 """Box geometry of the gt-database sampling (host-side numpy).
 
 Counterpart of ``open3d_ml_tpu/datasets/utils/operations.py``, the parts
-that ``ObjectSample`` and the gt-database writer use, the same code: the
-points inside rotated 3D boxes, the database draw, the BEV collision test
-(``ops/iou.py``'s numpy ``iou_bev``) and the per-class draw. Each random
+that ``ObjectSample``, the gt-database writer and PointRCNN's RPN
+labels use, the same code: the points inside rotated 3D boxes (points
+in the boxes' frame or, given the camera-to-world matrix, in the
+camera's), the database draw, the BEV collision test (``ops/iou.py``'s
+numpy ``iou_bev``) and the per-class draw. Each random
 step draws from the ``rng`` it is given, in the JAX package's order.
 """
 
@@ -77,14 +79,25 @@ def points_in_convex_polygon_3d(points, polygon_surfaces):
     return np.all(sign < 0, axis=-1)
 
 
-def points_in_box(points, rbbox):
+def points_in_box(points, rbbox, origin=(0.5, 0.5, 0), camera_frame=False,
+                  cam_world=None):
     """Membership [N, M] of points [N, >= 3] in rotated 3D boxes [M, 7]
-    (x, y, z, w, l, h, yaw; z the bottom)."""
+    (x, y, z, w, l, h, yaw; ``origin`` the centre's place in the box, z
+    at the bottom by default). With ``camera_frame`` the points are in
+    the camera frame and ``cam_world`` (4 x 4, row vectors) takes them
+    to the boxes' frame first, as PointRCNN's RPN labels need."""
     if len(rbbox) == 0:
         return np.zeros((0, 7))
+    if camera_frame:
+        if cam_world is None:
+            raise ValueError("camera-frame points need cam_world, the "
+                             "camera-to-world matrix")
+        points = np.hstack(
+            (points, np.ones((points.shape[0], 1), dtype=np.float32)))
+        points = np.matmul(points, cam_world)[..., :3]
     rbbox = np.array(rbbox)
     corners = center_to_corner_box3d(rbbox[:, :3], rbbox[:, 3:6],
-                                     rbbox[:, 6])
+                                     rbbox[:, 6], origin=origin)
     surfaces = corner_to_surfaces_3d(corners)
     return points_in_convex_polygon_3d(points[:, :3], surfaces)
 

@@ -99,3 +99,30 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return torch.where(mask[..., None], y, 0.0)
+
+
+class Dropout(nn.Module):
+    """Dropout whose keep mask comes from a generator of its own, seeded by
+    ``manual_seed`` and made on the input's device at first use (never
+    torch's global generator): an element is kept with probability 1 - p
+    and scaled by 1 / (1 - p), as ``flax.linen.Dropout`` does. The
+    identity in eval mode."""
+
+    def __init__(self, p, seed=0):
+        super().__init__()
+        self.p = p
+        self.manual_seed(seed)
+
+    def manual_seed(self, seed):
+        self.seed = int(seed)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training:
+            return x
+        if self.generator is None or self.generator.device != x.device:
+            self.generator = torch.Generator(device=x.device).manual_seed(
+                self.seed)
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))

@@ -23,7 +23,7 @@ from ..ops.interpolation import (inverse_distance_weights,
 from ..ops.neighbors import ball_query
 from ..ops.sampling import furthest_point_sampling
 from ..utils.registry import MODEL
-from .common import BatchNorm
+from .common import BatchNorm, Dropout
 
 
 def gather_rows(data, idx):
@@ -35,11 +35,18 @@ def gather_rows(data, idx):
     return out.reshape(*idx.shape, data.shape[-1])
 
 
+def neighbour_max(feats):
+    """The max over the neighbours axis (2) of grouped features
+    [B, M, k, C] -> [B, M, C]."""
+    return feats.max(dim=2).values
+
+
 class SharedMLP2d(nn.Module):
     """Linear (``conv{i}``, biased only without BatchNorm), BatchNorm
     (``bn{i}``) and ReLU over the channels of [..., C] tensors, each
-    layer followed by dropout where ``dropout`` > 0 (PointRCNN's
-    heads)."""
+    layer followed by dropout where ``dropout`` > 0 (PointRCNN's heads;
+    ``common.Dropout``: its masks come from the module's own generator,
+    which ``manual_seed`` seeds, never from torch's global one)."""
 
     def __init__(self, in_channels, channels, bn=True, dropout=0.0):
         super().__init__()
@@ -53,7 +60,7 @@ class SharedMLP2d(nn.Module):
                                                     momentum=0.1))
             in_channels = c
         self.out_channels = in_channels
-        self.dropout = nn.Dropout(dropout) if dropout > 0 else None
+        self.dropout = Dropout(dropout) if dropout > 0 else None
 
     def forward(self, x):
         for i in range(self.depth):
@@ -129,7 +136,7 @@ class PointnetSAModuleMSG(nn.Module):
             feats = getattr(self, f"mlp{i}")(feats)
             if mask is not None:
                 feats = torch.where(mask[..., None], feats, -1e9)
-            outs.append(feats.max(dim=2).values)
+            outs.append(neighbour_max(feats))
         return new_xyz, torch.cat(outs, dim=-1)
 
 

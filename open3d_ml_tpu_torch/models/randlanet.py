@@ -51,6 +51,7 @@ from ..ops.neighbors import build_knn_pyramid
 from ..utils.registry import MODEL
 from .base_model import BaseModel
 from .common import BatchNorm
+from .common import Dropout as _Dropout
 
 log = logging.getLogger(__name__)
 
@@ -126,32 +127,6 @@ class _BucketLevel:
 
 # flax's BatchNorm over the last axis at RandLA-Net's eps
 _BatchNorm = functools.partial(BatchNorm, eps=1e-6)
-
-
-class _Dropout(nn.Module):
-    """Dropout whose keep mask comes from a generator of its own, seeded by
-    ``manual_seed`` and made on the input's device at first use: an
-    element is kept with probability 1 - p and scaled by 1 / (1 - p), as
-    ``flax.linen.Dropout`` does. The identity in eval mode."""
-
-    def __init__(self, p, seed=0):
-        super().__init__()
-        self.p = p
-        self.manual_seed(seed)
-
-    def manual_seed(self, seed):
-        self.seed = int(seed)
-        self.generator = None
-
-    def forward(self, x):
-        if not self.training:
-            return x
-        if self.generator is None or self.generator.device != x.device:
-            self.generator = torch.Generator(device=x.device).manual_seed(
-                self.seed)
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
 class SharedMLP(nn.Module):

@@ -218,3 +218,24 @@ def iou_3d(boxes1, boxes2):
     v1 = (boxes1[:, 3] * boxes1[:, 4] * boxes1[:, 5])[:, None]
     v2 = (boxes2[:, 3] * boxes2[:, 4] * boxes2[:, 5])[None, :]
     return inter / xp.maximum(v1 + v2 - inter, _EPS)
+
+
+def iou_3d_elementwise(boxes1, boxes2):
+    """Rotated 3D IoU of boxes1 [..., 7] and boxes2 [..., 7] pair by pair
+    (leading dims of one shape) -> [...], in ``iou_3d``'s convention
+    [x, y, z, w, h, l, ry]: one IoU a (candidate, gt) pair, as
+    PointRCNN's roi sampling and jitter take them."""
+    xp = _xp(boxes1)
+    bev1 = xp.stack([boxes1[..., 0], boxes1[..., 2], boxes1[..., 3],
+                     boxes1[..., 5], boxes1[..., 6]], axis=-1)
+    bev2 = xp.stack([boxes2[..., 0], boxes2[..., 2], boxes2[..., 3],
+                     boxes2[..., 5], boxes2[..., 6]], axis=-1)
+    inter_bev = _rotated_intersection_area(xp, bev1, bev2)
+    ymin1, ymax1 = boxes1[..., 1], boxes1[..., 1] + boxes1[..., 4]
+    ymin2, ymax2 = boxes2[..., 1], boxes2[..., 1] + boxes2[..., 4]
+    overlap = xp.maximum(
+        xp.minimum(ymax1, ymax2) - xp.maximum(ymin1, ymin2), 0.0)
+    inter = inter_bev * overlap
+    v1 = boxes1[..., 3] * boxes1[..., 4] * boxes1[..., 5]
+    v2 = boxes2[..., 3] * boxes2[..., 4] * boxes2[..., 5]
+    return inter / xp.maximum(v1 + v2 - inter, _EPS)

@@ -6,13 +6,15 @@ Counterpart of ``open3d_ml_tpu/pipelines/object_detection.py``:
 * ``run_train``: epochs of training steps over the train split (its
   ``preprocess`` augments), ``batch_size`` frames a step with the last
   short batch dropped, each step the model's net (``get_net``) in train
-  mode, ``get_loss`` (anchor assignment on the device), the backward and
-  one AdamW step (``get_optimizer``; no gradient clipping, as the JAX
-  pipeline has none); the epoch's mean losses to the log; ``run_valid``
-  every ``validation_freq`` epochs; checkpoints every ``save_ckpt_freq``
-  epochs and at the last. A resume restores the weights and the
-  BatchNorm statistics of the newest checkpoint and starts AdamW afresh,
-  as the JAX pipeline does (it saves ``opt_state`` but never restores it);
+  mode, ``get_loss`` (PointPillars' anchor assignment, PointRCNN's
+  per-point labels or roi targets, on the device), the backward and one
+  AdamW step (``get_optimizer``: PointRCNN's moves one stage; no
+  gradient clipping, as the JAX pipeline has none); the epoch's mean
+  losses to the log; ``run_valid`` every ``validation_freq`` epochs;
+  checkpoints every ``save_ckpt_freq`` epochs and at the last. A resume
+  restores the weights and the BatchNorm statistics of the newest
+  checkpoint and starts AdamW afresh, as the JAX pipeline does (it saves
+  ``opt_state`` but never restores it);
 * ``run_valid``: every frame of the validation split through the eval
   net and the decode, then the KITTI mAP (BEV and 3D) of the boxes
   against the frames' gt boxes;
@@ -24,10 +26,16 @@ All three ride the model's eval net (``get_eval_net``: PointPillars'
 compact pillars with the reference's caps, float32), which takes a copy
 of ``net``'s ``state_dict`` (the serving net, ``get_net``) before each
 run. Both live on ``device``. The weights start from a generator seeded
-by the pipeline's ``seed``; load trained ones with ``net.load_state_dict``
-(for JAX variables, ``utils.convert_jax.load_jax_variables``) or from a
-checkpoint: ``torch.save`` files ``<logs_dir>/checkpoint/
-ckpt_{epoch:05d}.pth`` of {"model", "optimizer", "epoch"}.
+by the pipeline's ``seed``, and so do a net's own generators where it has
+them (``manual_seed``: PointRCNN's dropout and roi sampling, each step's
+draws made on ``device``; the JAX pipeline draws a key a step). Load
+trained weights with ``net.load_state_dict`` (for JAX variables,
+``utils.convert_jax.load_jax_variables``) or from a checkpoint:
+``torch.save`` files ``<logs_dir>/checkpoint/ckpt_{epoch:05d}.pth`` of
+{"model", "optimizer", "epoch"}. PointRCNN's stage 2 cannot start from a
+stage-1 checkpoint (``models/point_rcnn.py`` ``HANDOFF_FAULT``, as in
+JAX): give it the RPN's weights with ``net.load_state_dict(state,
+strict=False)`` and a log directory of its own.
 
 Not ported: the TensorBoard writer (the epoch's scalars go to the log),
 and reading the JAX package's orbax checkpoints.
@@ -72,6 +80,8 @@ class ObjectDetection(BasePipeline):
         top = np.iinfo(np.int32).max
         gen = torch.Generator().manual_seed(int(self.rng.integers(top)))
         self.net = init_weights(model.get_net(), gen).to(self.device).eval()
+        if hasattr(self.net, "manual_seed"):
+            self.net.manual_seed(int(self.rng.integers(top)))
         self.eval_net = model.get_eval_net().to(self.device).eval()
         self.optimizer = None
 

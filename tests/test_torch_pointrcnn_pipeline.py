@@ -172,23 +172,10 @@ def test_pipeline_run_valid_and_test(pipelines):
     assert [f.name for f in files] == ["000000.txt", "000001.txt"]
 
 
-def test_run_train_and_losses_raise(tmp_path, kitti_root):
-    """Training is not ported: run_train, get_loss and get_optimizer raise
-    NotImplementedError naming the ROADMAP item; so does the RCNN net in
-    train mode and mode RPN's labelled splits."""
-    model = PointRCNN(**PIPE_MODEL)
-    pipe = ObjectDetection(model, dataset=KITTI(
-        dataset_path=str(kitti_root), val_split=2), device="cpu",
-        main_log_dir=str(tmp_path), **PIPE)
-    for call in (pipe.run_train, lambda: model.get_loss({}, {}),
-                 lambda: model.get_optimizer(pipe.cfg, pipe.net),
-                 lambda: pipe.net.train()({"point": torch.zeros(1, 64, 3)})):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-            call()
-    rpn = PointRCNN(**dict(PIPE_MODEL, mode="RPN"))
-    data = {"point": np.zeros((100, 3), np.float32), "calib": None}
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        rpn.transform(data, {"split": "validation"})
+def test_mode_check_and_registry():
+    """A mode other than 'RPN' or 'RCNN' raises ValueError; the port's
+    ``MODEL`` registry names the port's PointRCNN (training in both modes:
+    ``test_torch_pointrcnn_train.py``)."""
     with pytest.raises(ValueError, match="mode"):
         PointRCNN(mode="rcnn")
     assert MODEL.get("PointRCNN") is PointRCNN
