@@ -61,7 +61,11 @@ config, with random weights drawn from a seeded generator:
   bin losses, AdamW over the RPN) and of mode RCNN (the frozen RPN, the
   proposals at training's NMS, the roi sampling and jitter, the targets,
   the RCNN net, AdamW over it), and ``run_pipeline.main --split train``
-  through both on KITTI frames with ObjectSample.
+  through both on KITTI frames with ObjectSample;
+* PVCNN at ``pvcnn_s3dis.yml`` (grids of 64^3 and 32^3): the eval forward
+  at 4 x 40,960 points of S3DIS rooms, one training step against the
+  CPU, and ``run_pipeline.main --split train`` with validation and a
+  resume.
 
 The models are the port's ``RandLANet()`` and ``SparseConvUnet()`` at their
 defaults, which equal the model sections of
@@ -83,7 +87,8 @@ NMS is the ``nms_bev`` kernel), ``--cli`` the build and the cli phase,
 ``--pointtransformer`` the build and the pointtransformer phase,
 ``--kpconv`` only the kpconv phase (no kernel of the port's),
 ``--pointrcnn`` the build and the pointrcnn phase,
-``--pointrcnn-train`` the build and the pointrcnn_train phase.
+``--pointrcnn-train`` the build and the pointrcnn_train phase,
+``--pvcnn`` the build and the pvcnn phase.
 ``python3 chip_smoke.py --stencil-calls`` times only the room request's
 39 stencil convolutions,
 alone and inside a forward; ``python3 chip_smoke.py --knn-calls`` only
@@ -324,6 +329,25 @@ Phases, one line each (or more), in this order:
    ``run_pipeline.main --split train`` through both stages, each step's
    launches and the host share. One JSON line
    ``{"pointrcnn_train": ...}``.
+18. pvcnn: PVCNN at ``pvcnn_s3dis.yml``, seeded weights, float32:
+   ``trilinear_devoxelize`` at the four path shapes (B = 4, N = 40,960,
+   (r, C) = (64, 64), (32, 64), (32, 64), (32, 128)) against its plain
+   versions (the forward bit-equal; the backward bit-equal on dyadic
+   inputs and within ``PV_BWD_TOL`` of a float64 sum on uniform ones),
+   with ``F.grid_sample`` and its backward as the library calls; the
+   eval forward at 4 x 40,960 points of S3DIS rooms (``PV_ROOMS``
+   through ``preprocess``): launch counts, the voxel branches
+   channels-last, card vs CPU on the card's branches and voxel cells
+   within ``PV_TOL``, the median of 10, the FLOP bound (``pv_flops``),
+   peak memory; one training step on the card in float32 and float64
+   and on the CPU in float64, all on the card's branches, the voxel
+   branches channels-last, and the card's float32 readings again on a
+   second seed and batch (``_pv_step_vs_cpu``); 6 timed steps split by
+   CUDA events; a profiled
+   forward and step in a child process (``--pvcnn-profile``);
+   ``run_pipeline.main`` with ``pvcnn_s3dis.yml``, ``--split train``, 2
+   steps and 1 validation step, then a resumed epoch, and ``--split
+   test`` refused.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is not 0. The
@@ -369,6 +393,7 @@ from open3d_ml_tpu_torch.models import point_pillars as tpp
 from open3d_ml_tpu_torch.models import point_rcnn as tprc
 from open3d_ml_tpu_torch.models import point_transformer as tpt
 from open3d_ml_tpu_torch.models import pointnet2 as tp2
+from open3d_ml_tpu_torch.models import pvcnn as tpv
 from open3d_ml_tpu_torch.models import randlanet as trl
 from open3d_ml_tpu_torch.models import sparseconvunet as tscu
 from open3d_ml_tpu_torch.modules.losses import SemSegLoss
@@ -379,6 +404,7 @@ from open3d_ml_tpu_torch.ops import sparse as tsp
 from open3d_ml_tpu_torch.ops import sparse_bucket as tsb
 from open3d_ml_tpu_torch.ops.cuda import _build
 from open3d_ml_tpu_torch.ops.cuda import bucket as cb
+from open3d_ml_tpu_torch.ops.cuda import devoxelize as cdv
 from open3d_ml_tpu_torch.ops.cuda import knn as ck
 from open3d_ml_tpu_torch.ops.cuda import nms as cnms
 from open3d_ml_tpu_torch.ops.cuda import sampling as cfps
@@ -409,7 +435,7 @@ TRAIN_PIPELINE = {"batch_size": 4, "val_batch_size": 2,
                   "optimizer": {"lr": 0.001}, "scheduler_gamma": 0.9886,
                   "save_ckpt_freq": 5, "num_workers": 2}
 COUNTERS = (cb.LAUNCHES, ck.LAUNCHES, cs.LAUNCHES, cfps.LAUNCHES,
-            cnms.LAUNCHES)
+            cnms.LAUNCHES, cdv.LAUNCHES)
 # the H100 SXM's device memory rate and its dense peaks (NVIDIA's
 # datasheet): a kernel's bound is the larger of its bytes over the rate
 # and its operations over the peak for their type
@@ -694,6 +720,44 @@ KITTI_CALIB = (f"P0: {KITTI_P}", f"P1: {KITTI_P}", f"P2: {KITTI_P}",
                f"Tr_velo_to_cam: {KITTI_TR}", f"Tr_imu_to_velo: {KITTI_TR}")
 
 
+PVCNN_CONFIG = "open3d_ml_tpu_torch/configs/pvcnn_s3dis.yml"
+# the model section of pvcnn_s3dis.yml and the pipeline keys the pvcnn
+# phase reads (a CPU test pins both)
+PVCNN_S3DIS = {"num_classes": 13, "num_points": 40960,
+               "extra_feature_channels": 6, "width_multiplier": 1,
+               "voxel_resolution_multiplier": 2, "ignored_label_inds": [-1]}
+PVCNN_PIPELINE = {"batch_size": 4, "val_batch_size": 4,
+                  "optimizer": {"lr": 0.001, "weight_decay": 0.00001,
+                                "betas": [0.9, 0.999]},
+                  "scheduler_gamma": 0.99}
+PV_BATCH = PVCNN_PIPELINE["batch_size"]
+# areas 1-4 train, area 5 (the YAML's test_area_idx) validates
+PV_ROOMS = ("Area_1_office_1", "Area_2_office_1", "Area_3_office_1",
+            "Area_4_office_1", "Area_5_office_1")
+PV_ROOM_POINTS = 80_000  # preprocess draws 40,960 of them
+PV_FORWARD_LAUNCHES = {"trilinear_devoxelize": 4}  # one a PVConv block
+PV_STEP_LAUNCHES = {"trilinear_devoxelize": 4, "trilinear_devoxelize_bwd": 4}
+PV_TOL = 1e-4  # card vs CPU: the forward's relative L2; BN statistics
+PV_LOSS_TOL = 1e-5  # card vs CPU: a step's loss, relative
+# the card's float64 step (the devoxelisation's plain version) against the
+# CPU's, relative: the loss's class weights stay float32 (SemSegLoss), and
+# their sum over 163,840 points rounds apart on the two devices
+PV_F64_TOL = 1e-6
+# the card's float32 step's gradients against float64, relative L2 of all
+# of them: the global feature's BatchNorm over the batch's 4 samples puts
+# float32 gradients 0.7-1.7e-4 from float64 on the card and on the CPU
+PV_STEP_F32_TOL = 5e-4
+# the backward kernel's float32 atomic sums against a float64 sum of the
+# same products, relative L2 over the grid
+PV_BWD_TOL = 1e-6
+PV_TIMED_STEPS = 6  # the first not counted
+# the plain devoxelisation's calls queued at a time when it is timed: its
+# ~50 launches a call, 20 calls at a time, would fill the launch queue
+# and wake the card before the last was queued
+PV_PLAIN_ITERS = 4
+PV_TRAIN_STEPS = (2, 1)  # the command line's train and validation steps
+
+
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
@@ -765,9 +829,11 @@ def device_ms(fn, iters=20, warmup=2):
                          "card")
 
 
-def timings(fn, plain):
-    """(kernel ms, plain ms, kernel span ms, plain span ms) of two calls."""
-    return device_ms(fn), device_ms(plain), span_ms(fn), span_ms(plain)
+def timings(fn, plain, plain_iters=20):
+    """(kernel ms, plain ms, kernel span ms, plain span ms) of two calls; the
+    plain version queued ``plain_iters`` calls at a time."""
+    return (device_ms(fn), device_ms(plain, iters=plain_iters), span_ms(fn),
+            span_ms(plain))
 
 
 def bound(size, ops, dtype="float32"):
@@ -1378,6 +1444,9 @@ def random_weights(net, seed):
             elif p.dim() == 3:
                 p.copy_(torch.randn(p.shape, generator=gen) /
                         (p.shape[0] * p.shape[1]) ** .5)
+            elif p.dim() == 5:  # a Conv3d's [out, in, kd, kh, kw]
+                p.copy_(torch.randn(p.shape, generator=gen) /
+                        p[0].numel() ** .5)
             elif name.endswith("weight"):  # BatchNorm scales
                 p.copy_(torch.rand(p.shape, generator=gen) + 0.5)
             else:
@@ -1619,9 +1688,12 @@ class _SameBranches:
     PointNet++'s ReLUs and neighbour maxima (``models/pointnet2.py``), its
     FPS, ball queries and 3-NN indices, and PointRCNN's proposal NMS,
     roi IoUs and roi membership, each only while autograd records, so
-    that the frozen RPN of mode RCNN takes none): the first run
-    records its choices,
-    the run after ``replay()`` takes them and counts in ``differ`` the
+    that the frozen RPN of mode RCNN takes none; with "pvcnn": PVCNN's
+    ReLUs and LeakyReLUs, the global feature's max over the points, whose
+    ties split the gradient, and the voxel cells, where a coordinate
+    within rounding of a .5 tie moves a point to another cell, counted
+    apart in ``differ_cells``): the first run records its choices, the
+    run after ``replay()`` takes them and counts in ``differ`` the
     choices its own values would have made otherwise. Like the fixed
     dropout mask, this gives both runs one function. With ``active`` false
     it changes nothing."""
@@ -1629,9 +1701,10 @@ class _SameBranches:
     def __init__(self, active=True, net="randla"):
         self.active = active
         self.module = {"randla": trl, "scu": tscu, "pp": tpp,
-                       "kpconv": tkp, "prcnn": tp2}[net]
+                       "kpconv": tkp, "prcnn": tp2, "pvcnn": tpv}[net]
         self.recorded, self.replaying, self.differ = [], False, 0
         self.total = 0  # choices recorded
+        self.differ_cells = 0  # of ``differ``: PVCNN's voxel-cell indices
 
     def replay(self):
         self.total = sum(c.numel() for c in self.recorded)
@@ -1727,6 +1800,24 @@ class _SameBranches:
             tprc.points_in_cam_box = indices(tprc, "points_in_cam_box")
             tprc.iou_3d_elementwise = lambda *a: choose(
                 real[(tprc, "iou_3d_elementwise")](*a), tol=1e-6)
+            return self
+        if self.module is tpv:
+            def cloud_max(feat):
+                pick = choose(feat.argmax(dim=1, keepdim=True))
+                return torch.gather(feat, 1, pick).squeeze(1)
+
+            cells = tpv.voxel_cells
+            self._saved = [(tpv, name, getattr(tpv, name)) for name in
+                           ("F", "cloud_max", "voxel_cells")]
+            tpv.F = Functional()
+            tpv.cloud_max = cloud_max
+            def voxel_cells(norm):
+                before = self.differ
+                out = choose(cells(norm))
+                self.differ_cells += self.differ - before
+                return out
+
+            tpv.voxel_cells = voxel_cells
             return self
         if self.module is tkp:
             def kp_max_pool(x, inds):
@@ -6372,6 +6463,733 @@ def phase_pointrcnn_train(card):
     return launches, recs
 
 
+# ------------------------------------------------------------------- PVCNN
+
+def pv_model(**overrides):
+    """``PVCNN`` at the model section of ``pvcnn_s3dis.yml``."""
+    return MODEL.get("PVCNN")(**dict(PVCNN_S3DIS, **overrides))
+
+
+def pv_request(model, root, rooms=PV_ROOMS[:PV_BATCH]):
+    """A batch of the S3DIS rooms under ``root`` (``write_s3dis_rooms``),
+    each through the model's ``preprocess`` as a test room (its
+    ``num_points`` drawn from the room's seeded generator), collated by
+    ``DefaultBatcher``: {"point", "feat", "label"} on the CPU."""
+    samples = []
+    for name in rooms:
+        with open(root / "original_pkl" / f"{name}.pkl", "rb") as f:
+            pc, _ = pickle.load(f)
+        data = {"point": pc[:, :3], "feat": pc[:, 3:6],
+                "label": pc[:, 6].astype(np.int32)}
+        samples.append({"data": model.preprocess(
+            data, {"split": "test"}, rng=np.random.default_rng(SEED))})
+    batch = DefaultBatcher().collate_fn(samples)["data"]
+    return {k: torch.from_numpy(batch[k]) for k in ("point", "feat",
+                                                     "label")}
+
+
+def pv_shapes(net):
+    """(r, C) of each devoxelisation of a forward of ``net``, in order."""
+    return [(block.resolution, block.vconv1.out_channels)
+            for _, block in sorted(net.named_children())
+            if isinstance(block, tpv.PVConv)]
+
+
+def pv_flops(net, b, n):
+    """Multiply-adds x 2 of one forward of ``net`` on b x n points: each
+    Conv3d over its grid, each Linear over the points (the global
+    feature's over the batch)."""
+    total = 0
+    for name, m in net.named_modules():
+        if isinstance(m, torch.nn.Conv3d):
+            block = net.get_submodule(name.rsplit(".", 1)[0])
+            total += (2 * b * block.resolution ** 3 * m.weight[0].numel() *
+                      m.out_channels)
+        elif isinstance(m, torch.nn.Linear):
+            rows = b if name.startswith("cloud") else b * n
+            total += 2 * rows * m.in_features * m.out_features
+    return total
+
+
+def _pv_coords(b, n, r, dev, gen, lattice=False):
+    """[b, n, 3] voxel-unit coordinates on the card: uniform over [-0.5,
+    r - 0.5] (some clipped at both ends), every 97th point on the cell at
+    r - 1 (the lo clamp at r - 2), or with ``lattice`` multiples of 1/8 in
+    [0, r - 1] (dyadic weights)."""
+    if lattice:
+        return torch.randint(0, 8 * (r - 1) + 1, (b, n, 3), device=dev,
+                             generator=gen).float() / 8.0
+    coords = torch.rand((b, n, 3), device=dev, generator=gen) * r - 0.5
+    coords[:, ::97] = float(r - 1)
+    return coords
+
+
+def _grid_sample(grid, coords):
+    """``F.grid_sample``'s trilinear interpolation of the channels-last
+    grid at voxel-unit coords, its input and sample grid: (out [B, N, C],
+    input [B, C, r, r, r], sample grid [B, 1, 1, N, 3])."""
+    r = grid.shape[1]
+    inp = grid.permute(0, 4, 1, 2, 3)
+    # grid_sample's last axis is (W, H, D): z, y, x of the voxel grid
+    sg = (coords.flip(-1) / (r - 1) * 2.0 - 1.0)[:, None, None]
+    out = torch.nn.functional.grid_sample(
+        inp, sg, mode="bilinear", padding_mode="border", align_corners=True)
+    return out[:, :, 0, 0].transpose(1, 2), inp, sg
+
+
+def _pv_grad64(g, coords, r):
+    """The grid's gradient with each float32 product g * w summed in
+    float64, as the reference of the kernel's atomic float32 sums."""
+    b, c = g.shape[0], g.shape[-1]
+    out = torch.zeros((b * r**3, c), dtype=torch.float64, device=g.device)
+    for rows, w in cdv.corner_weights(coords, r):
+        out.index_add_(0, rows.reshape(-1),
+                       (g * w[..., None]).reshape(-1, c).double())
+    return out.reshape(b, r, r, r, c)
+
+
+def _pv_kernel_check(b, n, r, c, gen):
+    """The devoxelisation pair at one path shape against its plain versions
+    on the card: the forward bit-equal on uniform coordinates, the
+    backward bit-equal on lattice coordinates and small-integer
+    cotangents and, on uniform ones, within ``PV_BWD_TOL`` relative L2 of
+    a float64 sum of the same products; times, bounds and ``grid_sample``
+    with its backward. Returns the (forward, backward) records."""
+    dev = torch.device(DEVICE)
+    label = f"B={b} N={n} r={r} C={c}"
+    grid = torch.randn((b, r, r, r, c), device=dev, generator=gen)
+    coords = _pv_coords(b, n, r, dev, gen)
+    out = cdv.trilinear_devoxelize(grid, coords)
+    plain = cdv.devoxelize_plain(grid, coords)
+    torch.cuda.synchronize()
+    if not torch.equal(out, plain):
+        raise AssertionError(f"pvcnn: trilinear_devoxelize {label} differs "
+                             f"from its plain version by "
+                             f"{(out - plain).abs().max().item()}")
+    lib, inp, sg = _grid_sample(grid, coords)
+    lib_err = (lib - plain).abs().max().item()
+    ms, plain_ms, span, plain_span = timings(
+        lambda: cdv.trilinear_devoxelize(grid, coords),
+        lambda: cdv.devoxelize_plain(grid, coords), PV_PLAIN_ITERS)
+    lib_ms = device_ms(lambda: torch.nn.functional.grid_sample(
+        inp, sg, mode="bilinear", padding_mode="border", align_corners=True))
+    # the bound reads only the grid rows some point's corners touch
+    rows = torch.cat([rows.reshape(-1)
+                      for rows, _ in cdv.corner_weights(coords, r)])
+    read = torch.unique(rows).numel()
+    fwd = kernel_record(0.0, ms, plain_ms,
+                        bound(read * c * grid.element_size() +
+                              nbytes(coords, out), 16 * out.numel()),
+                        lib_ms)
+    # the backward: dyadic inputs, bit-equal
+    lat = _pv_coords(b, n, r, dev, gen, lattice=True)
+    g_int = torch.randint(-4, 5, (b, n, c), device=dev,
+                          generator=gen).float()
+    got = cdv.devoxelize_grad(g_int, lat, r)
+    want = cdv.devoxelize_grad_plain(g_int, lat, r)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"pvcnn: trilinear_devoxelize_bwd {label} on "
+                             f"dyadic inputs differs from its plain version "
+                             f"by {(got - want).abs().max().item()}")
+    # real inputs: within the stated bound of a float64 sum
+    g = torch.randn((b, n, c), device=dev, generator=gen)
+    got = cdv.devoxelize_grad(g, coords, r)
+    ref = _pv_grad64(g, coords, r)
+    rel = _rel_l2(got, ref)
+    plain_rel = _rel_l2(cdv.devoxelize_grad_plain(g, coords, r), ref)
+    if not rel <= PV_BWD_TOL:
+        raise AssertionError(f"pvcnn: trilinear_devoxelize_bwd {label}: "
+                             f"relative L2 {rel} from float64 > "
+                             f"{PV_BWD_TOL}")
+    bms, bplain_ms, bspan, bplain_span = timings(
+        lambda: cdv.devoxelize_grad(g, coords, r),
+        lambda: cdv.devoxelize_grad_plain(g, coords, r), PV_PLAIN_ITERS)
+    gout = g.transpose(1, 2)[:, :, None, None]
+    blib_ms = device_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+        gout, inp, sg, 0, 1, True, [True, False]))
+    bwd = kernel_record(float((got.double() - ref).abs().max()), bms,
+                        bplain_ms, bound(nbytes(g, coords, got),
+                                         16 * g.numel()), blib_ms)
+    say("pvcnn", f"trilinear_devoxelize {label}: bit-equal; device "
+        f"{ms:.4f} ms (span {span:.4f}), bound {fwd['bound_ms']:.4f} (the "
+        f"{read} of {b * r**3} cells read), plain "
+        f"{plain_ms:.4f} (span {plain_span:.4f}), grid_sample {lib_ms:.4f} "
+        f"(largest difference {lib_err:.3e}); backward: bit-equal on "
+        f"dyadic inputs, relative L2 {rel:.3e} from a float64 sum on "
+        f"uniform ones (the plain version's {plain_rel:.3e}; bound "
+        f"{PV_BWD_TOL:g}); device {bms:.4f} ms (span {bspan:.4f}), bound "
+        f"{bwd['bound_ms']:.4f}, plain {bplain_ms:.4f} (span "
+        f"{bplain_span:.4f}), grid_sampler_3d_backward {blib_ms:.4f}")
+    return fwd, bwd
+
+
+class _RecordedDropout(torch.nn.Module):
+    """Dropout at rate ``p`` whose keep masks the first net draws (from a
+    seeded generator of its own) and a second net replays, in the order of
+    the calls, after ``replay()``."""
+
+    def __init__(self, p, seed=SEED):
+        super().__init__()
+        self.p, self.seed, self.masks, self.replaying = p, seed, [], False
+        self.gen = None
+
+    def replay(self):
+        self.replaying = True
+
+    def forward(self, x):
+        if not self.training:
+            return x
+        if self.replaying:
+            keep = self.masks.pop(0).to(x.device)
+        else:
+            if self.gen is None:
+                self.gen = torch.Generator(device=x.device).manual_seed(
+                    self.seed)
+            keep = torch.rand(x.shape, device=x.device,
+                              generator=self.gen) >= self.p
+            self.masks.append(keep.cpu())
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+def _pv_layouts(net):
+    """A list to which each forward of ``net`` appends, for each PVConv
+    block, whether its voxel branch's output (``vbn1``'s) is
+    channels-last: the layout the devoxelisation reads with no copy."""
+    layouts = []
+    for block in net.modules():
+        if isinstance(block, tpv.PVConv):
+            block.vbn1.register_forward_hook(
+                lambda mod, args, out: layouts.append(out.is_contiguous(
+                    memory_format=torch.channels_last_3d)))
+    return layouts
+
+
+def _check_layouts(layouts, blocks, what):
+    if layouts != [True] * blocks:
+        raise AssertionError(f"pvcnn: the voxel branches' outputs are not "
+                             f"all channels-last on the card in {what}: "
+                             f"{layouts}")
+
+
+def _pv_forward(card, root):
+    """The eval forward at the YAML's 4 x 40,960 on seeded weights: the
+    voxel branches channels-last, launch counts, finite logits, the median
+    of 10 (CUDA events), peak memory, the FLOP bound; the card against the
+    CPU on the card's branches and voxel cells (a second card run under
+    ``_SameBranches(net="pvcnn")``, which the CPU replays), within
+    ``PV_TOL``. Returns (launches, median ms, the weights, the batch on
+    the CPU)."""
+    dev = torch.device(DEVICE)
+    model = pv_model()
+    net = model.get_net()
+    state = random_weights(net, SEED).state_dict()
+    net = net.eval().to(dev)
+    batch_cpu = pv_request(model, root)
+    batch = {k: v.to(dev) for k, v in batch_cpu.items()}
+    b, n = batch["point"].shape[:2]
+    shapes = pv_shapes(net)
+    layouts = _pv_layouts(net)
+    with torch.no_grad():
+        net(batch)  # warm-up
+        _check_layouts(layouts, len(shapes), "the eval forward")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        logits = net(batch)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with _SameBranches(net="pvcnn") as same:
+            card_logits = net(batch)
+            same.replay()
+            cpu_net = model.get_net()
+            cpu_net.load_state_dict(state)
+            t0 = time.perf_counter()
+            ref = cpu_net.eval()(batch_cpu)
+            cpu_s = time.perf_counter() - t0
+    check_counts("pvcnn", launches, PV_FORWARD_LAUNCHES)
+    if tuple(logits.shape) != (b, n, model.cfg.num_classes):
+        raise AssertionError(f"pvcnn logits {tuple(logits.shape)}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("pvcnn: non-finite logits")
+    rel_l2, agree = _compare(card_logits, ref)
+    say("pvcnn", f"eval forward B={b} N={n}, grids (r, C) {shapes}, "
+        f"float32, each voxel branch channels-last out of cuDNN (so the "
+        f"devoxelisation reads it with no copy): logits finite; card vs "
+        f"CPU on the card's branches: relative L2 {rel_l2:.3e} (bound "
+        f"{PV_TOL:g}), argmax agreement {agree:.6f}; of the {same.total} "
+        f"choices the CPU's own values would have made {same.differ} "
+        f"otherwise, {same.differ_cells} of them voxel-cell indices of "
+        f"{b * n * 3 * len(shapes)} (CPU forward {cpu_s:.1f} s)")
+    if not rel_l2 <= PV_TOL:
+        raise AssertionError(f"pvcnn card vs CPU {rel_l2} > {PV_TOL}")
+    ms, times = _pt_forward(net, batch)
+    flops = pv_flops(net, b, n)
+    floor = flops / PEAK_OPS_PER_S["float32"] * 1e3
+    say("pvcnn", f"eval forward: median {ms:.3f} ms over {len(times)} runs "
+        f"(min {min(times):.3f}, max {max(times):.3f}), "
+        f"{b * n / ms * 1e3:.0f} points/s; FLOP bound {floor:.3f} ms "
+        f"({flops / 1e9:.1f} GFLOP at 67 TFLOP/s float32: "
+        f"{floor / ms:.1%} of it reached); peak device memory "
+        f"{peak:.2f} GiB on {card}")
+    return launches, ms, state, batch_cpu
+
+
+def _pv_loss_fn(model, root):
+    """``SemSegLoss`` with the class weights of the S3DIS reader of the
+    rooms under ``root``."""
+    return SemSegLoss(None, model,
+                      DATASET.get("S3DIS")(dataset_path=str(root)))
+
+
+def _pv_steps(state, batch_cpu, loss_fn, sides, global_bn_train=True):
+    """One training step from the same weights and batch on each of
+    ``sides`` ("card": float32 on the card, the kernels; "card64": float64
+    on the card, the devoxelisation's plain version, which the kernels
+    do not take; "cpu64": float64 on the CPU), every run after the first
+    on the first's branches (``_SameBranches(net="pvcnn")``: ReLUs,
+    LeakyReLUs, the max over the points and the voxel cells) and dropout
+    masks; with ``global_bn_train`` false the global feature's two
+    BatchNorms run on their running statistics. The card's float32 step
+    is checked to take its voxel branches channels-last (``_pv_layouts``).
+    Returns ({side: loss,
+    gradients, BN statistics, seconds}, {side: choices its own values
+    would have taken otherwise}, choices, the first run's launches)."""
+    dev = torch.device(DEVICE)
+    model = pv_model()
+    drop = _RecordedDropout(0.3)
+    out, differ = {}, {}
+    with _SameBranches(net="pvcnn") as same:
+        for i, side in enumerate(sides):
+            f64 = side.endswith("64")
+            where = dev if side.startswith("card") else torch.device("cpu")
+            net = model.get_net()
+            net.load_state_dict(state)
+            net.dropout = drop
+            net = net.to(where, torch.float64 if f64 else None).train()
+            if not global_bn_train:
+                net.cloud_bn0.eval()
+                net.cloud_bn1.eval()
+            layouts = _pv_layouts(net)
+            x = {k: v.to(where, torch.float64 if f64 and
+                         v.is_floating_point() else None)
+                 for k, v in batch_cpu.items()}
+            if i == 1:
+                choices, masks = list(same.recorded), list(drop.masks)
+                same.replay()
+                drop.replay()
+            elif i > 1:
+                same.recorded, drop.masks = list(choices), list(masks)
+                same.differ = 0
+            plain = (mock.patch.object(cdv, "trilinear_devoxelize",
+                                       cdv.devoxelize_plain)
+                     if side == "card64" else contextlib.nullcontext())
+            reset_counts()
+            t0 = time.perf_counter()
+            with plain:
+                loss, _, _ = model.get_loss(loss_fn, net(x), x)
+                loss.backward()
+            if where.type == "cuda":
+                torch.cuda.synchronize()
+            if side == "card":
+                _check_layouts(layouts, len(pv_shapes(net)),
+                               "a training step")
+            if i == 0:
+                launches = read_counts()
+            else:
+                differ[side] = same.differ
+            grads = {k: p.grad.double().cpu() for k, p in
+                     net.named_parameters()}
+            out[side] = {
+                "loss": loss.item(), "grads": grads,
+                "grad": torch.cat([g.reshape(-1) for g in grads.values()]),
+                "stats": torch.cat([
+                    v.double().cpu().reshape(-1)
+                    for k, v in net.state_dict().items()
+                    if k.endswith(("running_mean", "running_var"))]),
+                "s": time.perf_counter() - t0}
+            del net, loss, x
+        if same.recorded or drop.masks:
+            raise AssertionError("pvcnn: a replayed step took fewer "
+                                 "branches or dropouts than the first")
+    return out, differ, same.total, launches
+
+
+def _pv_apart(out, a, b):
+    """Relative differences of step ``a`` from step ``b``."""
+    a, b = out[a], out[b]
+    return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "grad": _rel_l2(a["grad"], b["grad"]),
+            "stats": _rel_l2(a["stats"], b["stats"])}
+
+
+def _pv_line(d):
+    return (f"loss {d['loss']:.3e}, gradients {d['grad']:.3e}, BN "
+            f"statistics {d['stats']:.3e}")
+
+
+def _pv_step_vs_cpu(state, batch_cpu, root):
+    """One training step on the card in float32 (the kernels), on the card
+    in float64 and on the CPU in float64, all on the card's branches
+    (``_pv_steps``); and the same step with the global feature's
+    BatchNorms on their running statistics, on the card in float32 and
+    float64.
+
+    Gates: the card's float64 step equals the CPU's within ``PV_F64_TOL``
+    (one function on both devices); the card's float32 loss lies within
+    ``PV_LOSS_TOL`` of float64 and its BN statistics within ``PV_TOL``;
+    its gradients (one vector) within ``PV_STEP_F32_TOL``: the global
+    feature's train-mode BatchNorm normalises over the batch's 4 samples,
+    which puts any float32 gradients ~1e-4 from float64, on the CPU too;
+    and with those two BatchNorms on their running statistics the card's
+    float32 gradients lie within ``PV_TOL`` of float64. The card's two
+    float32 readings are taken again on other weights (seed ``SEED`` + 1)
+    and another batch (rooms 2-5), under the same gates. Returns the
+    card's launch counts."""
+    model = pv_model()
+    loss_fn = _pv_loss_fn(model, root)
+    out, differ, total, launches = _pv_steps(
+        state, batch_cpu, loss_fn, ("card", "card64", "cpu64"))
+    check_counts("pvcnn", launches, PV_STEP_LAUNCHES)
+    held, _, held_total, _ = _pv_steps(
+        state, batch_cpu, loss_fn, ("card", "card64"), global_bn_train=False)
+    f64, card = _pv_apart(out, "card64", "cpu64"), _pv_apart(out, "card",
+                                                            "card64")
+    held_apart = _pv_apart(held, "card", "card64")
+    state2 = random_weights(model.get_net(), SEED + 1).state_dict()
+    batch2 = pv_request(model, root, PV_ROOMS[1:1 + PV_BATCH])
+    other = {}
+    for bn_train in (True, False):
+        steps, _, _, _ = _pv_steps(state2, batch2, loss_fn, ("card", "card64"),
+                                   global_bn_train=bn_train)
+        other[bn_train] = _pv_apart(steps, "card", "card64")
+    grads, ref = out["card"]["grads"], out["card64"]["grads"]
+    diff2 = {k: ((grads[k] - ref[k]) ** 2).sum().item() for k in grads}
+    total2 = max(sum(diff2.values()), 1e-300)
+    worst = ", ".join(f"{k} {diff2[k] / total2:.0%} (its own "
+                      f"{_rel_l2(grads[k], ref[k]):.2e})" for k in
+                      sorted(diff2, key=diff2.get, reverse=True)[:3])
+    say("pvcnn", f"training step B={batch_cpu['point'].shape[0]}, the "
+        f"later runs on the card's branches ({total} choices; their own "
+        f"values would have taken {differ['card64']} otherwise on the card "
+        f"in float64, {differ['cpu64']} on the CPU): card float64 vs CPU "
+        f"float64: {_pv_line(f64)} (bound {PV_F64_TOL:g}); card float32 vs "
+        f"float64: {_pv_line(card)} (bounds: loss {PV_LOSS_TOL:g}, BN "
+        f"statistics {PV_TOL:g}, gradients {PV_STEP_F32_TOL:g}); its "
+        f"gradients' difference held most by {worst}; with the global "
+        f"feature's BatchNorms on their running statistics ({held_total} "
+        f"choices), card float32 vs float64: {_pv_line(held_apart)} "
+        f"(gradients' bound {PV_TOL:g}); on seed {SEED + 1}'s weights and "
+        f"rooms 2-5, card float32 vs float64: {_pv_line(other[True])}, and "
+        f"with the global BatchNorms held {_pv_line(other[False])}; the "
+        f"CPU's float64 step {out['cpu64']['s']:.1f} s, the card's "
+        f"{out['card64']['s']:.1f} s")
+    if not max(f64.values()) <= PV_F64_TOL:
+        raise AssertionError(f"pvcnn: the card's float64 step vs the CPU's "
+                             f"{f64} > {PV_F64_TOL}")
+    for apart, held_apart in ((card, held_apart),
+                              (other[True], other[False])):
+        if not (apart["loss"] <= PV_LOSS_TOL and apart["stats"] <= PV_TOL
+                and apart["grad"] <= PV_STEP_F32_TOL):
+            raise AssertionError(f"pvcnn: the card's float32 step vs "
+                                 f"float64: {apart}")
+        if not held_apart["grad"] <= PV_TOL:
+            raise AssertionError(f"pvcnn: with the global BatchNorms held, "
+                                 f"the card's float32 gradients vs float64: "
+                                 f"{held_apart['grad']} > {PV_TOL}")
+    return launches
+
+
+def _pv_step_events(state, batch_cpu, root, card):
+    """``PV_TIMED_STEPS`` training steps (Adam at the YAML's rate) split
+    by CUDA events into forward, loss, backward and Adam: the median of
+    the steps after the first, their peak memory. Returns the median
+    step ms."""
+    dev = torch.device(DEVICE)
+    model = pv_model()
+    loss_fn = _pv_loss_fn(model, root)
+    net = model.get_net()
+    net.load_state_dict(state)
+    net = net.to(dev)
+    opt, _ = model.get_optimizer(PVCNN_PIPELINE, net)
+    x = {k: v.to(dev) for k, v in batch_cpu.items()}
+    parts = collections.defaultdict(list)
+    totals, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(PV_TIMED_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        net.train()
+        ev[0].record()
+        out = net(x)
+        ev[1].record()
+        loss, _, _ = model.get_loss(loss_fn, out, x)
+        ev[2].record()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        ev[4].synchronize()
+        losses.append(loss.item())
+        for k, part in enumerate(("forward", "loss", "backward", "adam")):
+            parts[part].append(ev[k].elapsed_time(ev[k + 1]))
+        totals.append(ev[0].elapsed_time(ev[4]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"pvcnn: step losses {losses}")
+    med = statistics.median(totals[1:])
+    b, n = x["point"].shape[:2]
+    say("pvcnn", f"training step B={b} x {n} (Adam): median {med:.3f} ms "
+        f"over steps 2..{PV_TIMED_STEPS} (first {totals[0]:.3f}): " +
+        ", ".join(f"{k} {statistics.median(v[1:]):.3f}"
+                  for k, v in parts.items()) +
+        f" ms; {b / med * 1e3:.2f} patches trained/s "
+        f"({b * n / med * 1e3:.0f} points/s); losses "
+        f"{[round(v, 4) for v in losses]}; peak {peak:.2f} GiB on {card}")
+    return med
+
+
+PV_RANGES = ("pv eval forward", "pv train forward", "pv backward",
+             "pv adam")
+# words in the names of cuDNN's convolution kernels (forward, data and
+# weight gradients), not in those of cuBLAS's GEMMs
+PV_CONV_KERNELS = ("conv", "fprop", "dgrad", "wgrad")
+
+
+def pv_profile():
+    """``--pvcnn-profile``: one torch.profiler pass over one eval forward
+    and one training step at the YAML's 4 x 40,960 (seeded weights, the
+    rooms of ``write_s3dis_rooms``), split by record_function ranges;
+    prints one JSON line a range: device ms (kernel rows), kernels, wall
+    ms, the devoxelisation kernels' and the convolutions' device ms, and
+    the top 8 kernels. Run in a process of its own: the profiler traces
+    the card once a process."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    phase_device()
+    dev = torch.device(DEVICE)
+    model = pv_model()
+    net = random_weights(model.get_net(), SEED).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_s3dis_rooms(Path(tmp), PV_ROOM_POINTS, PV_ROOMS)
+        x = {k: v.to(dev) for k, v in pv_request(model, Path(tmp)).items()}
+        loss_fn = _pv_loss_fn(model, Path(tmp))
+    opt, _ = model.get_optimizer(PVCNN_PIPELINE, net)
+
+    def step(ranges=False):
+        def scope(name):
+            return (record_function(name) if ranges else
+                    contextlib.nullcontext())
+        net.eval()
+        with scope("pv eval forward"), torch.no_grad():
+            net(x)
+            torch.cuda.synchronize()
+        net.train()
+        with scope("pv train forward"):
+            loss, _, _ = model.get_loss(loss_fn, net(x), x)
+            torch.cuda.synchronize()
+        with scope("pv backward"):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            torch.cuda.synchronize()
+        with scope("pv adam"):
+            opt.step()
+            torch.cuda.synchronize()
+
+    for _ in range(2):
+        step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(ranges=True)
+    events = prof.events()
+    for name in PV_RANGES:
+        rng = next(e for e in events if e.name == name and
+                   e.device_type == torch.autograd.DeviceType.CPU)
+        start, end = rng.time_range.start, rng.time_range.end
+        kernels, calls = collections.Counter(), collections.Counter()
+        for e in events:
+            if (e.device_type == torch.autograd.DeviceType.CUDA and
+                    not e.name.startswith("pv ") and
+                    start <= e.time_range.start <= end):
+                kernels[e.name] += e.time_range.elapsed_us() / 1e3
+                calls[e.name] += 1
+        print(json.dumps({
+            "range": name, "device_ms": sum(kernels.values()),
+            "kernels": sum(calls.values()), "wall_ms": (end - start) / 1e3,
+            "devoxelize_ms": sum(ms for k, ms in kernels.items()
+                                 if "devoxelize" in k),
+            "conv_ms": sum(ms for k, ms in kernels.items()
+                           if any(w in k.lower() for w in PV_CONV_KERNELS)),
+            "top": [[k[:64], ms, calls[k]]
+                    for k, ms in kernels.most_common(8)]}), flush=True)
+
+
+def _pv_profiles(card):
+    """``pv_profile`` in a child process; prints each range's line and
+    returns the busy share of the eval forward."""
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--pvcnn-profile"], cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"pvcnn: the profiler run failed:\n"
+                             f"{run.stderr[-4000:]}")
+    records = [json.loads(line) for line in run.stdout.splitlines()
+               if line.startswith('{"range"')]
+    if len(records) != len(PV_RANGES) or any(r["device_ms"] <= 0
+                                            for r in records):
+        raise AssertionError(f"pvcnn: the profiler saw no device time: "
+                             f"{run.stdout[-2000:]}")
+    for r in records:
+        busy = r["device_ms"] / r["wall_ms"]
+        say("pvcnn", f"profiled {r['range']}: device {r['device_ms']:.3f} "
+            f"ms over {r['kernels']} kernels in a {r['wall_ms']:.3f} ms "
+            f"span (busy {busy:.1%}); trilinear_devoxelize kernels "
+            f"{r['devoxelize_ms']:.3f} ms, convolution kernels "
+            f"{r['conv_ms']:.3f} ms; top: " + ", ".join(
+                f"{k} {ms:.3f} ms x{n}" for k, ms, n in r["top"]) +
+            f" (on {card})")
+
+
+def _pv_cli(card, root):
+    """``run_pipeline.main`` with the port's ``pvcnn_s3dis.yml`` on the
+    S3DIS rooms (areas 1-4 train, area 5 validates), ``--split train``:
+    one epoch of ``PV_TRAIN_STEPS`` steps of the YAML's batch and
+    validation steps, each step's launch counts, finite losses, every
+    weight moved, the checkpoint; then a second run of one more epoch
+    that resumes from it (the net and Adam state as saved); then
+    ``--split test`` must raise, naming the ROADMAP item."""
+    steps, valid_steps = PV_TRAIN_STEPS
+    batch, val_batch = PVCNN_PIPELINE["batch_size"], \
+        PVCNN_PIPELINE["val_batch_size"]
+    common = ["-c", REPO / PVCNN_CONFIG, "--device", DEVICE,
+              "--dataset.dataset_path", root,
+              "--dataset.cache_dir", root / "cache",
+              "--main_log_dir", root / "logs",
+              "--dataset.steps_per_epoch_train", steps * batch,
+              "--dataset.steps_per_epoch_valid", valid_steps * val_batch]
+    first = {}
+    real = SemanticSegmentation._train_step
+
+    def step(self, inputs, loss_fn):
+        if "net" not in first:
+            first.update({k: v.detach().clone()
+                          for k, v in self.net.state_dict().items()})
+            torch.cuda.reset_peak_memory_stats()
+        first["net"] = self.net
+        return real(self, inputs, loss_fn)
+
+    runs = []
+    for epochs in (0, 1):
+        first.clear()
+        with mock.patch.object(SemanticSegmentation, "_train_step", step):
+            wall, launches, record, spent = _cli_run(common + [
+                "--split", "train", "--pipeline.max_epoch", epochs],
+                ((tpv.PVCNN, "preprocess"),))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        train_s = _check_steps(record, 0, len(record), PV_STEP_LAUNCHES,
+                               PV_FORWARD_LAUNCHES,
+                               ["train"] * steps + ["eval"] * valid_steps)
+        check_counts("pvcnn", launches, {
+            k: PV_STEP_LAUNCHES.get(k, 0) * steps +
+            PV_FORWARD_LAUNCHES.get(k, 0) * valid_steps
+            for k in PV_STEP_LAUNCHES})
+        after = first.pop("net").state_dict()
+        weights = [k for k, v in first.items() if k.endswith("weight")]
+        moved = [k for k in weights if not torch.equal(first[k], after[k])]
+        if len(moved) != len(weights):
+            raise AssertionError(f"pvcnn: {len(weights) - len(moved)} "
+                                 f"weights did not move")
+        ckpt = (root / "logs" / "PVCNN_S3DIS_torch" / "checkpoint" /
+                f"ckpt_{epochs:05d}.pth")
+        if not ckpt.exists():
+            raise AssertionError(f"pvcnn: no checkpoint at {ckpt}")
+        if epochs == 1:
+            saved = torch.load(ckpt.with_name("ckpt_00000.pth"),
+                               map_location="cpu", weights_only=True)
+            if "epoch" not in saved or saved["epoch"] != 0:
+                raise AssertionError("pvcnn: the first checkpoint's epoch")
+            # the resumed run's first step started from the saved weights
+            differ = [k for k, v in saved["model"].items()
+                      if not torch.equal(v, first[k].cpu())]
+            if differ:
+                raise AssertionError(f"pvcnn: the resumed run started from "
+                                     f"other weights: {differ[:4]}")
+        pre_s = spent["PVCNN.preprocess"]
+        runs.append((wall, train_s, record, peak, pre_s,
+                     spent["PVCNN.preprocess calls"]))
+    for name, (wall, train_s, record, peak, pre_s, calls) in zip(
+            ("first epoch", "resumed epoch"), runs):
+        steady = statistics.median(train_s)
+        say("pvcnn", f"run_pipeline -c {PVCNN_CONFIG} --split train, "
+            f"{name}: {steps} train steps of {batch} x "
+            f"{PVCNN_S3DIS['num_points']} (Adam) and {valid_steps} "
+            f"validation step(s) of {val_batch}, losses "
+            f"{[round(r[4], 4) for r in record]}, finite; every weight "
+            f"moved; each train step launched {PV_STEP_LAUNCHES}; step "
+            f"median {steady * 1e3:.2f} ms; wall {wall:.3f} s, host "
+            f"preprocess {pre_s:.3f} s over {calls} draws ({pre_s / wall:.1%} "
+            f"of the run); peak {peak:.2f} GiB on {card}")
+    say("pvcnn", "the resumed run started from ckpt_00000.pth's weights "
+        "and wrote ckpt_00001.pth")
+    reset_counts()
+    try:
+        run_pipeline.main([str(a) for a in common + ["--split", "test"]])
+    except NotImplementedError as err:
+        say("pvcnn", f"--split test refused: {err}")
+        if "item 10" not in str(err):
+            raise AssertionError("pvcnn: the refusal names no ROADMAP item")
+    else:
+        raise AssertionError("pvcnn: --split test did not raise")
+    check_counts("pvcnn", read_counts(), {})
+
+
+def phase_pvcnn(card):
+    """PVCNN at the shipped S3DIS config: the devoxelisation pair at the
+    path's four shapes against its plain versions (``_pv_kernel_check``),
+    the eval forward at 4 x 40,960 (``_pv_forward``), one float32 step
+    against the CPU (``_pv_step_vs_cpu``), timed steps
+    (``_pv_step_events``), a profiled forward and step in a child process
+    and the command line (``_pv_cli``). Returns (the forward's and the
+    step's launch counts summed, the forward kernel's record, the
+    backward's)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    model = pv_model()
+    shapes = pv_shapes(model.get_net())
+    fwds, bwds = [], []
+    for r, c in shapes:
+        fwd, bwd = _pv_kernel_check(PV_BATCH, model.cfg.num_points, r, c,
+                                    gen)
+        fwds.append(fwd)
+        bwds.append(bwd)
+    fwd_rec, bwd_rec = combine(fwds), combine(bwds)
+    say("pvcnn", f"one forward's {len(fwds)} trilinear_devoxelize "
+        f"launches: device {fwd_rec['ms']:.4f} ms, bound "
+        f"{fwd_rec['bound_ms']:.4f}, plain {fwd_rec['plain_ms']:.4f}, "
+        f"grid_sample {fwd_rec['library_ms']:.4f}; one step's "
+        f"{len(bwds)} backward launches: {bwd_rec['ms']:.4f}, bound "
+        f"{bwd_rec['bound_ms']:.4f}, plain {bwd_rec['plain_ms']:.4f}, "
+        f"grid_sampler_3d_backward {bwd_rec['library_ms']:.4f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_s3dis_rooms(root, PV_ROOM_POINTS, PV_ROOMS)
+        say("pvcnn", f"S3DIS rooms: {len(PV_ROOMS)} of {PV_ROOM_POINTS} "
+            f"points written in {time.perf_counter() - t0:.2f} s")
+        launches, fwd_ms, state, batch_cpu = _pv_forward(card, root)
+        say("pvcnn", f"the devoxelisation kernels' share of the "
+            f"{fwd_ms:.3f} ms forward: {fwd_rec['ms'] / fwd_ms:.1%} (their "
+            f"device times one by one)")
+        step_launches = _pv_step_vs_cpu(state, batch_cpu, root)
+        _pv_step_events(state, batch_cpu, root, card)
+        _pv_profiles(card)
+        _pv_cli(card, root)
+    total = {k: launches[k] + step_launches[k] for k in launches}
+    say("pvcnn", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return total, fwd_rec, bwd_rec
+
+
 def _parent_library(src):
     """An earlier commit's ``fps.cu`` and ``nms_bev.cu``, copied into the
     directory ``src``, built there by nvcc as the port's sources are and
@@ -6596,6 +7414,13 @@ def main():
         return None
     if sys.argv[1:] == ["--prcnn-train-profile"]:
         return prcnn_train_profile()
+    if sys.argv[1:] == ["--pvcnn"]:
+        card = phase_device()
+        phase_build()
+        phase_pvcnn(card)
+        return None
+    if sys.argv[1:] == ["--pvcnn-profile"]:
+        return pv_profile()
     card = phase_device()
     model = MODEL.get("RandLANet")()
     phase_build()
@@ -6625,6 +7450,8 @@ def main():
     (rc_launches, rc_knn, rc_fps,
      measured["nms_bev"]) = phase_pointrcnn(card)
     tr_launches, tr = phase_pointrcnn_train(card)
+    pv_launches, measured["trilinear_devoxelize"], \
+        measured["trilinear_devoxelize_bwd"] = phase_pvcnn(card)
     # knn_exact: one RandLA eval forward's 4 launches, one
     # PointTransformer forward's 26, one PointRCNN frame's 14 and its two
     # training steps' 12 and 14; its launches, run_inference's, the three
@@ -6643,6 +7470,9 @@ def main():
     # training step's 1
     measured["nms_bev"] = combine([measured["nms_bev"], tr["nms_bev"]])
     launches["nms_bev"] = rc_launches["nms_bev"] + trained["nms_bev"]
+    # the devoxelisation pair: one PVCNN forward's 4 and one step's 4 + 4
+    for name in ("trilinear_devoxelize", "trilinear_devoxelize_bwd"):
+        launches[name] = pv_launches[name]
     sources = {"bucket_knn": ("open3d_ml_tpu_torch/csrc/bucket_knn.cu",
                               f"{TPU_KERNELS}:261"),
                "bucket_gather": ("open3d_ml_tpu_torch/csrc/bucket_gather.cu",
@@ -6661,7 +7491,15 @@ def main():
                        "no pallas_call)"),
                "nms_bev": ("open3d_ml_tpu_torch/csrc/nms_bev.cu",
                            "open3d_ml_tpu/ops/nms.py:17 (an XLA IoU matrix "
-                           "and fori_loop, no pallas_call)")}
+                           "and fori_loop, no pallas_call)"),
+               "trilinear_devoxelize": (
+                   "open3d_ml_tpu_torch/csrc/trilinear_devoxelize.cu",
+                   "open3d_ml_tpu/ops/interpolation.py:45 (eight XLA "
+                   "gathers, no pallas_call)"),
+               "trilinear_devoxelize_bwd": (
+                   "open3d_ml_tpu_torch/csrc/trilinear_devoxelize.cu",
+                   "open3d_ml_tpu/ops/interpolation.py:45 (its autodiff "
+                   "scatter-adds, no pallas_call)")}
     kernels = [json_entry(name, *sources[name], launches[name], rec)
                for name, rec in measured.items()]
     print(json.dumps({"kernels": kernels}))

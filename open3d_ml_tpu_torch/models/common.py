@@ -8,7 +8,8 @@ from torch import nn
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
     """BatchNorm with flax's training semantics (``flax.linen.BatchNorm``,
     ``use_fast_variance``), in float32, over every axis but the channel
-    axis ``axis`` (-1: channels last, [..., C]; 1: NCHW).
+    axis ``axis`` (-1: channels last, [..., C]; 1: [N, C, ...], as NCHW or
+    NCDHW, in any memory format).
 
     In train mode it normalises with the batch mean and the biased batch
     variance E[x^2] - E[x]^2 (clamped at 0), as (x - mean) *
@@ -35,7 +36,7 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             out = F.batch_norm(rows, self.running_mean, self.running_var,
                                self.weight, self.bias, False, 0.0, self.eps)
             return out.reshape(x.shape)
-        dims = 0 if self.axis == -1 else (0, 2, 3)
+        dims = 0 if self.axis == -1 else (0, *range(2, x.dim()))
         mean = rows.mean(dims)
         var = torch.clamp((rows * rows).mean(dims) - mean * mean, min=0.0)
         with torch.no_grad():
@@ -43,8 +44,9 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             self.running_var.lerp_(var, self.momentum)
         mul = torch.rsqrt(var + self.eps) * self.weight
         if self.axis == 1:
-            mean, mul = mean[:, None, None], mul[:, None, None]
-            return (rows - mean) * mul + self.bias[:, None, None]
+            shape = (-1,) + (1,) * (x.dim() - 2)
+            return ((rows - mean.view(shape)) * mul.view(shape) +
+                    self.bias.view(shape))
         return ((rows - mean) * mul + self.bias).reshape(x.shape)
 
 

@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("bucket_knn.cu", "bucket_gather.cu", "bucket_gather_bwd.cu",
            "knn_exact.cu", "stencil_conv.cu", "stencil_match.cu", "fps.cu",
-           "nms_bev.cu")
+           "nms_bev.cu", "trilinear_devoxelize.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -60,6 +60,10 @@ ENTRY_POINTS = {
                              _I, _I, _P),
     # boxes, valid, mask, keep, R, N, threshold, stages, stream
     "nms_bev_launch": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
+    # grid, coords, out, B, N, r, C, stream
+    "trilinear_devoxelize_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # g, coords, dgrid, B, N, r, C, stream
+    "trilinear_devoxelize_bwd_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     # route, ct, mw, stages, qblock, K, S, seg
     "stencil_conv_shared": (_I, _I, _I, _I, _I, _I, _I, _I),
     # S, seg

@@ -18,6 +18,8 @@ Leaves map as follows:
   ``weight [K, Cin, Cout]``, as it is;
 * Conv ``kernel [kh, kw, in, out]`` -> Conv2d ``weight [out, in, kh,
   kw]``;
+* a 3D Conv ``kernel [kd, kh, kw, in, out]`` (PVCNN's voxel branch,
+  NDHWC) -> Conv3d ``weight [out, in, kd, kh, kw]``;
 * ConvTranspose ``kernel [kh, kw, in, out]`` -> ConvTranspose2d
   ``weight [in, out, kh, kw]``, spatially flipped: flax's default
   (``transpose_kernel=False``) is a fractionally strided convolution with
@@ -73,6 +75,8 @@ def _kernel_to_torch(value, transposed):
     if value.ndim == 4:
         return (value[::-1, ::-1].transpose(2, 3, 0, 1) if transposed
                 else value.transpose(3, 2, 0, 1))
+    if value.ndim == 5:
+        return value.transpose(4, 3, 0, 1, 2)
     return value
 
 
@@ -82,6 +86,8 @@ def _kernel_to_jax(value, transposed):
     if value.ndim == 4:
         return (value[:, :, ::-1, ::-1].transpose(2, 3, 0, 1) if transposed
                 else value.transpose(2, 3, 1, 0))
+    if value.ndim == 5:
+        return value.transpose(2, 3, 4, 1, 0)
     return value
 
 
@@ -153,7 +159,8 @@ def state_dict_to_jax(state_dict, scope="net", transposed=frozenset()):
     ``scope=None``), the inverse of ``jax_to_state_dict``: a 2-d
     ``weight`` is a Dense ``kernel`` (transposed), a 3-d one a stencil
     ``kernel``, a 4-d one a Conv ``kernel`` (a ConvTranspose's for a path
-    in ``transposed``), a 1-d one a BatchNorm ``scale``; a parameter named
+    in ``transposed``), a 5-d one a 3D Conv ``kernel``, a 1-d one a
+    BatchNorm ``scale``; a parameter named
     ``*_kernel`` keeps its name; the running statistics go to
     ``batch_stats``; ``num_batches_tracked`` has no flax leaf.
     ``net_layout(net)`` gives a net's arguments."""

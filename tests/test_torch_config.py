@@ -27,7 +27,8 @@ PORTED = ("randlanet_semantickitti", "sparseconvunet_scannet",
           "randlanet_s3dis", "randlanet_semantic3d", "randlanet_toronto3d",
           "randlanet_parislille3d", "pointtransformer_s3dis",
           "kpconv_semantickitti", "kpconv_s3dis", "kpconv_semantic3d",
-          "kpconv_toronto3d", "kpconv_parislille3d", "pointrcnn_kitti")
+          "kpconv_toronto3d", "kpconv_parislille3d", "pointrcnn_kitti",
+          "pvcnn_s3dis")
 # dotted extras as the command line gives them: coerced to bool, None,
 # int and float, a nested key new to the file, and a string
 EXTRAS = {"dataset.use_cache": "true", "model.ckpt_path": "none",

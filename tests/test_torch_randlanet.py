@@ -237,6 +237,9 @@ def test_port_imports_no_jax():
             "import open3d_ml_tpu_torch.ops.cuda.nms\n"
             "import open3d_ml_tpu_torch.ops.nms\n"
             "import open3d_ml_tpu_torch.native\n"
+            "import open3d_ml_tpu_torch.models.pvcnn\n"
+            "import open3d_ml_tpu_torch.ops.cuda.devoxelize\n"
+            "import open3d_ml_tpu_torch.utils.convert_torch\n"
             "import chip_smoke\n"
             "bad = [m for m in ('jax', 'flax', 'optax', 'yaml',\n"
             "                   'open3d_ml_tpu') if m in sys.modules]\n"
