@@ -97,10 +97,18 @@ and the 5 ``bucket_knn`` calls of a fused pyramid at the inference and at
 the training budget. Copied into a checkout of another version of the
 port, either times that version the same way. ``python3 chip_smoke.py
 --vs-parent DIR`` builds an earlier commit's ``csrc/fps.cu`` and
-``csrc/nms_bev.cu``, copied into DIR (``git show
-<commit>:open3d_ml_tpu_torch/csrc/fps.cu > DIR/fps.cu``), and times them
-against this tree's in turns, in one process, at PointTransformer's
-levels and on a served PointRCNN frame's captured calls.
+``csrc/nms_bev.cu`` (their interfaces before the cluster ``fps`` and
+the staged ``nms_bev``) or its ``csrc/trilinear_devoxelize.cu`` (the
+interface before the plan), whichever DIR holds (``git
+show <commit>:open3d_ml_tpu_torch/csrc/fps.cu > DIR/fps.cu``), and times
+them against this tree's in turns, in one process: ``fps`` and
+``nms_bev`` at PointTransformer's levels and on a served PointRCNN
+frame's captured calls, the devoxelisation pair at PVCNN's four path
+shapes on uniform coordinates, with half of each sample's points in one
+cell, and on the calls of a forward of S3DIS rooms. ``python3
+chip_smoke.py --devox-staged`` times the staged design of the
+devoxelisation pair (``csrc/variants/trilinear_devoxelize_staged.cu``,
+not shipped) against this tree's the same way, on the same calls.
 
 Phases, one line each (or more), in this order:
 
@@ -332,9 +340,12 @@ Phases, one line each (or more), in this order:
 18. pvcnn: PVCNN at ``pvcnn_s3dis.yml``, seeded weights, float32:
    ``trilinear_devoxelize`` at the four path shapes (B = 4, N = 40,960,
    (r, C) = (64, 64), (32, 64), (32, 64), (32, 128)) against its plain
-   versions (the forward bit-equal; the backward bit-equal on dyadic
-   inputs and within ``PV_BWD_TOL`` of a float64 sum on uniform ones),
-   with ``F.grid_sample`` and its backward as the library calls; the
+   versions (the plan equal to the plain plan; the forward bit-equal;
+   the backward bit-equal on dyadic inputs, and on uniform ones
+   bit-equal to the plain version run on the CPU, the same bits in two
+   runs and within ``PV_BWD_TOL`` of a float64 sum), with
+   ``F.grid_sample`` and its backward as the library calls, and once
+   more with half of each sample's points in one cell; the
    eval forward at 4 x 40,960 points of S3DIS rooms (``PV_ROOMS``
    through ``preprocess``): launch counts, the voxel branches
    channels-last, card vs CPU on the card's branches and voxel cells
@@ -735,8 +746,10 @@ PV_BATCH = PVCNN_PIPELINE["batch_size"]
 PV_ROOMS = ("Area_1_office_1", "Area_2_office_1", "Area_3_office_1",
             "Area_4_office_1", "Area_5_office_1")
 PV_ROOM_POINTS = 80_000  # preprocess draws 40,960 of them
-PV_FORWARD_LAUNCHES = {"trilinear_devoxelize": 4}  # one a PVConv block
-PV_STEP_LAUNCHES = {"trilinear_devoxelize": 4, "trilinear_devoxelize_bwd": 4}
+# one devoxelisation a PVConv block, one plan per resolution (64 and 32)
+PV_FORWARD_LAUNCHES = {"trilinear_devoxelize": 4,
+                       "trilinear_devoxelize_plan": 2}
+PV_STEP_LAUNCHES = dict(PV_FORWARD_LAUNCHES, trilinear_devoxelize_bwd=4)
 PV_TOL = 1e-4  # card vs CPU: the forward's relative L2; BN statistics
 PV_LOSS_TOL = 1e-5  # card vs CPU: a step's loss, relative
 # the card's float64 step (the devoxelisation's plain version) against the
@@ -747,13 +760,17 @@ PV_F64_TOL = 1e-6
 # of them: the global feature's BatchNorm over the batch's 4 samples puts
 # float32 gradients 0.7-1.7e-4 from float64 on the card and on the CPU
 PV_STEP_F32_TOL = 5e-4
-# the backward kernel's float32 atomic sums against a float64 sum of the
-# same products, relative L2 over the grid
+# the backward kernel's float32 sums against a float64 sum of the same
+# products, relative L2 over the grid
 PV_BWD_TOL = 1e-6
+# two float32 sums of the same backward products in different orders with
+# 20,480 of them in one cell (``_pv_crowded_coords``): about sqrt(20,480)
+# roundings of that cell's sum apart, which holds the grid's norm
+PV_CROWDED_BWD_TOL = 1e-5
 PV_TIMED_STEPS = 6  # the first not counted
-# the plain devoxelisation's calls queued at a time when it is timed: its
-# ~50 launches a call, 20 calls at a time, would fill the launch queue
-# and wake the card before the last was queued
+# the plain devoxelisation's (and plain plan's) calls queued at a time
+# when it is timed: its ~50 launches a call, 20 calls at a time, would
+# fill the launch queue and wake the card before the last was queued
 PV_PLAIN_ITERS = 4
 PV_TRAIN_STEPS = (2, 1)  # the command line's train and validation steps
 
@@ -950,6 +967,11 @@ def phase_build():
                 for name, regs, st, ld in kernels))
         if any(st or ld for _, _, st, ld in kernels):
             raise AssertionError("an fps or nms_bev kernel spills registers")
+        say("build", "devoxelisation kernels, registers and spill "
+            "store/load bytes: " + ", ".join(
+                f"{name} {regs} regs {st}/{ld} B"
+                for name, regs, st, ld in ptxas_kernels(
+                    log.read_text(), ("trilinear_devoxelize.cu",))))
     plans = []
     for n in (16_384, 4_096, 1_024, 256, 512, 128, *dict(PT_FPS_EXTRA)):
         cluster, threads = cfps.fps_plan(n)
@@ -6539,7 +6561,7 @@ def _grid_sample(grid, coords):
 
 def _pv_grad64(g, coords, r):
     """The grid's gradient with each float32 product g * w summed in
-    float64, as the reference of the kernel's atomic float32 sums."""
+    float64, as the reference of the kernel's float32 sums."""
     b, c = g.shape[0], g.shape[-1]
     out = torch.zeros((b * r**3, c), dtype=torch.float64, device=g.device)
     for rows, w in cdv.corner_weights(coords, r):
@@ -6548,18 +6570,37 @@ def _pv_grad64(g, coords, r):
     return out.reshape(b, r, r, r, c)
 
 
-def _pv_kernel_check(b, n, r, c, gen):
-    """The devoxelisation pair at one path shape against its plain versions
-    on the card: the forward bit-equal on uniform coordinates, the
-    backward bit-equal on lattice coordinates and small-integer
-    cotangents and, on uniform ones, within ``PV_BWD_TOL`` relative L2 of
-    a float64 sum of the same products; times, bounds and ``grid_sample``
-    with its backward. Returns the (forward, backward) records."""
+def _pv_plan_check(coords, r, label):
+    """The card's plan of coords equal to the plain plan on the card;
+    returns the card's."""
+    plan = cdv.devoxelize_plan(coords, r)
+    want = cdv.devoxelize_plan_plain(coords, r)
+    for name in ("cell", "perm", "offsets", "weights"):
+        if not torch.equal(getattr(plan, name), getattr(want, name)):
+            raise AssertionError(f"pvcnn: devoxelize_plan {label}: {name} "
+                                 f"differs from the plain plan's")
+    return plan
+
+
+def _pv_kernel_check(b, n, r, c, gen, on_cpu=True):
+    """The devoxelisation kernels at one path shape against their plain
+    versions on the card: the plan equal to the plain plan; the forward
+    bit-equal on uniform coordinates; the backward bit-equal on lattice
+    coordinates and small-integer cotangents, and on uniform coordinates
+    and normal cotangents (with ``on_cpu``: once per distinct (r, C))
+    bit-equal to ``devoxelize_grad_plain`` run on the CPU, the same bits
+    in two runs, and within ``PV_BWD_TOL`` relative L2 of a float64 sum of
+    the same products; times, bounds and ``grid_sample`` with its
+    backward. Says the seconds the plan checks and the CPU reference
+    took. Returns the (forward, backward, plan) records."""
     dev = torch.device(DEVICE)
     label = f"B={b} N={n} r={r} C={c}"
     grid = torch.randn((b, r, r, r, c), device=dev, generator=gen)
     coords = _pv_coords(b, n, r, dev, gen)
-    out = cdv.trilinear_devoxelize(grid, coords)
+    t0 = time.perf_counter()
+    plan = _pv_plan_check(coords, r, label)
+    plan_s = time.perf_counter() - t0
+    out = cdv.trilinear_devoxelize(grid, coords, plan)
     plain = cdv.devoxelize_plain(grid, coords)
     torch.cuda.synchronize()
     if not torch.equal(out, plain):
@@ -6569,7 +6610,7 @@ def _pv_kernel_check(b, n, r, c, gen):
     lib, inp, sg = _grid_sample(grid, coords)
     lib_err = (lib - plain).abs().max().item()
     ms, plain_ms, span, plain_span = timings(
-        lambda: cdv.trilinear_devoxelize(grid, coords),
+        lambda: cdv.trilinear_devoxelize(grid, coords, plan),
         lambda: cdv.devoxelize_plain(grid, coords), PV_PLAIN_ITERS)
     lib_ms = device_ms(lambda: torch.nn.functional.grid_sample(
         inp, sg, mode="bilinear", padding_mode="border", align_corners=True))
@@ -6581,20 +6622,39 @@ def _pv_kernel_check(b, n, r, c, gen):
                         bound(read * c * grid.element_size() +
                               nbytes(coords, out), 16 * out.numel()),
                         lib_ms)
-    # the backward: dyadic inputs, bit-equal
+    pms, pplain_ms, pspan, _ = timings(
+        lambda: cdv.devoxelize_plan(coords, r),
+        lambda: cdv.devoxelize_plan_plain(coords, r), PV_PLAIN_ITERS)
+    prec = kernel_record(0.0, pms, pplain_ms, bound(
+        nbytes(coords, plan.cell, plan.perm, plan.offsets, plan.weights), 0))
+    # the backward: dyadic inputs, bit-equal on the card
     lat = _pv_coords(b, n, r, dev, gen, lattice=True)
+    t0 = time.perf_counter()
+    lat_plan = _pv_plan_check(lat, r, f"{label} (lattice)")
+    plan_s += time.perf_counter() - t0
     g_int = torch.randint(-4, 5, (b, n, c), device=dev,
                           generator=gen).float()
-    got = cdv.devoxelize_grad(g_int, lat, r)
+    got = cdv.devoxelize_grad(g_int, lat, r, lat_plan)
     want = cdv.devoxelize_grad_plain(g_int, lat, r)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(f"pvcnn: trilinear_devoxelize_bwd {label} on "
                              f"dyadic inputs differs from its plain version "
                              f"by {(got - want).abs().max().item()}")
-    # real inputs: within the stated bound of a float64 sum
+    # real inputs: bit-equal to the plain version on the CPU, the same
+    # bits twice, and within the stated bound of a float64 sum
     g = torch.randn((b, n, c), device=dev, generator=gen)
-    got = cdv.devoxelize_grad(g, coords, r)
+    got = cdv.devoxelize_grad(g, coords, r, plan)
+    again = cdv.devoxelize_grad(g, coords, r, plan)
+    if not torch.equal(got, again):
+        raise AssertionError(f"pvcnn: trilinear_devoxelize_bwd {label}: two "
+                             f"runs differ by "
+                             f"{(got - again).abs().max().item()}")
+    cpu_s = 0.0
+    if on_cpu:
+        t0 = time.perf_counter()
+        _pv_cpu_check(got, g, coords, r, label)
+        cpu_s = time.perf_counter() - t0
     ref = _pv_grad64(g, coords, r)
     rel = _rel_l2(got, ref)
     plain_rel = _rel_l2(cdv.devoxelize_grad_plain(g, coords, r), ref)
@@ -6603,7 +6663,7 @@ def _pv_kernel_check(b, n, r, c, gen):
                              f"relative L2 {rel} from float64 > "
                              f"{PV_BWD_TOL}")
     bms, bplain_ms, bspan, bplain_span = timings(
-        lambda: cdv.devoxelize_grad(g, coords, r),
+        lambda: cdv.devoxelize_grad(g, coords, r, plan),
         lambda: cdv.devoxelize_grad_plain(g, coords, r), PV_PLAIN_ITERS)
     gout = g.transpose(1, 2)[:, :, None, None]
     blib_ms = device_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
@@ -6611,17 +6671,72 @@ def _pv_kernel_check(b, n, r, c, gen):
     bwd = kernel_record(float((got.double() - ref).abs().max()), bms,
                         bplain_ms, bound(nbytes(g, coords, got),
                                          16 * g.numel()), blib_ms)
-    say("pvcnn", f"trilinear_devoxelize {label}: bit-equal; device "
-        f"{ms:.4f} ms (span {span:.4f}), bound {fwd['bound_ms']:.4f} (the "
-        f"{read} of {b * r**3} cells read), plain "
-        f"{plain_ms:.4f} (span {plain_span:.4f}), grid_sample {lib_ms:.4f} "
-        f"(largest difference {lib_err:.3e}); backward: bit-equal on "
-        f"dyadic inputs, relative L2 {rel:.3e} from a float64 sum on "
-        f"uniform ones (the plain version's {plain_rel:.3e}; bound "
-        f"{PV_BWD_TOL:g}); device {bms:.4f} ms (span {bspan:.4f}), bound "
-        f"{bwd['bound_ms']:.4f}, plain {bplain_ms:.4f} (span "
-        f"{bplain_span:.4f}), grid_sampler_3d_backward {blib_ms:.4f}")
-    return fwd, bwd
+    say("pvcnn", f"trilinear_devoxelize {label}: plan equal to the plain "
+        f"plan, device {pms:.4f} ms (span {pspan:.4f}), bound "
+        f"{prec['bound_ms']:.4f}, plain {pplain_ms:.4f}; forward "
+        f"bit-equal; device {ms:.4f} ms (span {span:.4f}), bound "
+        f"{fwd['bound_ms']:.4f} (the {read} of {b * r**3} cells read), "
+        f"plain {plain_ms:.4f} (span {plain_span:.4f}), grid_sample "
+        f"{lib_ms:.4f} (largest difference {lib_err:.3e}); backward: "
+        f"bit-equal on dyadic inputs, and on uniform ones "
+        f"{'bit-equal to the plain version on the CPU, ' if on_cpu else ''}"
+        f"the same bits in two runs, relative L2 "
+        f"{rel:.3e} from a float64 sum (the plain version's "
+        f"{plain_rel:.3e}; bound {PV_BWD_TOL:g}); device {bms:.4f} ms "
+        f"(span {bspan:.4f}), bound {bwd['bound_ms']:.4f}, plain "
+        f"{bplain_ms:.4f} (span {bplain_span:.4f}), "
+        f"grid_sampler_3d_backward {blib_ms:.4f}; host seconds: the plan "
+        f"checks {plan_s:.2f}, the CPU reference {cpu_s:.2f}")
+    return fwd, bwd, prec
+
+
+def _pv_cpu_check(got, g, coords, r, label):
+    """The card's grid gradient ``got`` bit-equal to
+    ``devoxelize_grad_plain`` of the same inputs run on the CPU."""
+    cpu = cdv.devoxelize_grad_plain(g.cpu(), coords.cpu(), r)
+    if not torch.equal(got.cpu(), cpu):
+        raise AssertionError(f"pvcnn: trilinear_devoxelize_bwd {label} "
+                             f"differs from its plain version on the CPU by "
+                             f"{(got.cpu() - cpu).abs().max().item()}")
+
+
+def _pv_crowded_coords(b, n, r, dev, gen):
+    """``_pv_coords`` with the first half of each sample's points in one
+    lo cell, (r / 2, r / 2, r / 2): the longest list the plan's rank pass
+    orders (its cost the square of a cell's count) and the longest chain
+    the backward sums in order."""
+    coords = _pv_coords(b, n, r, dev, gen)
+    coords[:, :n // 2] = r // 2 + 0.99 * torch.rand(
+        (b, n // 2, 3), device=dev, generator=gen)
+    return coords
+
+
+def _pv_crowded_check(b, n, r, c, gen):
+    """The devoxelisation on ``_pv_crowded_coords``: the plan equal to
+    the plain plan, the forward bit-equal to its plain version, the
+    backward bit-equal to the plain version on the CPU; the plan's, the
+    forward's and the backward's device times."""
+    dev = torch.device(DEVICE)
+    label = f"B={b} N={n} r={r} C={c}, half of each sample in one cell"
+    coords = _pv_crowded_coords(b, n, r, dev, gen)
+    grid = torch.randn((b, r, r, r, c), device=dev, generator=gen)
+    plan = _pv_plan_check(coords, r, label)
+    out = cdv.trilinear_devoxelize(grid, coords, plan)
+    if not torch.equal(out, cdv.devoxelize_plain(grid, coords)):
+        raise AssertionError(f"pvcnn: trilinear_devoxelize {label} differs "
+                             f"from its plain version")
+    g = torch.randn((b, n, c), device=dev, generator=gen)
+    _pv_cpu_check(cdv.devoxelize_grad(g, coords, r, plan), g, coords, r,
+                  label)
+    pms, ms, bms = (device_ms(fn, iters=5) for fn in (
+        lambda: cdv.devoxelize_plan(coords, r),
+        lambda: cdv.trilinear_devoxelize(grid, coords, plan),
+        lambda: cdv.devoxelize_grad(g, coords, r, plan)))
+    most = int(plan.offsets.diff().max())
+    say("pvcnn", f"trilinear_devoxelize {label} ({most} points): plan "
+        f"equal to the plain plan, device {pms:.4f} "
+        f"ms; forward bit-equal, {ms:.4f} ms; backward bit-equal to the "
+        f"plain version on the CPU, {bms:.4f} ms")
 
 
 class _RecordedDropout(torch.nn.Module):
@@ -6743,19 +6858,31 @@ def _pv_loss_fn(model, root):
                       DATASET.get("S3DIS")(dataset_path=str(root)))
 
 
+def _pv_plain_devoxelize(grid, coords, plan):
+    """``cdv.trilinear_devoxelize`` as PVConv calls it, by the plain
+    version."""
+    return cdv.devoxelize_plain(grid, coords)
+
+
+def _pv_no_plan(coords, r):
+    """``cdv.devoxelize_plan`` for the plain versions, which read none."""
+    return None
+
+
 def _pv_steps(state, batch_cpu, loss_fn, sides, global_bn_train=True):
     """One training step from the same weights and batch on each of
     ``sides`` ("card": float32 on the card, the kernels; "card64": float64
-    on the card, the devoxelisation's plain version, which the kernels
-    do not take; "cpu64": float64 on the CPU), every run after the first
-    on the first's branches (``_SameBranches(net="pvcnn")``: ReLUs,
-    LeakyReLUs, the max over the points and the voxel cells) and dropout
-    masks; with ``global_bn_train`` false the global feature's two
-    BatchNorms run on their running statistics. The card's float32 step
-    is checked to take its voxel branches channels-last (``_pv_layouts``).
-    Returns ({side: loss,
-    gradients, BN statistics, seconds}, {side: choices its own values
-    would have taken otherwise}, choices, the first run's launches)."""
+    on the card, the devoxelisation's plain versions (``devoxelize_plan``
+    and ``trilinear_devoxelize``), which the kernels do not take;
+    "cpu64": float64 on the CPU), every run after the first on the
+    first's branches (``_SameBranches(net="pvcnn")``: ReLUs, LeakyReLUs,
+    the max over the points and the voxel cells) and dropout masks; with
+    ``global_bn_train`` false the global feature's two BatchNorms run on
+    their running statistics. The card's float32 step is checked to take
+    its voxel branches channels-last (``_pv_layouts``). Returns ({side:
+    loss, gradients, BN statistics, seconds}, {side: choices its own
+    values would have taken otherwise}, choices, the first run's
+    launches)."""
     dev = torch.device(DEVICE)
     model = pv_model()
     drop = _RecordedDropout(0.3)
@@ -6782,8 +6909,9 @@ def _pv_steps(state, batch_cpu, loss_fn, sides, global_bn_train=True):
             elif i > 1:
                 same.recorded, drop.masks = list(choices), list(masks)
                 same.differ = 0
-            plain = (mock.patch.object(cdv, "trilinear_devoxelize",
-                                       cdv.devoxelize_plain)
+            plain = (mock.patch.multiple(
+                cdv, devoxelize_plan=_pv_no_plan,
+                trilinear_devoxelize=_pv_plain_devoxelize)
                      if side == "card64" else contextlib.nullcontext())
             reset_counts()
             t0 = time.perf_counter()
@@ -7152,51 +7280,84 @@ def phase_pvcnn(card):
     (``_pv_step_events``), a profiled forward and step in a child process
     and the command line (``_pv_cli``). Returns (the forward's and the
     step's launch counts summed, the forward kernel's record, the
-    backward's)."""
+    backward's, the plan's: a forward's two plans)."""
     t_phase = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     model = pv_model()
     shapes = pv_shapes(model.get_net())
-    fwds, bwds = [], []
-    for r, c in shapes:
-        fwd, bwd = _pv_kernel_check(PV_BATCH, model.cfg.num_points, r, c,
-                                    gen)
+    fwds, bwds, plans = [], [], {}
+    n = model.cfg.num_points
+    for i, (r, c) in enumerate(shapes):
+        fwd, bwd, plan = _pv_kernel_check(PV_BATCH, n, r, c, gen,
+                                          (r, c) not in shapes[:i])
         fwds.append(fwd)
         bwds.append(bwd)
+        plans.setdefault(r, plan)  # a forward builds one plan a resolution
+    _pv_crowded_check(PV_BATCH, n, *shapes[1], gen)
+    seconds = {"kernel checks": time.perf_counter() - t_phase}
     fwd_rec, bwd_rec = combine(fwds), combine(bwds)
+    plan_rec = combine(list(plans.values()))
     say("pvcnn", f"one forward's {len(fwds)} trilinear_devoxelize "
         f"launches: device {fwd_rec['ms']:.4f} ms, bound "
         f"{fwd_rec['bound_ms']:.4f}, plain {fwd_rec['plain_ms']:.4f}, "
-        f"grid_sample {fwd_rec['library_ms']:.4f}; one step's "
-        f"{len(bwds)} backward launches: {bwd_rec['ms']:.4f}, bound "
-        f"{bwd_rec['bound_ms']:.4f}, plain {bwd_rec['plain_ms']:.4f}, "
-        f"grid_sampler_3d_backward {bwd_rec['library_ms']:.4f}")
+        f"grid_sample {fwd_rec['library_ms']:.4f}; its {len(plans)} plans: "
+        f"{plan_rec['ms']:.4f}, bound {plan_rec['bound_ms']:.4f}, plain "
+        f"{plan_rec['plain_ms']:.4f}; launches and plans "
+        f"{fwd_rec['ms'] + plan_rec['ms']:.4f} ms against the forward's "
+        f"bound {fwd_rec['bound_ms']:.4f} "
+        f"({(fwd_rec['ms'] + plan_rec['ms']) / fwd_rec['bound_ms']:.2f}x); "
+        f"one step's {len(bwds)} backward launches: {bwd_rec['ms']:.4f}, "
+        f"bound {bwd_rec['bound_ms']:.4f} "
+        f"({bwd_rec['ms'] / bwd_rec['bound_ms']:.2f}x), plain "
+        f"{bwd_rec['plain_ms']:.4f}, grid_sampler_3d_backward "
+        f"{bwd_rec['library_ms']:.4f}")
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
         write_s3dis_rooms(root, PV_ROOM_POINTS, PV_ROOMS)
         say("pvcnn", f"S3DIS rooms: {len(PV_ROOMS)} of {PV_ROOM_POINTS} "
             f"points written in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
         launches, fwd_ms, state, batch_cpu = _pv_forward(card, root)
         say("pvcnn", f"the devoxelisation kernels' share of the "
             f"{fwd_ms:.3f} ms forward: {fwd_rec['ms'] / fwd_ms:.1%} (their "
             f"device times one by one)")
+        seconds["forward"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         step_launches = _pv_step_vs_cpu(state, batch_cpu, root)
+        seconds["step vs CPU"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         _pv_step_events(state, batch_cpu, root, card)
+        seconds["timed steps"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         _pv_profiles(card)
+        seconds["profiles"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         _pv_cli(card, root)
+        seconds["command line"] = time.perf_counter() - t0
     total = {k: launches[k] + step_launches[k] for k in launches}
-    say("pvcnn", f"phase {time.perf_counter() - t_phase:.1f} s")
-    return total, fwd_rec, bwd_rec
+    say("pvcnn", f"phase {time.perf_counter() - t_phase:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    return total, fwd_rec, bwd_rec, plan_rec
+
+
+# the sources ``--vs-parent`` builds from an earlier commit, where DIR
+# holds them
+PARENT_SOURCES = ("fps.cu", "nms_bev.cu", "trilinear_devoxelize.cu")
 
 
 def _parent_library(src):
-    """An earlier commit's ``fps.cu`` and ``nms_bev.cu``, copied into the
-    directory ``src``, built there by nvcc as the port's sources are and
-    bound with that commit's entry points: ``fps_launch`` with one block a
-    cloud of ``threads``, ``nms_bev_launch`` with no ``stages``."""
+    """The earlier commit's sources of ``PARENT_SOURCES`` that the
+    directory ``src`` holds, built there by nvcc as the port's sources are
+    and bound with that commit's entry points: ``fps_launch`` with one
+    block a cloud of ``threads``, ``nms_bev_launch`` with no ``stages``,
+    the devoxelisation pair with no plan, its backward adding into a
+    zeroed dgrid. Returns (the library, the sources built)."""
     import ctypes
-    names = ("fps.cu", "nms_bev.cu")
+    names = [name for name in PARENT_SOURCES if (src / name).exists()]
+    if not names:
+        raise RuntimeError(f"--vs-parent: {src} holds none of "
+                           f"{PARENT_SOURCES}")
     objs = [src / f"{name}.o" for name in names]
     procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o",
                                str(obj), str(src / name)],
@@ -7212,23 +7373,25 @@ def _parent_library(src):
                     *map(str, objs)], check=True)
     lib = ctypes.CDLL(str(lib_path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fps_launch.argtypes = (p, p, p, i, i, i, i, p)
-    lib.nms_bev_launch.argtypes = (p, p, p, p, i, i, ctypes.c_float, p)
-    lib.fps_launch.restype = lib.nms_bev_launch.restype = ctypes.c_int
-    return lib
+    entries = {"fps.cu": {"fps_launch": (p, p, p, i, i, i, i, p)},
+               "nms_bev.cu": {"nms_bev_launch": (p, p, p, p, i, i,
+                                                 ctypes.c_float, p)},
+               "trilinear_devoxelize.cu": {
+                   "trilinear_devoxelize_launch": (p, p, p, i, i, i, i, p),
+                   "trilinear_devoxelize_bwd_launch": (p, p, p, i, i, i, i,
+                                                       p)}}
+    for name in names:
+        for entry, argtypes in entries[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib, names
 
 
-def vs_parent(src):
-    """``--vs-parent DIR``: the ``fps`` and ``nms_bev`` kernels of an
-    earlier commit (its ``csrc/fps.cu`` and ``csrc/nms_bev.cu`` copied
-    into DIR) against this tree's, timed in turns in one process (earlier,
-    this, this, earlier; ``device_ms`` each) at PointTransformer's four
-    levels at B = 2, 16,384 -> 4,096 at B = 1, and on the ``fps`` and
-    ``nms_bev`` calls of a served PointRCNN frame, captured; both
-    kernels' outputs equal at each. Prints one JSON line of the times."""
-    card = phase_device()
-    phase_build()
-    old = _parent_library(Path(src).resolve())
+def _vs_parent_fps_nms(old, turns):
+    """The earlier ``fps`` and ``nms_bev`` against this tree's (``turns``)
+    at PointTransformer's four levels at B = 2, 16,384 -> 4,096 at B = 1,
+    and on the ``fps`` and ``nms_bev`` calls of a served PointRCNN frame,
+    captured."""
 
     def old_fps(points, m, mask=None):
         b, n, _ = points.shape
@@ -7248,19 +7411,6 @@ def vs_parent(src):
                                          n, float(thr), cfps.stream()),
                       "earlier nms_bev")
         return keep
-
-    rows = []
-
-    def turns(label, old_fn, new_fn):
-        if not torch.equal(old_fn(), new_fn()):
-            raise AssertionError(f"vs-parent {label}: the outputs differ")
-        t = [device_ms(fn, iters=10) for fn in (old_fn, new_fn, new_fn,
-                                                old_fn)]
-        rows.append({"call": label, "parent_ms": [t[0], t[3]],
-                     "ms": [t[1], t[2]]})
-        say("vs-parent", f"{label}: earlier {t[0]:.4f} / {t[3]:.4f} ms, "
-            f"this tree {t[1]:.4f} / {t[2]:.4f} ms (in turns: earlier, "
-            f"this, this, earlier)")
 
     n = POINTTRANSFORMER_S3DIS["num_points"]
     for b in (1, 2):
@@ -7291,7 +7441,190 @@ def vs_parent(src):
         turns(f"pointrcnn nms_bev {label} R={boxes.shape[0]} "
               f"N={boxes.shape[1]}", lambda: old_nms(boxes, valid, thr),
               lambda: cnms.nms_bev(boxes, valid, thr))
+
+
+def _devox_cases(gen):
+    """(label, grid, coords, plan, tolerance) of the devoxelisation at the
+    four path shapes on uniform coordinates (``_pv_coords``), at r 32 C 64
+    on ``_pv_crowded_coords`` and at the four calls of an eval forward of
+    the S3DIS rooms (``PV_ROOMS``), captured; the relative L2 within which
+    two float32 sums of the same backward products in different orders
+    agree there (``PV_BWD_TOL``, ``PV_CROWDED_BWD_TOL``)."""
+    model = pv_model()
+    net = model.get_net()
+    n = model.cfg.num_points
+    dev = torch.device(DEVICE)
+    for r, c in pv_shapes(net):
+        coords = _pv_coords(PV_BATCH, n, r, dev, gen)
+        grid = torch.randn((PV_BATCH, r, r, r, c), device=DEVICE,
+                           generator=gen)
+        yield (f"uniform B={PV_BATCH} N={n} r={r} C={c}", grid, coords,
+               cdv.devoxelize_plan(coords, r), PV_BWD_TOL)
+    coords = _pv_crowded_coords(PV_BATCH, n, 32, dev, gen)
+    grid = torch.randn((PV_BATCH, 32, 32, 32, 64), device=DEVICE,
+                       generator=gen)
+    yield (f"crowded B={PV_BATCH} N={n} r=32 C=64 (half of each sample in "
+           f"one cell)", grid, coords, cdv.devoxelize_plan(coords, 32),
+           PV_CROWDED_BWD_TOL)
+    net = random_weights(net, SEED).eval().to(DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_s3dis_rooms(Path(tmp), PV_ROOM_POINTS, PV_ROOMS)
+        x = {k: v.to(DEVICE) for k, v in pv_request(model, Path(tmp)).items()}
+    with torch.no_grad():
+        calls = _captured(cdv, "trilinear_devoxelize", lambda: net(x))
+    for i, ((grid, coords, plan), _) in enumerate(calls):
+        cells = int((plan.offsets.diff() > 0).sum())
+        yield (f"rooms call {i} B={grid.shape[0]} N={coords.shape[1]} "
+               f"r={grid.shape[1]} C={grid.shape[4]} ({cells} lo cells hold "
+               f"a point)", grid, coords, plan, PV_BWD_TOL)
+
+
+def _devox_against(turns, rows, other_forward, other_backward, exact):
+    """Another devoxelisation pair (``other_forward(grid, coords, plan)``,
+    ``other_backward(g, coords, r, plan)``) against this tree's in turns
+    on ``_devox_cases``, with a normal cotangent: the forwards equal, the
+    backwards equal with ``exact``, else within the case's tolerance; the
+    plan's own time at each goes into ``rows`` beside them."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    for label, grid, coords, plan, tol in _devox_cases(gen):
+        r = grid.shape[1]
+        t = [device_ms(lambda: cdv.devoxelize_plan(coords, r), iters=10)
+             for _ in range(2)]
+        rows.append({"call": f"{label} plan", "ms": t})
+        say("devoxelize", f"{label} plan: this tree {t[0]:.4f} / "
+            f"{t[1]:.4f} ms")
+        turns(f"{label} forward", lambda: other_forward(grid, coords, plan),
+              lambda: cdv.trilinear_devoxelize(grid, coords, plan))
+        g = torch.randn(grid.shape[:1] + coords.shape[1:2] + grid.shape[4:],
+                        device=grid.device, generator=gen)
+        turns(f"{label} backward",
+              lambda: other_backward(g, coords, r, plan),
+              lambda: cdv.devoxelize_grad(g, coords, r, plan),
+              torch.equal if exact else
+              lambda a, b: _rel_l2(a, b) <= tol)
+
+
+def _vs_parent_devoxelize(old, turns, rows):
+    """The earlier devoxelisation pair (a thread a point's float4
+    unit, the backward's float4 atomics into a zeroed dgrid) against this
+    tree's (``_devox_against``: the forward through a plan built
+    beforehand, the backward through the same plan), the backwards within
+    the case's relative L2 of each other (the earlier one's atomic sums
+    change from run to run)."""
+
+    def old_forward(grid, coords, plan):
+        b, r, c, n = (grid.shape[0], grid.shape[1], grid.shape[4],
+                      coords.shape[1])
+        out = torch.empty((b, n, c), device=grid.device)
+        cdv.raise_on(old.trilinear_devoxelize_launch(
+            grid.data_ptr(), coords.data_ptr(), out.data_ptr(), b, n, r, c,
+            cdv.stream()), "earlier trilinear_devoxelize")
+        return out
+
+    def old_backward(g, coords, r, plan):
+        b, n, c = g.shape
+        dgrid = torch.zeros((b, r, r, r, c), device=g.device)
+        cdv.raise_on(old.trilinear_devoxelize_bwd_launch(
+            g.data_ptr(), coords.data_ptr(), dgrid.data_ptr(), b, n, r, c,
+            cdv.stream()), "earlier trilinear_devoxelize_bwd")
+        return dgrid
+
+    _devox_against(turns, rows, old_forward, old_backward, exact=False)
+
+
+def _in_turns(rows, other):
+    """``turns(label, other_fn, this_fn, same=torch.equal)``: checks that
+    the two outputs are ``same``, times them in turns (``other``, this,
+    this, ``other``; ``device_ms`` each), appends the row to ``rows`` and
+    says it."""
+
+    def turns(label, other_fn, this_fn, same=torch.equal):
+        if not same(other_fn(), this_fn()):
+            raise AssertionError(f"{label}: the outputs differ")
+        t = [device_ms(fn, iters=10) for fn in (other_fn, this_fn, this_fn,
+                                                other_fn)]
+        rows.append({"call": label, f"{other}_ms": [t[0], t[3]],
+                     "ms": [t[1], t[2]]})
+        say(other, f"{label}: {other} {t[0]:.4f} / {t[3]:.4f} ms, this tree "
+            f"{t[1]:.4f} / {t[2]:.4f} ms (in turns: {other}, this, this, "
+            f"{other})")
+
+    return turns
+
+
+def vs_parent(src):
+    """``--vs-parent DIR``: the kernels of an earlier commit whose sources
+    DIR holds (``PARENT_SOURCES``: its ``csrc/fps.cu``, ``nms_bev.cu``,
+    ``trilinear_devoxelize.cu``, any of them) against this tree's, timed
+    in turns in one process (``_in_turns``), their outputs checked against
+    each other at each call: ``_vs_parent_fps_nms``,
+    ``_vs_parent_devoxelize``. Prints one JSON line of the times."""
+    card = phase_device()
+    phase_build()
+    old, names = _parent_library(Path(src).resolve())
+    rows = []
+    turns = _in_turns(rows, "parent")
+    if "fps.cu" in names and "nms_bev.cu" in names:
+        _vs_parent_fps_nms(old, turns)
+    if "trilinear_devoxelize.cu" in names:
+        _vs_parent_devoxelize(old, turns, rows)
     print(json.dumps({"vs_parent": rows, "card": card}), flush=True)
+
+
+# the staged design of the devoxelisation pair, which ``--devox-staged``
+# measures against the shipped one
+STAGED_SOURCE = (Path(__file__).resolve().parent / "open3d_ml_tpu_torch" /
+                 "csrc" / "variants" / "trilinear_devoxelize_staged.cu")
+
+
+def devox_staged():
+    """``--devox-staged``: the staged devoxelisation pair
+    (``STAGED_SOURCE``, built here on its own under ``csrc/build/``)
+    against this tree's on this tree's plans, in turns in one process
+    (``_devox_against``), the forwards and the backwards bit-equal. Prints
+    one JSON line of the times."""
+    import ctypes
+    card = phase_device()
+    phase_build()
+    lib_path = _build.CSRC / "build" / "libstaged.so"
+    said = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                           "-o", str(lib_path), str(STAGED_SOURCE)],
+                          capture_output=True, text=True)
+    if said.returncode:
+        raise RuntimeError(f"nvcc failed on {STAGED_SOURCE}:\n"
+                           f"{said.stdout}{said.stderr}")
+    say("staged", "registers and spill store/load bytes: " + "; ".join(
+        line.strip() for line in (said.stdout + said.stderr).splitlines()
+        if "registers" in line or "spill" in line))
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("trilinear_devoxelize_staged_launch",
+                 "trilinear_devoxelize_staged_bwd_launch"):
+        getattr(lib, name).argtypes = (ctypes.c_void_p,) * 5 + (
+            ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+        getattr(lib, name).restype = ctypes.c_int
+
+    def launch(entry, x, plan, out):
+        cdv.raise_on(getattr(lib, entry)(
+            x.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(),
+            plan.weights.data_ptr(), out.data_ptr(), x.shape[0], plan.r,
+            x.shape[-1], cdv.stream()), entry)
+        return out
+
+    def forward(grid, coords, plan):
+        out = torch.empty(coords.shape[:2] + grid.shape[4:],
+                          device=grid.device)
+        return launch("trilinear_devoxelize_staged_launch", grid, plan, out)
+
+    def backward(g, coords, r, plan):
+        dgrid = torch.empty((g.shape[0], r, r, r, g.shape[2]),
+                            device=g.device)
+        return launch("trilinear_devoxelize_staged_bwd_launch", g, plan,
+                      dgrid)
+
+    rows = []
+    _devox_against(_in_turns(rows, "staged"), rows, forward, backward,
+                   exact=True)
+    print(json.dumps({"devox_staged": rows, "card": card}), flush=True)
 
 
 def step_branches():
@@ -7405,6 +7738,8 @@ def main():
         return None
     if sys.argv[1:2] == ["--vs-parent"] and len(sys.argv) == 3:
         return vs_parent(sys.argv[2])
+    if sys.argv[1:] == ["--devox-staged"]:
+        return devox_staged()
     if sys.argv[1:] == ["--prcnn-profile"]:
         return prcnn_profile()
     if sys.argv[1:] == ["--pointrcnn-train"]:
@@ -7450,8 +7785,9 @@ def main():
     (rc_launches, rc_knn, rc_fps,
      measured["nms_bev"]) = phase_pointrcnn(card)
     tr_launches, tr = phase_pointrcnn_train(card)
-    pv_launches, measured["trilinear_devoxelize"], \
-        measured["trilinear_devoxelize_bwd"] = phase_pvcnn(card)
+    (pv_launches, measured["trilinear_devoxelize"],
+     measured["trilinear_devoxelize_bwd"],
+     measured["trilinear_devoxelize_plan"]) = phase_pvcnn(card)
     # knn_exact: one RandLA eval forward's 4 launches, one
     # PointTransformer forward's 26, one PointRCNN frame's 14 and its two
     # training steps' 12 and 14; its launches, run_inference's, the three
@@ -7470,8 +7806,10 @@ def main():
     # training step's 1
     measured["nms_bev"] = combine([measured["nms_bev"], tr["nms_bev"]])
     launches["nms_bev"] = rc_launches["nms_bev"] + trained["nms_bev"]
-    # the devoxelisation pair: one PVCNN forward's 4 and one step's 4 + 4
-    for name in ("trilinear_devoxelize", "trilinear_devoxelize_bwd"):
+    # the devoxelisation: one PVCNN forward's 4 launches and 2 plans, and
+    # one step's 4 + 4 launches and 2 plans
+    for name in ("trilinear_devoxelize", "trilinear_devoxelize_bwd",
+                 "trilinear_devoxelize_plan"):
         launches[name] = pv_launches[name]
     sources = {"bucket_knn": ("open3d_ml_tpu_torch/csrc/bucket_knn.cu",
                               f"{TPU_KERNELS}:261"),
@@ -7499,7 +7837,11 @@ def main():
                "trilinear_devoxelize_bwd": (
                    "open3d_ml_tpu_torch/csrc/trilinear_devoxelize.cu",
                    "open3d_ml_tpu/ops/interpolation.py:45 (its autodiff "
-                   "scatter-adds, no pallas_call)")}
+                   "scatter-adds, no pallas_call)"),
+               "trilinear_devoxelize_plan": (
+                   "open3d_ml_tpu_torch/csrc/trilinear_devoxelize.cu",
+                   "none: the port's cell-sorted plan that the "
+                   "devoxelisation kernels read (no pallas_call)")}
     kernels = [json_entry(name, *sources[name], launches[name], rec)
                for name, rec in measured.items()]
     print(json.dumps({"kernels": kernels}))

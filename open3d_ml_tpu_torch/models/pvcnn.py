@@ -3,10 +3,12 @@
 Counterpart of ``open3d_ml_tpu/models/pvcnn.py``: a PointNet trunk whose
 PVConv blocks add a point branch (a shared MLP) to a voxel branch, which
 averages the points' features into an r^3 grid of the sample's own
-normalised frame (``voxelize_normalized``), runs two 3D convolutions over
+normalised frame (``normalized_coords``), runs two 3D convolutions over
 it and reads it back at the points by trilinear interpolation
-(``ops/cuda/devoxelize.py`` ``trilinear_devoxelize``: its kernel pair on
-a card); then a global feature (the max over the points
+(``ops/cuda/devoxelize.py`` ``trilinear_devoxelize``: its kernels on a
+card, through a plan of the points cell by cell that the net builds once
+per resolution a forward and the blocks of that resolution share); then
+a global feature (the max over the points
 and two Linear-BatchNorm-ReLU layers) and the classifier over the
 concatenation of every block's output and the global feature.
 
@@ -82,14 +84,12 @@ def avg_voxelize(feat, vox_coords, r):
     return (grid / torch.clamp(count, min=1.0)).reshape(b, r, r, r, c)
 
 
-def voxelize_normalized(features, coords, r, normalize=True, eps=1e-6):
+def normalized_coords(coords, r, normalize=True, eps=1e-6):
     """Each sample's points recentred on their mean and, with
     ``normalize``, scaled into [0, 1] by twice the largest distance from
     the mean (sqrt of the sum of squares, as XLA computes the norm), or
-    else mapped from [-1, 1]; then into voxel units clipped to [0, r - 1],
-    rounded to their cells and average-voxelised. features [B, N, C],
-    coords [B, N, 3] (no gradient) -> (grid [B, r, r, r, C], the
-    voxel-unit coordinates [B, N, 3])."""
+    else mapped from [-1, 1]; then into voxel units clipped to [0, r - 1]:
+    coords [B, N, 3] (no gradient) -> [B, N, 3]."""
     coords = coords.detach()
     norm = coords - coords.mean(dim=1, keepdim=True)
     if normalize:
@@ -98,8 +98,7 @@ def voxelize_normalized(features, coords, r, normalize=True, eps=1e-6):
         norm = norm / scale + 0.5
     else:
         norm = (norm + 1) / 2.0
-    norm = torch.clamp(norm * r, 0, r - 1)
-    return avg_voxelize(features, voxel_cells(norm), r), norm
+    return torch.clamp(norm * r, 0, r - 1)
 
 
 class SharedMLP(nn.Module):
@@ -141,11 +140,12 @@ class SE3d(nn.Module):
 
 
 class PVConv(nn.Module):
-    """Point-voxel convolution: the voxel branch (``voxelize_normalized``,
-    two 3D convolutions of ``kernel_size`` with bias, each followed by
-    BatchNorm over B * r^3 cells, eps 1e-4, and LeakyReLU 0.1, the SE
-    gate where ``with_se``, then the devoxelisation at the points) plus the
-    point branch (``SharedMLP``)."""
+    """Point-voxel convolution: the voxel branch (the features averaged
+    into the cells of ``normalized_coords``, two 3D convolutions of
+    ``kernel_size`` with bias, each followed by BatchNorm over B * r^3
+    cells, eps 1e-4, and LeakyReLU 0.1, the SE gate where ``with_se``,
+    then the devoxelisation at the points) plus the point branch
+    (``SharedMLP``)."""
 
     def __init__(self, in_channels, out_channels, resolution, kernel_size=3,
                  with_se=False, normalize=True, eps=1e-6):
@@ -165,8 +165,18 @@ class PVConv(nn.Module):
 
     def forward(self, features, coords):
         """features [B, N, Cin], coords [B, N, 3] -> [B, N, Cout]."""
-        grid, norm = voxelize_normalized(features, coords, self.resolution,
-                                         self.normalize, self.eps)
+        norm = normalized_coords(coords, self.resolution, self.normalize,
+                                 self.eps)
+        return self.forward_planned(
+            features, norm, cdv.devoxelize_plan(norm, self.resolution))
+
+    def forward_planned(self, features, norm, plan):
+        """``forward`` on this block's voxel-unit coordinates ``norm``
+        (``normalized_coords`` of the points) and their devoxelisation
+        plan (``cdv.devoxelize_plan(norm, resolution)``, None on the CPU),
+        which the blocks of one resolution, ``normalize`` and ``eps``
+        share."""
+        grid = avg_voxelize(features, voxel_cells(norm), self.resolution)
         x = grid.permute(0, 4, 1, 2, 3)  # [B, C, r, r, r], channels-last
         for i in range(2):
             x = getattr(self, f"vbn{i}")(getattr(self, f"vconv{i}")(x))
@@ -180,7 +190,7 @@ class PVConv(nn.Module):
         # takes after this copy
         if not x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last_3d)
-        vox = cdv.trilinear_devoxelize(x.permute(0, 2, 3, 4, 1), norm)
+        vox = cdv.trilinear_devoxelize(x.permute(0, 2, 3, 4, 1), norm, plan)
         return vox + self.point_features(features)
 
 
@@ -216,11 +226,20 @@ class PVCNNNet(nn.Module):
 
     def forward(self, inputs):
         coords, feat = inputs["point"], inputs["feat"]
-        outs = []
+        outs, planned = [], {}
         for i in range(self.blocks):
             block = getattr(self, f"pf{i}")
-            feat = (block(feat, coords) if isinstance(block, PVConv) else
-                    block(feat))
+            if isinstance(block, PVConv):
+                # one set of voxel coordinates and one devoxelisation plan
+                # per resolution a forward
+                key = (block.resolution, block.normalize, block.eps)
+                if key not in planned:
+                    norm = normalized_coords(coords, *key)
+                    planned[key] = norm, cdv.devoxelize_plan(
+                        norm, block.resolution)
+                feat = block.forward_planned(feat, *planned[key])
+            else:
+                feat = block(feat)
             outs.append(feat)
         cloud = F.relu(self.cloud_bn0(self.cloud0(cloud_max(feat))))
         cloud = F.relu(self.cloud_bn1(self.cloud1(cloud)))

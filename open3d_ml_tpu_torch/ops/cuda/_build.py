@@ -60,10 +60,14 @@ ENTRY_POINTS = {
                              _I, _I, _P),
     # boxes, valid, mask, keep, R, N, threshold, stages, stream
     "nms_bev_launch": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
-    # grid, coords, out, B, N, r, C, stream
-    "trilinear_devoxelize_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # g, coords, dgrid, B, N, r, C, stream
-    "trilinear_devoxelize_bwd_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # coords, cell, perm, offsets, weights, counts, unsorted, partial, B,
+    # N, r, stream
+    "trilinear_devoxelize_plan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _P),
+    # grid, coords, perm, cell, out, B, N, r, C, stream
+    "trilinear_devoxelize_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # g, perm, offsets, weights, dgrid, B, r, C, stream
+    "trilinear_devoxelize_bwd_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # route, ct, mw, stages, qblock, K, S, seg
     "stencil_conv_shared": (_I, _I, _I, _I, _I, _I, _I, _I),
     # S, seg

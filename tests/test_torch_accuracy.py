@@ -14,6 +14,7 @@ scenes (4 steps). Slow tier: it trains for real on the CPU.
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEMSEG_TRAIN_MIOU_FLOOR = 0.11
 SEMSEG_TEST_MIOU_FLOOR = 0.09

@@ -42,6 +42,7 @@ from open3d_ml_tpu_torch.pipelines.semantic_segmentation import (
 from open3d_ml_tpu_torch.utils import load_jax_variables
 
 from test_torch_eval import _init
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 RANDLANET_YML = REPO / chip_smoke.CLI_CONFIGS["randlanet"]

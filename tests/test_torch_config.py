@@ -16,6 +16,7 @@ from open3d_ml_tpu.utils import config as jax_config
 from open3d_ml_tpu_torch import DATASET, MODEL, PIPELINE, SAMPLER
 from open3d_ml_tpu_torch.utils import (Config, ConfigDict, ModuleConfig,
                                        config, get_module)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_CONFIGS = REPO / "open3d_ml_tpu" / "configs"

@@ -30,6 +30,7 @@ from open3d_ml_tpu_torch.pipelines import SemanticSegmentation
 from open3d_ml_tpu_torch.utils import Cache
 
 from test_torch_randlanet import SMALL
+from torch_threads import one_torch_thread  # noqa: F401
 
 AUGMENT = {"recenter": {"dim": [0, 1]}, "rotate": {"method": "vertical"},
            "scale": {"min_s": 0.9, "max_s": 1.1},

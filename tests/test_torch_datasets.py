@@ -28,6 +28,7 @@ from open3d_ml_tpu_torch.dataloaders import PointCloudDataloader
 from open3d_ml_tpu_torch.datasets.utils import ply as port_ply
 from open3d_ml_tpu_torch.models import RandLANet
 from open3d_ml_tpu_torch.modules.losses import filter_valid_label
+from torch_threads import one_torch_thread  # noqa: F401
 
 SPLITS = ("training", "validation", "test", "all")
 

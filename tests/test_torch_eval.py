@@ -38,6 +38,7 @@ from open3d_ml_tpu_torch.utils import load_jax_variables
 
 from test_torch_ops import lattice_cloud
 from test_torch_randlanet import _randomise_stats
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 B, N = 2, 1024

@@ -27,6 +27,7 @@ from open3d_ml_tpu_torch.ops import neighbors as tn
 from open3d_ml_tpu_torch.ops.cuda import knn as ck
 
 from test_torch_ops import lattice_cloud
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, K = 700, 16  # N is a multiple of no tile of either implementation
 NEAR = 1e-3  # float64 distance gap inside which two neighbours may swap

@@ -46,6 +46,7 @@ from open3d_ml_tpu_torch.utils import load_jax_variables, state_dict_to_jax
 from open3d_ml_tpu_torch.utils.convert_jax import jax_to_state_dict
 
 from test_torch_randlanet import REPO, _randomise_stats
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5  # float32 relative L2
 B = 2

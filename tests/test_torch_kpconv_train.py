@@ -39,6 +39,7 @@ from test_torch_kpconv import (_batches, _cloud, _flat, _rel,
                                warm_cpu_kernels)
 from test_torch_pointtransformer import write_s3dis
 from test_torch_randlanet import REPO, _randomise_stats
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5  # float32 relative L2
 DEFORM = dict(num_classes=6, lbl_values=list(range(7)),

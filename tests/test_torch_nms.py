@@ -28,6 +28,7 @@ from open3d_ml_tpu.ops.nms import nms_bev as jax_nms_bev
 from open3d_ml_tpu_torch.ops.cuda import nms as cnms
 from open3d_ml_tpu_torch.ops.iou import iou_bev
 from open3d_ml_tpu_torch.ops.nms import nms_bev
+from torch_threads import one_torch_thread  # noqa: F401
 
 IOU_NEAR = 1e-6
 NMS_FLIPS = 4  # boxes of a 1,024-box call, at most

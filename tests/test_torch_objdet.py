@@ -42,6 +42,7 @@ from open3d_ml_tpu_torch.pipelines import ObjectDetection
 from open3d_ml_tpu_torch.utils import load_jax_variables
 
 from test_torch_pointpillars import SMALL, jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 CLASSES = ["Pedestrian", "Cyclist", "Car"]

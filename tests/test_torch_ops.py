@@ -25,6 +25,7 @@ from open3d_ml_tpu.ops.pallas import bucket as pb
 from open3d_ml_tpu_torch.ops import bucket as tb
 from open3d_ml_tpu_torch.ops.cuda import bucket as cb
 from open3d_ml_tpu_torch.ops.morton import hilbert_codes, hilbert_sort
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N, SEG, QBLOCK, S, K = 2, 2560, 32, 64, 6, 16
 

@@ -39,6 +39,7 @@ from open3d_ml_tpu_torch.utils.convert_jax import (jax_to_state_dict,
                                                    load_jax_variables,
                                                    net_layout,
                                                    state_dict_to_jax)
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(
     point_cloud_range=[0, -8, -3, 16, 8, 1], classes=["Car", "Pedestrian"],

@@ -60,6 +60,7 @@ from open3d_ml_tpu_torch.utils.convert_jax import (net_layout,
                                                   state_dict_to_jax)
 
 from test_torch_ops import lattice_cloud
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = 1e-5

@@ -35,6 +35,7 @@ from open3d_ml_tpu_torch.utils.convert_jax import (net_layout,
                                                   state_dict_to_jax)
 
 from test_torch_pointrcnn import SMALL, _boxes_close, _np
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 PRCNN_YML = REPO / "open3d_ml_tpu_torch/configs/pointrcnn_kitti.yml"

@@ -61,6 +61,7 @@ from open3d_ml_tpu_torch.utils import load_jax_variables, state_dict_to_jax
 import chip_smoke
 from test_torch_ops import lattice_cloud
 from test_torch_randlanet import _randomise_stats
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 PT_YML = REPO / "open3d_ml_tpu_torch/configs/pointtransformer_s3dis.yml"

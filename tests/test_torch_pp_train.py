@@ -63,6 +63,7 @@ from open3d_ml_tpu_torch.utils.convert_jax import (jax_to_state_dict,
 
 from test_torch_pointpillars import (B, SMALL, apply_rounded, jax_variables,
                                      load_module, point_batch, rel_l2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 G = SMALL["max_gt"]

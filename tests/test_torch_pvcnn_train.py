@@ -42,7 +42,8 @@ from open3d_ml_tpu_torch.utils import load_jax_variables
 
 import chip_smoke
 from test_torch_pvcnn import (B, N, PV_YML, SMALL, _cloud, _rel,
-                              shape_variables, torch_threads)
+                              shape_variables)
+from torch_threads import one_torch_thread  # noqa: F401
 
 LR, GAMMA, STEPS = 1e-2, 0.5, 3
 F64_TOL = 1e-6  # float64 relative L2
@@ -442,7 +443,8 @@ def test_test_loop_accumulator_too_small_in_either_package(tmp_path):
 def test_chip_smoke_pvcnn_constants():
     """``chip_smoke.py`` drives the YAML's model section and the pipeline
     keys it reads without reading the YAML, expects one devoxelisation a
-    PVConv block (and one backward a step), and its four path shapes are
+    PVConv block and one plan a resolution (and one backward a block a
+    step), and its four path shapes are
     the shipped net's; ``pv_flops`` counts ~0.9 TFLOP for a forward of
     4 x 40,960."""
     cfg = Config.load_from_file(PV_YML)
@@ -459,9 +461,12 @@ def test_chip_smoke_pvcnn_constants():
     assert chip_smoke.pv_shapes(net) == [(64, 64), (32, 64), (32, 64),
                                          (32, 128)]
     blocks = sum(isinstance(m, tpv.PVConv) for m in net.children())
-    assert chip_smoke.PV_FORWARD_LAUNCHES == {"trilinear_devoxelize": blocks}
-    assert chip_smoke.PV_STEP_LAUNCHES == {"trilinear_devoxelize": blocks,
-                                           "trilinear_devoxelize_bwd": blocks}
+    plans = len({r for r, _ in chip_smoke.pv_shapes(net)})
+    assert chip_smoke.PV_FORWARD_LAUNCHES == {
+        "trilinear_devoxelize": blocks, "trilinear_devoxelize_plan": plans}
+    assert chip_smoke.PV_STEP_LAUNCHES == {
+        "trilinear_devoxelize": blocks, "trilinear_devoxelize_plan": plans,
+        "trilinear_devoxelize_bwd": blocks}
     flops = chip_smoke.pv_flops(net, 4, 40_960)
     assert 0.85e12 < flops < 0.95e12
     assert [r.split("_")[1] for r in chip_smoke.PV_ROOMS] == [

@@ -34,6 +34,7 @@ from open3d_ml_tpu_torch.utils import load_jax_variables
 from open3d_ml_tpu_torch.utils.convert_jax import jax_to_state_dict
 
 from test_torch_ops import lattice_cloud
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 B, N = 2, 2560

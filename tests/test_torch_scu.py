@@ -34,6 +34,7 @@ from open3d_ml_tpu_torch.models import sparseconvunet as tscu
 from open3d_ml_tpu_torch.models.common import MaskedBatchNorm
 from open3d_ml_tpu_torch.utils import load_jax_variables, state_dict_to_jax
 from open3d_ml_tpu_torch.utils.convert_jax import jax_to_state_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = dict(multiplier=4, num_classes=5, num_levels=3, max_voxels=2048,

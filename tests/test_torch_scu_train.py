@@ -46,6 +46,7 @@ from open3d_ml_tpu_torch.utils.convert_jax import jax_to_state_dict
 
 from test_torch_scu import SMALL, _randomise_stats, surface_batch
 from test_torch_sparse import _t, stencil_case
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 CLASS_COUNTS = [900, 150, 420, 77, 260]

@@ -26,6 +26,7 @@ from open3d_ml_tpu_torch.ops import sparse as tsp
 from open3d_ml_tpu_torch.ops import sparse_bucket as tsb
 from open3d_ml_tpu_torch.ops import voxelize as tvox
 from open3d_ml_tpu_torch.ops.cuda import stencil as cs
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package's ops/__init__ rebinds the name ``voxelize`` to the
 # function

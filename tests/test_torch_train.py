@@ -46,6 +46,7 @@ from open3d_ml_tpu_torch.utils.convert_jax import (jax_to_state_dict,
 
 from test_torch_ops import lattice_cloud
 from test_torch_randlanet import SMALL, _randomise_stats
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, N = 2, 2560
 LR, GAMMA, STEPS = 1e-2, 0.9, 2
