@@ -65,7 +65,12 @@ config, with random weights drawn from a seeded generator:
 * PVCNN at ``pvcnn_s3dis.yml`` (grids of 64^3 and 32^3): the eval forward
   at 4 x 40,960 points of S3DIS rooms, one training step against the
   CPU, and ``run_pipeline.main --split train`` with validation and a
-  resume.
+  resume;
+* RandLA-Net at the four other shipped YAMLs (``randlanet_s3dis.yml``,
+  ``_semantic3d``, ``_toronto3d``, ``_parislille3d``): the fused forward
+  at 4 x 40,960 or 4 x 65,536, the exact eval net, and the command line's
+  train and test on each reader's own files; a host-pyramid step; a
+  SparseConvUnet hash-path step at B = 2.
 
 The models are the port's ``RandLANet()`` and ``SparseConvUnet()`` at their
 defaults, which equal the model sections of
@@ -88,7 +93,8 @@ NMS is the ``nms_bev`` kernel), ``--cli`` the build and the cli phase,
 ``--kpconv`` only the kpconv phase (no kernel of the port's),
 ``--pointrcnn`` the build and the pointrcnn phase,
 ``--pointrcnn-train`` the build and the pointrcnn_train phase,
-``--pvcnn`` the build and the pvcnn phase.
+``--pvcnn`` the build and the pvcnn phase, ``--randla-configs`` the
+build and the randla_configs phase.
 ``python3 chip_smoke.py --stencil-calls`` times only the room request's
 39 stencil convolutions,
 alone and inside a forward; ``python3 chip_smoke.py --knn-calls`` only
@@ -360,6 +366,29 @@ Phases, one line each (or more), in this order:
    steps and 1 validation step, then a resumed epoch, and ``--split
    test`` refused.
 
+19. randla_configs (run after inference): RandLA-Net at
+   ``RC_CONFIGS``, the four other shipped YAMLs, seeded random weights,
+   each reader's files written by the phase (``write_rc_data``: S3DIS
+   rooms, Semantic3D text scans, Toronto3D and ParisLille3D PLY tiles of
+   ``street_scene``): the kernels at the two point counts, 40,960 and
+   65,536 (``_rc_kernels``: every ``bucket_knn`` search of the fused
+   pyramid at S32 checked and timed and at S48 checked, ``bucket_gather``
+   and ``bucket_gather_bwd`` at the level-0 neighbour and pool shapes,
+   ``knn_exact`` at the eval pyramid's levels, as in phase 3); per YAML
+   the fused forward at B = 4 (launch counts ``fused_launches``, median),
+   the exact eval net at B = 1 against the CPU net reading the card's
+   pyramid (``RC_TOL``; the KD-tree's host pyramid printed beside), and
+   ``run_pipeline.main --split train`` (2 steps of 4, 1 validation step,
+   each step's launches) then ``--split test`` on a 300,000-point cloud
+   (launches, scans/s, host share, the predictions in the reader's
+   format); after S3DIS the TensorBoard events read back (the six scalar
+   tags of the JAX ``save_logs``, the text) and one float32 host-pyramid
+   step (``knn_on_device=False``, 1 x ``RC_HOST_POINTS``) against the CPU
+   on the card's branches; then one float32 SparseConvUnet hash-path step
+   at B = 2 of the room request against the CPU on the card's ReLU
+   branches, with its BN statistics (loss ``RC_LOSS_TOL``, gradients and
+   statistics ``RC_TOL``).
+
 Every path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is not 0. The
 second-last line is a JSON record of the kernels (each with its bound: the
@@ -399,6 +428,7 @@ from open3d_ml_tpu_torch.datasets._resources.semantickitti import (
     LEARNING_MAP, LEARNING_MAP_INV)
 from open3d_ml_tpu_torch.datasets.synthetic import make_semseg_scene
 from open3d_ml_tpu_torch.datasets.utils import BEVBox3D
+from open3d_ml_tpu_torch.datasets.utils.ply import write_ply
 from open3d_ml_tpu_torch.models import kpconv as tkp
 from open3d_ml_tpu_torch.models import point_pillars as tpp
 from open3d_ml_tpu_torch.models import point_rcnn as tprc
@@ -425,7 +455,7 @@ from open3d_ml_tpu_torch.ops.morton import hilbert_sort
 from open3d_ml_tpu_torch.ops.voxelize import voxelize
 from open3d_ml_tpu_torch.pipelines import (ObjectDetection,
                                            SemanticSegmentation)
-from open3d_ml_tpu_torch.utils import collect_bboxes
+from open3d_ml_tpu_torch.utils import Config, collect_bboxes
 
 REPO = Path(__file__).resolve().parent
 TPU_KERNELS = "open3d_ml_tpu/ops/pallas/bucket.py"
@@ -1699,8 +1729,9 @@ class _SameBranches:
     before it: on some patches far more than the card's and the CPU's
     float32 sums differ (``--step-branches`` measures it).
 
-    While it is entered, the fused net's pools gather the neighbour that
-    ``argmax`` picks and its LeakyReLUs apply a sign mask (with ``net``
+    While it is entered, the RandLA net's pools (fused or on a given
+    pyramid) gather the neighbour that ``argmax`` picks and its
+    LeakyReLUs apply a sign mask (with ``net``
     "scu": SparseConvUnet's ReLUs, whose inputs near 0 after BatchNorm
     route the gradient the same way; with "pp": PointPillars' ReLUs, and
     its pillar max, whose near ties route the gradient to the points
@@ -1755,6 +1786,11 @@ class _SameBranches:
 
         def pool_max(level, v):
             rows = level._gather(v, "pool")
+            pick = choose(rows.argmax(dim=-2, keepdim=True))
+            return torch.gather(rows, -2, pick).squeeze(-2)
+
+        def index_pool_max(level, v):
+            rows = v[level.batch[..., None], level.pool_idx]
             pick = choose(rows.argmax(dim=-2, keepdim=True))
             return torch.gather(rows, -2, pick).squeeze(-2)
 
@@ -1857,10 +1893,13 @@ class _SameBranches:
         self._saved = [(self.module, "F", self.module.F),
                        (trl._BucketLevel, "pool_max",
                         trl._BucketLevel.pool_max),
+                       (trl._IndexLevel, "pool_max",
+                        trl._IndexLevel.pool_max),
                        (tpp, "segment_max", own_segment_max)]
         self.module.F = Functional()
         if self.module is trl:
             trl._BucketLevel.pool_max = pool_max
+            trl._IndexLevel.pool_max = index_pool_max
         if self.module is tpp:
             tpp.segment_max = segment_max
         return self
@@ -7341,6 +7380,647 @@ def phase_pvcnn(card):
     return total, fwd_rec, bwd_rec, plan_rec
 
 
+# ------------------------------------------------ RandLA's other four YAMLs
+
+RC_CONFIGS = {"S3DIS": "open3d_ml_tpu_torch/configs/randlanet_s3dis.yml",
+              "Semantic3D":
+                  "open3d_ml_tpu_torch/configs/randlanet_semantic3d.yml",
+              "Toronto3D": "open3d_ml_tpu_torch/configs/randlanet_toronto3d.yml",
+              "ParisLille3D":
+                  "open3d_ml_tpu_torch/configs/randlanet_parislille3d.yml"}
+RC_BATCH = 4  # the YAMLs' batch_size: the fused forward's batch
+RC_STEPS = (2, 1)  # the command line's train steps of 4, validation steps
+RC_CLOUD_POINTS = 150_000  # each training and validation cloud
+RC_TEST_POINTS = 300_000  # the test split's scan or room
+RC_TOL = 1e-4  # card vs CPU: the eval logits' and a step's gradients' L2
+RC_LOSS_TOL = 1e-5  # card vs CPU: a step's loss, relative
+RC_HOST_POINTS = 10_240  # the host-pyramid step's patch (S3DIS's level 1)
+SCU_HASH_BATCH = 2
+TB_SCALARS = ("Training loss", "Validation loss", "Training accuracy",
+              "Validation accuracy", "Training IoU", "Validation IoU")
+TB_TEXTS = ("Description/Command line/text_summary",
+            "Configuration/text_summary")
+S3DIS_RC_ROOMS = ("Area_1_office_1", "Area_2_office_1", "Area_5_office_1")
+# (class, colour, x0, x1, y0, y1, z0, z1) of each part of an 80 x 24 m
+# street: road, two pavements, two facades, trees, cars, poles, and
+# class-0 clutter in the air (the readers' unlabelled class)
+STREET = ((1, (90, 90, 95), 0, 80, 6, 18, 0, 0),
+          (2, (150, 140, 120), 0, 80, 0, 6, 0.15, 0.15),
+          (2, (150, 140, 120), 0, 80, 18, 24, 0.15, 0.15),
+          (5, (200, 170, 150), 0, 80, 0, 0, 0, 15),
+          (5, (180, 160, 160), 0, 80, 24, 24, 0, 15),
+          (3, (40, 120, 40), 10, 70, 3, 5, 3, 7),
+          (8, (180, 30, 30), 20, 60, 8, 10, 0, 1.5),
+          (6, (120, 120, 120), 5, 75, 19, 19.3, 0, 6),
+          (0, (255, 255, 255), 0, 80, 0, 24, 16, 20))
+
+
+def randla_yaml(name, **overrides):
+    """``RandLANet`` at the model section of ``RC_CONFIGS[name]``, with
+    ``overrides``."""
+    cfg = Config.load_from_file(REPO / RC_CONFIGS[name]).model.to_dict()
+    cfg.pop("name")
+    return MODEL.get("RandLANet")(**dict(cfg, **overrides))
+
+
+def fused_launches(cfg, n=None):
+    """Kernel launches of one fused forward at ``n`` points (default
+    ``num_points``): a neighbour search a level, and a pool search where
+    the level's sub points are not rows ::ratio of its query blocks (its
+    points no whole number of blocks); four gathers a level (two
+    neighbour reads, the pool's, the upsample's)."""
+    n = n or cfg.num_points
+    knn = 0
+    for ratio in cfg.sub_sampling_ratio[:cfg.num_layers]:
+        knn += 1 + (cfg.block % ratio != 0 or n % cfg.block != 0)
+        n //= ratio
+    return {"bucket_knn": knn, "bucket_gather": 4 * cfg.num_layers}
+
+
+def street_scene(n, seed, num_classes):
+    """An 80 x 24 m street sampled with ``n`` points from ``seed``: the
+    parts of ``STREET`` by area (a box's two largest extents), each a
+    colour and a class below ``num_classes``, RGB with noise. Returns
+    (xyz [n, 3] float64 from 0, rgb [n, 3] float 0-255, labels [n]
+    int32)."""
+    rng = np.random.default_rng(seed)
+    area = np.array([np.prod(sorted((x1 - x0, y1 - y0, z1 - z0))[1:])
+                     for _, _, x0, x1, y0, y1, z0, z1 in STREET])
+    which = rng.choice(len(STREET), n, p=area / area.sum())
+    box = np.array([s[2:] for s in STREET], np.float64)[which]
+    xyz = box[:, 0::2] + rng.uniform(0, 1, (n, 3)) * (box[:, 1::2] -
+                                                        box[:, 0::2])
+    colour = np.array([s[1] for s in STREET], np.float64)[which]
+    rgb = np.clip(colour + rng.normal(0, 12, (n, 3)), 0, 255).round()
+    labels = np.array([s[0] % num_classes for s in STREET],
+                      np.int32)[which]
+    return xyz, rgb, labels
+
+
+def write_semantic3d(root, n, test_n, seed=SEED):
+    """A Semantic3D folder: two training scans, the validation scan the
+    reader names (``bildstein_station3_xyz_intensity_rgb``), each of ``n``
+    points with ``.labels`` (0-8), and one unlabelled test scan of
+    ``test_n``; rows x y z intensity r g b."""
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    for name, count in (("scan_a", n), ("scan_b", n),
+                        ("bildstein_station3_xyz_intensity_rgb", n),
+                        ("scan_test", test_n)):
+        seed += 1
+        xyz, rgb, labels = street_scene(count, seed, 9)
+        intensity = np.random.default_rng(seed).uniform(-1000, 1000, count)
+        np.savetxt(root / f"{name}.txt",
+                   np.concatenate([xyz, intensity[:, None], rgb], 1),
+                   fmt="%.3f")
+        if name != "scan_test":
+            np.savetxt(root / f"{name}.labels", labels, fmt="%d")
+
+
+def write_toronto3d(root, n, test_n, seed=SEED):
+    """A Toronto3D folder: tiles L001, L003, L004 (training) of ``n``
+    points and L002 (validation and test) of ``test_n``, as PLY with
+    x, y, z at the reader's UTM offset, red, green, blue and
+    scalar_Label (0-8)."""
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    offset = np.array(DATASET.get("Toronto3D").UTM_OFFSET, np.float64)
+    for name, count in (("L001", n), ("L002", test_n), ("L003", n),
+                        ("L004", n)):
+        seed += 1
+        xyz, rgb, labels = street_scene(count, seed, 9)
+        write_ply(str(root / f"{name}.ply"),
+                  [xyz + offset, rgb.astype(np.float32), labels],
+                  ["x", "y", "z", "red", "green", "blue", "scalar_Label"])
+
+
+def write_parislille3d(root, n, test_n, seed=SEED):
+    """A ParisLille3D folder: ``training_10_classes`` Lille1, Paris
+    (training) and Lille2 (validation) of ``n`` points with x, y, z and
+    class (0-9), and ``test_10_classes/T1.ply`` of ``test_n`` points."""
+    root = Path(root)
+    (root / "training_10_classes").mkdir(parents=True, exist_ok=True)
+    (root / "test_10_classes").mkdir(exist_ok=True)
+    for name, count in (("Lille1", n), ("Lille2", n), ("Paris", n),
+                        ("T1", test_n)):
+        seed += 1
+        xyz, _, labels = street_scene(count, seed, 10)
+        if name == "T1":
+            write_ply(str(root / "test_10_classes" / "T1.ply"),
+                      [xyz.astype(np.float32)], ["x", "y", "z"])
+        else:
+            write_ply(str(root / "training_10_classes" / f"{name}.ply"),
+                      [xyz.astype(np.float32), labels],
+                      ["x", "y", "z", "class"])
+
+
+def write_rc_data(name, root, n, test_n):
+    """``name``'s reader's files under ``root`` (S3DIS: three rooms of
+    ``test_n`` points, the last in the YAML's test area 5); returns the
+    path of the cloud the test split holds and its point count."""
+    root = Path(root)
+    if name == "S3DIS":
+        write_s3dis_rooms(root, test_n, S3DIS_RC_ROOMS)
+        return "Area_5_office_1", test_n
+    writer = {"Semantic3D": write_semantic3d, "Toronto3D": write_toronto3d,
+              "ParisLille3D": write_parislille3d}[name]
+    writer(root, n, test_n)
+    return {"Semantic3D": "scan_test", "Toronto3D": "L002",
+            "ParisLille3D": "T1"}[name], test_n
+
+
+def read_predictions(name, folder, cloud):
+    """The labels that ``name``'s ``save_test_result`` wrote for
+    ``cloud`` under ``folder``."""
+    if name == "Semantic3D":
+        return np.loadtxt(Path(folder) / name / f"{cloud}.labels",
+                          dtype=np.int64)
+    return np.load(Path(folder) / name / f"{cloud}.npy")
+
+
+def rc_patch(model, b, seed=SEED):
+    """``b`` patches of ``num_points`` of street scenes, recentred as the
+    YAMLs do; features xyz, then RGB where ``in_channels`` is 6."""
+    cfg = model.cfg
+    coords, feats = [], []
+    for i in range(b):
+        xyz, rgb, _ = street_scene(cfg.num_points, seed + i, 9)
+        xyz[:, :2] -= xyz[:, :2].mean(0)
+        coords.append(xyz)
+        feats.append(np.concatenate([xyz, rgb], 1)[:, :cfg.in_channels])
+    return {"coords": torch.from_numpy(np.stack(coords).astype(np.float32)),
+            "features": torch.from_numpy(np.stack(feats).astype(np.float32))}
+
+
+def _knn_equal(label, args, kwargs):
+    """bucket_knn against its plain version at one search, unchanged d2
+    bit for bit and indices off d2 ties; checks only."""
+    got = cb.knn_bucket(*args, **kwargs)
+    want = cb.knn_bucket_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    if not torch.equal(got[1].view(torch.int32), want[1].view(torch.int32)):
+        raise AssertionError(f"bucket_knn {label}: d2 differs from the "
+                             "plain version")
+    _differ_only_at_ties(f"bucket_knn {label}", got[0], want[0], want[1])
+
+
+def _rc_kernels(model, pts):
+    """The kernels at one of the YAMLs' point counts, on ``pts`` [4, N, 3]
+    on the card: every bucket_knn search of the fused pyramid at the
+    inference budget, checked and timed (``_knn_check``, on lattice
+    points too), and at the training budget checked; bucket_gather at
+    the level-0 neighbour (C 11) and pool (C 32) reads and
+    bucket_gather_bwd at the same two of the training pyramid; knn_exact
+    at the eval pyramid's four levels (``phase_knn_exact``). Returns the
+    records: ({kernel: [records]}, [(label, gather)], [(label, bwd)])."""
+    cfg = model.cfg
+    n, seg = pts.shape[1], cfg.seg
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    lattice = lattice_points(pts.shape[0], n, SEED)
+    budget = (cfg.infer_num_segs, cfg.infer_gather_segs)
+    for label, args, kwargs in fused_searches(lattice, cfg, *budget):
+        _knn_check(f"N={n} {label}", *args, **kwargs, lattice=True)
+    knn = [_knn_check(f"N={n} {label}", *args, **kwargs)
+           for label, args, kwargs in fused_searches(pts, cfg, *budget)]
+    for label, args, kwargs in fused_searches(pts, cfg, cfg.num_segs,
+                                              cfg.gather_segs):
+        _knn_equal(f"N={n} S{cfg.num_segs} {label}", args, kwargs)
+    say("randla_configs", f"bucket_knn N={n}: every search of the fused "
+        f"pyramid at S{cfg.num_segs} equal to the plain version (d2 bit for "
+        "bit, indices off d2 ties)")
+    gathers, bwds = [], []
+    for pyr_budget, out in (((cfg.infer_num_segs, cfg.infer_gather_segs),
+                             gathers),
+                            ((cfg.num_segs, cfg.gather_segs), bwds)):
+        pyr = tb.build_bucket_pyramid(
+            pts, cfg.num_neighbors, cfg.sub_sampling_ratio, seg=seg,
+            qblock=cfg.block, num_segs=pyr_budget[0],
+            gather_segs=pyr_budget[1])
+        for label, name, c in (("level-0 neighbour", "nbr", 11),
+                               ("level-0 pool", "pool", 2 *
+                                cfg.dim_output[0])):
+            sids, rel = pyr[f"{name}_seg_ids"][0], pyr[f"{name}_rel"][0]
+            qb = pyr[f"{name}_qblock"][0]
+            tag = f"RandLA N={n} {label}"
+            if out is gathers:
+                values = tb.pad_seg(torch.randn((pts.shape[0], n, c),
+                                                generator=gen,
+                                                device=DEVICE), seg)
+                out.append((tag, _gather_check(f"N={n} {label}", values,
+                                               sids, rel, seg, qb)))
+            else:
+                out.append((tag, _gather_bwd_check(
+                    f"N={n} {label}", sids, rel, -(-n // seg) * seg, c, seg,
+                    qb, gen)))
+    exact = phase_knn_exact(cfg)
+    return {"bucket_knn": knn, "knn_exact": [exact]}, gathers, bwds
+
+
+def _rc_forward(name, model, card):
+    """The fused forward at B = 4 at the inference budget on street
+    patches: launch counts, logits, median ms. Returns (launches, the
+    weights)."""
+    cfg = model.cfg
+    net = random_weights(model.get_net(), SEED)
+    state = net.state_dict()
+    net = net.eval().to(DEVICE)
+    batch = {k: v.to(DEVICE) for k, v in rc_patch(model, RC_BATCH).items()}
+    with torch.no_grad():
+        net(batch)
+        torch.cuda.synchronize()
+        reset_counts()
+        logits = net(batch)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    check_counts("randla_configs", launches, fused_launches(cfg))
+    if (tuple(logits.shape) != (RC_BATCH, cfg.num_points, cfg.num_classes)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"randla_configs {name}: logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    fwd, times = median_forward_s(net, batch)
+    say("randla_configs", f"{name}: fused forward B={RC_BATCH} "
+        f"N={cfg.num_points} in_channels {cfg.in_channels} classes "
+        f"{cfg.num_classes} (S{cfg.infer_num_segs}/G{cfg.infer_gather_segs},"
+        f" {cfg.compute_dtype}): logits finite; median {fwd * 1e3:.3f} ms "
+        f"over {len(times)} runs (min {min(times) * 1e3:.3f}, max "
+        f"{max(times) * 1e3:.3f}), {RC_BATCH * cfg.num_points / fwd:.0f} "
+        f"points/s on {card}")
+    return launches, state
+
+
+def _rc_eval_vs_cpu(name, model, state, card):
+    """The exact eval net at B = 1 on the card against the same weights on
+    the CPU, float32 logits within ``RC_TOL`` relative L2. The CPU net
+    reads the card's exact pyramid (``knn_on_device=False``): the
+    pyramid's kernel is held bit-equal to its plain version apart, and
+    both searches compute d2 as |q|^2 + |p|^2 - 2 q.p, which at tens of
+    metres from the origin ranks near ties otherwise than the KD-tree's
+    differences (the host pyramid of the port's KD-tree, printed beside,
+    differs from it there). Returns the card's launches."""
+    cfg = model.cfg
+    sample = rc_patch(model, 1, seed=SEED + 10)
+    net = model.get_eval_net()
+    net.load_state_dict(state)
+    net = net.eval().to(DEVICE)
+    batch = {k: v.to(DEVICE) for k, v in sample.items()}
+    with torch.no_grad():
+        reset_counts()
+        logits = net(batch)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        card_pyr = tn.build_knn_pyramid(batch["coords"], cfg.num_neighbors,
+                                        cfg.sub_sampling_ratio)
+    check_counts("randla_configs", launches,
+                 {"knn_exact": cfg.num_layers})
+    host = type(model)(**dict(cfg.to_dict(), knn_on_device=False))
+    cpu_net = host.get_eval_net()
+    cpu_net.load_state_dict(state)
+    cpu_net.eval()
+    t0 = time.perf_counter()
+    kd_pyr = host._host_pyramid(sample["coords"][0].numpy())
+    pyr_s = time.perf_counter() - t0
+    given = {"coords_pyramid": [t.cpu() for t in card_pyr["coords"]],
+             **{k: [t.cpu() for t in card_pyr[k]]
+                for k in ("neighbor_indices", "sub_idx", "interp_idx")}}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref = cpu_net(dict(sample, **given))
+        cpu_s = time.perf_counter() - t0
+        kd = cpu_net(dict(sample, **{k: [torch.from_numpy(a)[None]
+                                         for a in v]
+                                     for k, v in kd_pyr.items()}))
+    rel_l2, agree = _compare(logits, ref)
+    kd_l2, kd_agree = _compare(logits, kd)
+    fwd, _ = median_forward_s(net, batch, runs=5, warmup=1)
+    say("randla_configs", f"{name}: exact eval net B=1 N={cfg.num_points} "
+        f"float32, card vs CPU on the card's pyramid: relative L2 "
+        f"{rel_l2:.3e}, argmax agreement {agree:.6f} (CPU forward "
+        f"{cpu_s:.2f} s); vs the CPU on the KD-tree's pyramid (built in "
+        f"{pyr_s:.2f} s): {kd_l2:.3e}, {kd_agree:.6f}; card median "
+        f"{fwd * 1e3:.3f} ms on {card}")
+    if not rel_l2 <= RC_TOL:
+        raise AssertionError(f"randla_configs {name}: eval logits card vs "
+                             f"CPU relative L2 {rel_l2} > {RC_TOL}")
+    return launches
+
+
+def _tensorboard_check(folder):
+    """The event files under ``folder`` hold the six scalar tags of the
+    JAX package's ``save_logs`` and the command line and configuration as
+    text; returns the scalar tags and their values' count."""
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator)
+    runs = sorted(Path(folder).iterdir())
+    if len(runs) != 1:
+        raise AssertionError(f"tensorboard: runs {runs}")
+    acc = EventAccumulator(str(runs[0]))
+    acc.Reload()
+    tags = acc.Tags()
+    missing = [t for t in TB_SCALARS if t not in tags["scalars"]]
+    missing += [t for t in TB_TEXTS if t not in tags["tensors"]]
+    if missing:
+        raise AssertionError(f"tensorboard: {runs[0].name} lacks {missing}")
+    values = {t: [e.value for e in acc.Scalars(t)] for t in TB_SCALARS}
+    if not all(np.isfinite(v).all() and v for v in values.values()):
+        raise AssertionError(f"tensorboard: scalars {values}")
+    return runs[0].name, values
+
+
+def _rc_cli(name, root, card):
+    """``run_pipeline.main`` on ``name``'s YAML and reader files: train
+    (2 steps of 4 and 1 validation step of 2, each step's launches), then
+    test with its checkpoint on the test split's cloud (the possibility
+    map until covered, each eval forward 4 ``knn_exact`` launches), the
+    predictions in the reader's format. Returns (launch counts summed,
+    the TensorBoard folder)."""
+    steps, valid_steps = RC_STEPS
+    model_cfg = randla_yaml(name).cfg
+    t0 = time.perf_counter()
+    cloud, test_n = write_rc_data(name, root / "data", RC_CLOUD_POINTS,
+                                  RC_TEST_POINTS)
+    written_s = time.perf_counter() - t0
+    common = ["-c", REPO / RC_CONFIGS[name], "--device", DEVICE,
+              "--dataset.dataset_path", root / "data",
+              "--dataset.cache_dir", root / "cache",
+              "--dataset.test_result_folder", root / "test",
+              "--main_log_dir", root / "logs",
+              "--pipeline.train_sum_dir", root / "tb"]
+    host = ((trl.RandLANet, "preprocess"), (trl.RandLANet, "transform"))
+    wall, launches, record, spent = _cli_run(common + [
+        "--split", "train", "--pipeline.max_epoch", 0,
+        "--dataset.steps_per_epoch_train", steps * 4,
+        "--dataset.steps_per_epoch_valid", valid_steps * 2], host)
+    fused = fused_launches(model_cfg)
+    step_launches = dict(fused, bucket_gather_bwd=4 * model_cfg.num_layers)
+    train_s = _check_steps(record, 0, len(record), step_launches, fused,
+                           ["train"] * steps + ["eval"] * valid_steps)
+    total = collections.Counter({k: v * steps
+                                 for k, v in step_launches.items()})
+    for k, v in fused.items():
+        total[k] += v * valid_steps
+    check_counts("randla_configs", launches, dict(total))
+    ckpt = (root / "logs" / f"RandLANet_{name}_torch" / "checkpoint" /
+            "ckpt_00000.pth")
+    if not ckpt.exists():
+        raise AssertionError(f"randla_configs {name}: no checkpoint")
+    host_s = spent["RandLANet.preprocess"] + spent["RandLANet.transform"]
+    say("randla_configs", f"{name}: reader files written in "
+        f"{written_s:.2f} s; run_pipeline -c {RC_CONFIGS[name]} --split "
+        f"train --pipeline.max_epoch 0: wall {wall:.3f} s; {steps} train "
+        f"steps of 4 x {model_cfg.num_points} (S{model_cfg.num_segs}/"
+        f"G{model_cfg.gather_segs}) {[round(s * 1e3, 3) for s in train_s]} "
+        f"ms, {valid_steps} validation step(s) of 2, losses "
+        f"{[round(r[4], 4) for r in record]}, finite; host preprocess + "
+        f"transform {host_s:.3f} s ({host_s / wall:.1%} of the run)")
+
+    forwards = collections.Counter()
+    real_forward = trl.RandLANetNet.forward
+
+    def counted(self, *args, **kwargs):
+        forwards[self.knn_method] += 1
+        return real_forward(self, *args, **kwargs)
+
+    with mock.patch.object(trl.RandLANetNet, "forward", counted):
+        test_wall, test_launches, _, spent = _cli_run(common + [
+            "--split", "test", "--ckpt_path", ckpt], host)
+    check_counts("randla_configs", test_launches,
+                 {"knn_exact": model_cfg.num_layers * forwards["exact"]})
+    pred = read_predictions(name, root / "test", cloud)
+    top = model_cfg.num_classes + len(model_cfg.ignored_label_inds)
+    if pred.shape != (test_n,) or pred.min() < 0 or pred.max() >= top:
+        raise AssertionError(f"randla_configs {name}: predictions "
+                             f"{pred.shape} in [{pred.min()}, {pred.max()}]")
+    host_share = (spent["RandLANet.preprocess"] +
+                  spent["RandLANet.transform"]) / test_wall
+    say("randla_configs", f"{name}: --split test on {cloud} ({test_n} "
+        f"points): wall {test_wall:.3f} s, {1 / test_wall:.3f} scans/s, "
+        f"{forwards['exact']} exact eval forwards of 1 x "
+        f"{model_cfg.num_points}; host preprocess + transform "
+        f"{host_share:.1%} of the run; {pred.shape[0]} labels written in "
+        f"the reader's format, in [0, {top}) on {card}")
+    for k, v in test_launches.items():
+        total[k] += v
+    return total, root / "tb"
+
+
+def _host_step_vs_cpu(root):
+    """One float32 training step of RandLA-Net at the S3DIS YAML's widths
+    on the host pyramid (``knn_on_device=False``), 1 x ``RC_HOST_POINTS``
+    of an S3DIS room, on the card and on the CPU from the same weights,
+    batch and dropout mask, the CPU on the card's max-pool and LeakyReLU
+    branches. Returns (loss relative difference, gradient relative L2,
+    statistics relative L2, launches on the card, CPU seconds, the
+    branches' record)."""
+    model = randla_yaml("S3DIS", compute_dtype="float32",
+                        knn_on_device=False, num_points=RC_HOST_POINTS,
+                        seed=SEED)
+    dataset = DATASET.get("S3DIS")(
+        dataset_path=str(root / "data"), cache_dir=str(root / "cache"),
+        test_area_idx=5)
+    split = dataset.get_split("train")
+    loader = PointCloudDataloader(split, preprocess=model.preprocess,
+                                  transform=model.transform,
+                                  sampler=split.sampler)
+    split.sampler.initialize_with_dataloader(loader)
+    model.trans_point_sampler = split.sampler.get_point_sampler()
+    batch = DefaultBatcher().collate_fn([loader[0]])
+    keep = torch.rand((1, RC_HOST_POINTS, 32),
+                      generator=torch.Generator().manual_seed(SEED)) >= 0.5
+    out, state = {}, None
+    with _SameBranches() as branches:
+        for device in (DEVICE, "cpu"):
+            pipeline = SemanticSegmentation(
+                model, dataset=dataset, device=device, seed=SEED,
+                main_log_dir=str(root / "logs"), **TRAIN_PIPELINE)
+            if state is None:
+                state = {k: v.cpu().clone()
+                         for k, v in pipeline.net.state_dict().items()}
+            pipeline.net.load_state_dict(state)
+            pipeline.net.dropout = _FixedDropout(keep)
+            pipeline.optimizer, pipeline.scheduler = model.get_optimizer(
+                pipeline.cfg, pipeline.net)
+            reset_counts()
+            t0 = time.perf_counter()
+            loss, _ = pipeline._train_step(
+                pipeline._device_batch(batch),
+                SemSegLoss(pipeline, model, dataset))
+            seconds = time.perf_counter() - t0
+            net = pipeline.net
+            out[device] = {
+                "loss": loss.double().cpu(),
+                "grad": torch.cat([p.grad.reshape(-1).cpu()
+                                   for p in net.parameters()]),
+                "stats": torch.cat([b.reshape(-1).cpu() for k, b in
+                                    net.state_dict().items()
+                                    if k.endswith(("running_mean",
+                                                   "running_var"))]),
+                "seconds": seconds, "launches": read_counts()}
+            if device == DEVICE:
+                branches.replay()
+        if branches.recorded:
+            raise AssertionError("randla_configs: the CPU step took fewer "
+                                 "branches than the card's")
+    gpu, cpu = out[DEVICE], out["cpu"]
+    return ((abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])).item(),
+            _rel_l2(gpu["grad"], cpu["grad"]),
+            _rel_l2(gpu["stats"], cpu["stats"]), gpu["launches"],
+            cpu["seconds"], branches)
+
+
+def _scu_hash_step_vs_cpu(root):
+    """One float32 training step of SparseConvUnet at the shipped widths
+    on the hash path (``conv_method="hash"``), B = 2 of the 6 m room
+    request (``scu_scene``, two seeds, the test split's preprocess and
+    transform), on the card and on the CPU from the same weights, the CPU
+    on the card's ReLU branches. Returns (loss relative difference,
+    gradient relative L2, statistics relative L2, the statistics' relative
+    move, CPU seconds, card seconds, the branches' record)."""
+    model = MODEL.get("SparseConvUnet")(compute_dtype="float32",
+                                        conv_method="hash", seed=SEED)
+    attr = {"split": "test"}
+    batch = DefaultBatcher().collate_fn([
+        model.transform(model.preprocess(scu_scene(
+            SCU_ROOM_EXTENT_M, model.cfg.num_points, SEED + i), attr), attr)
+        for i in range(SCU_HASH_BATCH)])
+    dataset = DATASET.get("Custom3D")(dataset_path=str(root),
+                                      cache_dir=str(root / "cache"))
+    out, state = [], None
+    with _SameBranches(net="scu") as branches:
+        for device in (DEVICE, "cpu"):
+            pipeline = SemanticSegmentation(model, dataset=dataset,
+                                            device=device, seed=SEED,
+                                            main_log_dir=str(root / "logs"),
+                                            **SCU_TRAIN_PIPELINE)
+            if state is None:
+                state = {k: v.cpu().clone()
+                         for k, v in pipeline.net.state_dict().items()}
+            pipeline.net.load_state_dict(state)
+            pipeline.optimizer, pipeline.scheduler = model.get_optimizer(
+                pipeline.cfg, pipeline.net)
+            t0 = time.perf_counter()
+            loss, _ = pipeline._train_step(
+                {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+                 if isinstance(v, np.ndarray)},
+                SemSegLoss(pipeline, model, dataset))
+            if device == DEVICE:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            net = pipeline.net
+            out.append({
+                "loss": loss.double().cpu(),
+                "grad": torch.cat([p.grad.reshape(-1).cpu()
+                                   for p in net.parameters()]),
+                "stats": torch.cat([b.reshape(-1).cpu()
+                                    for k, b in net.state_dict().items()
+                                    if k.endswith(("running_mean",
+                                                   "running_var"))]),
+                "seconds": seconds})
+            if len(out) == 1:
+                branches.replay()
+        if branches.recorded:
+            raise AssertionError("randla_configs: the CPU hash step took "
+                                 "fewer branches than the card's")
+    gpu, cpu = out
+    before = torch.cat([v.reshape(-1) for k, v in state.items()
+                        if k.endswith(("running_mean", "running_var"))])
+    return ((abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])).item(),
+            _rel_l2(gpu["grad"], cpu["grad"]),
+            _rel_l2(gpu["stats"], cpu["stats"]),
+            _rel_l2(gpu["stats"], before), cpu["seconds"], gpu["seconds"],
+            branches)
+
+
+def _rc_s3dis_extras(root, tb_dir):
+    """After the S3DIS command line: its TensorBoard events read back, and
+    the host-pyramid step against the CPU on its rooms."""
+    run, values = _tensorboard_check(tb_dir)
+    say("randla_configs", f"TensorBoard {run}: the six scalars " +
+        ", ".join(f"{t} {v}" for t, v in values.items()) +
+        "; the command line and the configuration as text")
+    loss, grad, stats, launches, cpu_s, branches = _host_step_vs_cpu(root)
+    say("randla_configs", f"host-pyramid step (S3DIS YAML, knn_on_device "
+        f"false, float32, 1 x {RC_HOST_POINTS}): card vs CPU loss "
+        f"{loss:.3e}, gradients {grad:.3e}, BN statistics {stats:.3e} "
+        f"relative L2 (CPU step {cpu_s:.2f} s; {branches.total} branch "
+        f"choices replayed, {branches.differ} the CPU's own values would "
+        f"have made otherwise); launches {launches}")
+    if not (loss <= RC_LOSS_TOL and grad <= RC_TOL and stats <= RC_TOL):
+        raise AssertionError("randla_configs: host-pyramid step card vs CPU "
+                             "past its bounds")
+    if any(launches.values()):
+        raise AssertionError("randla_configs: the host-pyramid step "
+                             "launched a kernel")
+
+
+def phase_randla_configs(card):
+    """RandLA-Net at the four other shipped YAMLs (S3DIS, Semantic3D,
+    Toronto3D, ParisLille3D), full width, seeded random weights: the
+    kernels at their two point counts (40,960 and 65,536) against their
+    plain versions; per YAML the fused forward at B = 4 (its launches
+    and median), the exact eval net at B = 1 against the CPU, and the
+    command line's train (with the TensorBoard events read back once) and
+    test on the reader's own files; one host-pyramid step at the S3DIS
+    YAML and one SparseConvUnet hash-path step at B = 2, each against the
+    CPU. Returns (the main paths' launches summed, {kernel: [records]},
+    the gather's and its backward's (label, record) pairs)."""
+    t_phase = time.perf_counter()
+    seconds = collections.Counter()
+    records = collections.defaultdict(list)
+    gathers, bwds = [], []
+    launches = collections.Counter()
+    checked = set()
+    for name in RC_CONFIGS:
+        model = randla_yaml(name)
+        n = model.cfg.num_points
+        if n not in checked:
+            checked.add(n)
+            t0 = time.perf_counter()
+            pts = rc_patch(model, RC_BATCH)["coords"].to(DEVICE)
+            recs, g, bw = _rc_kernels(model, pts)
+            for k, v in recs.items():
+                records[k] += v
+            gathers += g
+            bwds += bw
+            seconds["kernel checks"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fwd_launches, state = _rc_forward(name, model, card)
+        launches.update(fwd_launches)
+        seconds["forwards"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _rc_eval_vs_cpu(name, model, state, card)
+        seconds["eval vs CPU"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            cli_launches, tb_dir = _rc_cli(name, root, card)
+            launches.update(cli_launches)
+            seconds["command line"] += time.perf_counter() - t0
+            if name == "S3DIS":
+                t0 = time.perf_counter()
+                _rc_s3dis_extras(root, tb_dir)
+                seconds["events and host-pyramid step"] += (
+                    time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        loss, grad, stats, moved, cpu_s, gpu_s, branches = (
+            _scu_hash_step_vs_cpu(Path(tmp)))
+    say("randla_configs", f"SparseConvUnet hash-path train step (B="
+        f"{SCU_HASH_BATCH} x 65,536 of the 6 m room, float32): card vs CPU "
+        f"loss {loss:.3e}, gradients {grad:.3e}, BN running statistics "
+        f"{stats:.3e} relative L2 (moved {moved:.3e} by the step); card "
+        f"{gpu_s:.3f} s, CPU {cpu_s:.2f} s; {branches.total} ReLU choices "
+        f"replayed, {branches.differ} the CPU's own values would have made "
+        "otherwise")
+    if not (loss <= RC_LOSS_TOL and grad <= RC_TOL and stats <= RC_TOL):
+        raise AssertionError("randla_configs: SCU hash step card vs CPU "
+                             "past its bounds")
+    seconds["SCU hash step"] = time.perf_counter() - t0
+    say("randla_configs", f"phase {time.perf_counter() - t_phase:.1f} s: " +
+        ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return dict(launches), records, gathers, bwds
+
+
 # the sources ``--vs-parent`` builds from an earlier commit, where DIR
 # holds them
 PARENT_SOURCES = ("fps.cu", "nms_bev.cu", "trilinear_devoxelize.cu")
@@ -7754,6 +8434,11 @@ def main():
         phase_build()
         phase_pvcnn(card)
         return None
+    if sys.argv[1:] == ["--randla-configs"]:
+        card = phase_device()
+        phase_build()
+        phase_randla_configs(card)
+        return None
     if sys.argv[1:] == ["--pvcnn-profile"]:
         return pv_profile()
     card = phase_device()
@@ -7767,12 +8452,15 @@ def main():
     state = phase_eval(model, card)
     # knn_exact's launches are run_inference's, the main path of its slice
     launches["knn_exact"] = phase_inference(model, state, card)["knn_exact"]
+    yaml_launches, yaml_records, yaml_gathers, yaml_bwds = (
+        phase_randla_configs(card))
+    measured["bucket_knn"] = combine([knn] + yaml_records["bucket_knn"])
     (scu_launches, measured["stencil_conv"], measured["stencil_match"],
      scu_gathers, scu_bwds) = phase_scu(card)
     measured["bucket_gather"] = bucket_summary(
-        "bucket_gather", gathers + scu_gathers, "torch.gather")
+        "bucket_gather", gathers + yaml_gathers + scu_gathers, "torch.gather")
     measured["bucket_gather_bwd"] = bucket_summary(
-        "bucket_gather_bwd", bwds + scu_bwds, "scatter_add_")
+        "bucket_gather_bwd", bwds + yaml_bwds + scu_bwds, "scatter_add_")
     launches["stencil_conv"] = scu_launches["stencil_conv"]
     # stencil_match's launches are SCU training's, the main path of its
     # slice
@@ -7792,8 +8480,9 @@ def main():
     # PointTransformer forward's 26, one PointRCNN frame's 14 and its two
     # training steps' 12 and 14; its launches, run_inference's, the three
     # forwards' and the two steps'
-    measured["knn_exact"] = combine([measured["knn_exact"], pt_knn, rc_knn,
-                                     tr["knn_exact"]])
+    measured["knn_exact"] = combine([measured["knn_exact"],
+                                     *yaml_records["knn_exact"], pt_knn,
+                                     rc_knn, tr["knn_exact"]])
     trained = {k: sum(c[k] for c in tr_launches.values())
                for k in ("knn_exact", "fps", "nms_bev")}
     launches["knn_exact"] += (pt_launches["knn_exact"] +
@@ -7811,6 +8500,9 @@ def main():
     for name in ("trilinear_devoxelize", "trilinear_devoxelize_bwd",
                  "trilinear_devoxelize_plan"):
         launches[name] = pv_launches[name]
+    # the four other RandLA YAMLs' forwards and command-line runs
+    for name, n in yaml_launches.items():
+        launches[name] += n
     sources = {"bucket_knn": ("open3d_ml_tpu_torch/csrc/bucket_knn.cu",
                               f"{TPU_KERNELS}:261"),
                "bucket_gather": ("open3d_ml_tpu_torch/csrc/bucket_gather.cu",

@@ -12,8 +12,7 @@ pasted from a database that ``utils/collect_bboxes.py`` writes), in the
 JAX package's order and with its draws. Random steps draw from ``rng``, a
 ``numpy.random.Generator`` made from ``seed`` (a generator passed as the
 seed is used as it is, so the model's generator drives them), so one
-seed gives the JAX package's arrays. The one other augmentation of the
-JAX package, ``rotate`` with ``method="all"``, raises.
+seed gives the JAX package's arrays.
 """
 
 import pickle
@@ -23,6 +22,23 @@ import numpy as np
 
 from ..utils.operations import (box_collision_test, remove_points_in_boxes,
                                 sample_class)
+
+
+def _rotation_matrices(axes, angles):
+    """Rotation matrices [N, 3, 3] about unit axes [N, 3] by angles [N]
+    (Rodrigues' formula in float64, returned as float32)."""
+    axes = np.asarray(axes, np.float64).reshape(-1, 3)
+    angles = np.asarray(angles, np.float64).reshape(-1)
+    c = np.cos(angles)
+    s = np.sin(angles)
+    t = 1 - c
+    x, y, z = axes[:, 0], axes[:, 1], axes[:, 2]
+    rot = np.stack([
+        t * x * x + c, t * x * y - s * z, t * x * z + s * y,
+        t * x * y + s * z, t * y * y + c, t * y * z - s * x,
+        t * x * z - s * y, t * y * z + s * x, t * z * z + c
+    ], axis=-1).reshape(-1, 3, 3)
+    return rot.astype(np.float32)
 
 
 class Augmentation:
@@ -60,17 +76,26 @@ class Augmentation:
         return pc, feat
 
     def rotate(self, pc, cfg):
-        """Rotate about the vertical axis by a random angle
-        (``method="vertical"``, the only one ported)."""
+        """Rotate by a random angle about the vertical axis
+        (``method="vertical"``) or about a random axis (``method="all"``:
+        the axis's azimuth theta and elevation phi, then the angle alpha,
+        drawn in that order)."""
         if np.abs(pc[:, :2].mean()) > 1e-2:
             warnings.warn("Recenter pointcloud before calling rotate.")
         method = cfg.get("method", "vertical")
-        if method != "vertical":
-            raise NotImplementedError(f"rotate method {method!r} is not "
-                                      "ported; the port runs 'vertical'")
-        theta = self.rng.random() * 2 * np.pi
-        c, s = np.cos(theta), np.sin(theta)
-        rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+        if method == "vertical":
+            theta = self.rng.random() * 2 * np.pi
+            c, s = np.cos(theta), np.sin(theta)
+            rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+        elif method == "all":
+            theta = self.rng.random() * 2 * np.pi
+            phi = (self.rng.random() - 0.5) * np.pi
+            axis = np.array([np.cos(theta) * np.cos(phi),
+                             np.sin(theta) * np.cos(phi), np.sin(phi)])
+            alpha = self.rng.random() * 2 * np.pi
+            rot = _rotation_matrices(axis, alpha)[0]
+        else:
+            raise ValueError(f"Unsupported rotate method: {method}")
         return np.matmul(pc, rot)
 
     def scale(self, pc, cfg):

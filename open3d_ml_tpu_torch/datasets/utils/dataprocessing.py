@@ -1,11 +1,12 @@
 """Host-side data processing: the file readers of SemanticKITTI and
-Semantic3D, grid subsampling, class weights and the camera projections of
-KITTI frames.
+Semantic3D, grid subsampling, the exact host k-NN, class weights and the
+camera projections of KITTI frames.
 
 Counterpart of ``open3d_ml_tpu/datasets/utils/dataprocessing.py``
 ``DataProcessing.grid_subsampling``, whose body is the numpy sort-reduce of
 ``open3d_ml_tpu/ops/subsample.py`` (the same numpy operations in the same
-order give the same bits), ``get_class_weights``, ``load_pc_kitti``,
+order give the same bits), ``knn_search`` (on the port's own KD-tree,
+``native/``), ``get_class_weights``, ``load_pc_kitti``,
 ``load_label_kitti``, ``load_pc_semantic3d``, ``load_label_semantic3d``,
 and ``world2cam``, ``cam2img`` and ``remove_outside_points``. The
 matrices are [4, 4] in the row-vector convention (points [N, 4] @
@@ -13,6 +14,8 @@ matrix).
 """
 
 import numpy as np
+
+from ...native import NativeKDTree
 
 
 class DataProcessing:
@@ -66,6 +69,24 @@ class DataProcessing:
         if len(out) == 1:
             return out[0]
         return tuple(out)
+
+    @staticmethod
+    def knn_search(support_pts, query_pts, k):
+        """The exact k nearest support points of each query, nearest
+        first: [N2, k] int32 indices. Where fewer than k support points
+        exist, each row repeats its neighbours in turn.
+
+        It runs on the port's KD-tree (``native/``, built at first use);
+        where that cannot be built it raises.
+        """
+        support = np.asarray(support_pts, np.float32)
+        query = np.asarray(query_pts, np.float32)
+        kk = min(k, support.shape[0])
+        _, idx = NativeKDTree(support).query(query, k=kk)
+        idx = idx.reshape(query.shape[0], kk)
+        if kk < k:
+            idx = np.tile(idx, (1, -(-k // kk)))[:, :k]
+        return idx.astype(np.int32)
 
     @staticmethod
     def load_pc_kitti(pc_path):

@@ -15,6 +15,11 @@ neighbour paths share one ``state_dict``:
   whose first N // ratio points are each level's subsample; every read is
   an index gather.
 
+With ``knn_on_device=False`` both nets read the pyramid that ``transform``
+builds on the host (``coords_pyramid``, ``neighbor_indices``, ``sub_idx``,
+``interp_idx``: the JAX package's keys, one array a level) instead of
+searching, through the same index gathers as the exact path, in float32.
+
 Layout is channels-last [..., C], as in the JAX package. The parameter
 names follow the JAX variable tree (``utils/convert_jax.py`` maps one onto
 the other). BatchNorm (``_BatchNorm``) has flax's training semantics and
@@ -27,8 +32,9 @@ gathers round the values they read to bfloat16, as the TPU kernel did. The
 exact path computes in float32 whatever ``compute_dtype`` says, as the JAX
 net does off the fused path.
 
-The host side (``preprocess``, ``transform``, ``update_probs``) prepares
-patches for ``pipelines/semantic_segmentation.py``; ``get_loss`` and
+The host side (``preprocess``, ``transform``, with the host pyramid where
+``knn_on_device`` is False, ``update_probs``) prepares patches for
+``pipelines/semantic_segmentation.py``; ``get_loss`` and
 ``get_optimizer`` are the training step's loss and its Adam.
 """
 
@@ -59,9 +65,10 @@ KNN_METHODS = ("fused", "exact")
 
 
 def _dense(linear, x, dtype):
-    """``linear`` applied in ``dtype`` (float32 when None): inputs, weight
-    and bias are all cast to it, as flax's Dense does."""
-    dt = dtype or torch.float32
+    """``linear`` applied in ``dtype`` (when None, float32, or float64 for
+    a float64 input): inputs, weight and bias are all cast to it, as
+    flax's Dense does."""
+    dt = dtype or torch.promote_types(x.dtype, torch.float32)
     bias = None if linear.bias is None else linear.bias.to(dt)
     return F.linear(x.to(dt), linear.weight.to(dt), bias)
 
@@ -229,19 +236,25 @@ class RandLANetNet(nn.Module):
     returns logits [B, N, num_classes] in the caller's point order. On the
     fused path, eval mode takes the inference table budget
     (``infer_num_segs``, ``infer_gather_segs``; 0 keeps the training
-    budget); the exact path ignores the table knobs.
+    budget); the exact path ignores the table knobs. With
+    ``knn_on_device=False`` the inputs also hold the host-built pyramid
+    (per level [B, N_i, 3] ``coords_pyramid``, [B, N_i, K]
+    ``neighbor_indices``, [B, N_i / ratio, K] ``sub_idx``, [B, N_i, 1]
+    ``interp_idx``), which the net reads in float32 whatever
+    ``knn_method`` and ``compute_dtype`` say, as the JAX net does.
     """
 
     def __init__(self, num_neighbors, num_layers, num_classes, in_channels,
                  dim_features, dim_output, sub_sampling_ratio, seg, block,
                  num_segs, gather_segs, infer_num_segs, infer_gather_segs,
-                 compute_dtype, knn_method="fused"):
+                 compute_dtype, knn_method="fused", knn_on_device=True):
         super().__init__()
         if compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"compute_dtype {compute_dtype!r}")
         if knn_method not in KNN_METHODS:
             raise ValueError(f"knn_method {knn_method!r}")
         self.knn_method = knn_method
+        self.knn_on_device = knn_on_device
         self.num_neighbors = num_neighbors
         self.num_layers = num_layers
         self.sub_sampling_ratio = list(sub_sampling_ratio)
@@ -250,7 +263,7 @@ class RandLANetNet(nn.Module):
         self.infer_num_segs = infer_num_segs
         self.infer_gather_segs = infer_gather_segs
         # bf16 on the fused path only, as in the JAX net
-        self.round_bf16 = (knn_method == "fused" and
+        self.round_bf16 = (knn_on_device and knn_method == "fused" and
                            compute_dtype == "bfloat16")
         cdt = torch.bfloat16 if self.round_bf16 else None
         self.cdt = cdt
@@ -279,9 +292,22 @@ class RandLANetNet(nn.Module):
         self.dropout = _Dropout(0.5)
         self.fc1_3 = SharedMLP(32, num_classes, bn=False, slope=None)
 
-    def _levels(self, coords):
+    def _levels(self, coords, inputs=None):
         """(levels, perm): per-level neighbour contexts, and the Hilbert
-        permutation of the fused path (None on the exact path)."""
+        permutation of the fused path (None on the other paths); with
+        ``knn_on_device`` False, read from the host pyramid in
+        ``inputs``."""
+        if not self.knn_on_device:
+            inputs = inputs or {}
+            if "neighbor_indices" not in inputs:
+                raise ValueError("RandLANet with knn_on_device=False reads "
+                                 "the host-built pyramid from its inputs "
+                                 "(RandLANet.transform builds it)")
+            return [_IndexLevel(inputs["coords_pyramid"][i],
+                                inputs["neighbor_indices"][i],
+                                inputs["sub_idx"][i],
+                                inputs["interp_idx"][i][..., 0])
+                    for i in range(self.num_layers)], None
         if self.knn_method == "exact":
             pyr = build_knn_pyramid(coords, self.num_neighbors,
                                     self.sub_sampling_ratio)
@@ -302,7 +328,7 @@ class RandLANetNet(nn.Module):
         return levels, pyr["perm"].long()
 
     def forward(self, inputs):
-        levels, perm = self._levels(inputs["coords"])
+        levels, perm = self._levels(inputs["coords"], inputs)
         feat = inputs["features"]
         if perm is not None:
             # sorted order from here to the head
@@ -399,9 +425,9 @@ class RandLANet(BaseModel):
         the configured neighbour path (both share one ``state_dict``)."""
         cfg = self.cfg
         method = knn_method or cfg.knn_method
-        ported = {"knn_method": (method, KNN_METHODS),
-                  "knn_on_device": (cfg.get("knn_on_device", True), (True,))}
-        if method == "fused":
+        on_device = cfg.get("knn_on_device", True)
+        ported = {"knn_method": (method, KNN_METHODS)}
+        if method == "fused" and on_device:
             ported.update({key: (cfg.get(key, value), (value,))
                            for key, value in _FUSED_ONLY.items()})
         for key, (value, allowed) in ported.items():
@@ -424,7 +450,8 @@ class RandLANet(BaseModel):
             infer_num_segs=cfg.get("infer_num_segs", 0),
             infer_gather_segs=cfg.get("infer_gather_segs", 0),
             compute_dtype=cfg.compute_dtype,
-            knn_method=method)
+            knn_method=method,
+            knn_on_device=on_device)
 
     def get_eval_net(self):
         """The evaluation net: exact neighbours unless ``eval_knn_method``
@@ -503,7 +530,11 @@ class RandLANet(BaseModel):
         """Draw a patch of ``num_points`` with ``trans_point_sampler``,
         recentre and normalise it, augment it on the training split, and
         build the network's inputs (features are the coordinates, then the
-        cloud's own features)."""
+        cloud's own features). With ``knn_on_device`` False they also hold
+        the k-NN pyramid of the augmented patch, built on the host: at each
+        level the points' k nearest, the first N // ratio points as the
+        subsample with their neighbour lists as pool indices, and each
+        point's nearest subsample point."""
         cfg = self.cfg
         rng = rng or self.rng
         pc = data["point"].copy()
@@ -532,10 +563,29 @@ class RandLANet(BaseModel):
         if cfg.in_channels != feat.shape[1]:
             raise RuntimeError(
                 "Wrong feature dimension; set in_channels = 3 + feat dims")
-        return {"coords": pc.astype(np.float32),
-                "features": feat.astype(np.float32),
-                "labels": label.astype(np.int32),
-                "point_inds": np.asarray(selected_idxs, np.int32)}
+        inputs = {"coords": pc.astype(np.float32),
+                  "features": feat.astype(np.float32),
+                  "labels": label.astype(np.int32),
+                  "point_inds": np.asarray(selected_idxs, np.int32)}
+        if not cfg.get("knn_on_device", True):
+            inputs.update(self._host_pyramid(pc))
+        return inputs
+
+    def _host_pyramid(self, pc):
+        """The k-NN pyramid of ``pc`` [N, 3], one array a level under the
+        JAX package's keys."""
+        cfg = self.cfg
+        pyr = {"coords_pyramid": [], "neighbor_indices": [], "sub_idx": [],
+               "interp_idx": []}
+        for ratio in cfg.sub_sampling_ratio[:cfg.num_layers]:
+            nbr = DataProcessing.knn_search(pc, pc, cfg.num_neighbors)
+            sub = pc[:pc.shape[0] // ratio]
+            pyr["coords_pyramid"].append(pc.astype(np.float32))
+            pyr["neighbor_indices"].append(nbr)
+            pyr["sub_idx"].append(nbr[:sub.shape[0]])
+            pyr["interp_idx"].append(DataProcessing.knn_search(sub, pc, 1))
+            pc = sub
+        return pyr
 
     def update_probs(self, inputs, results, test_probs):
         """Blend each patch's class probabilities into the cloud's

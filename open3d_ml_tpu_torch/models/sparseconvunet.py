@@ -12,10 +12,12 @@ execution paths share one ``state_dict``:
   convolution is one ``stencil_conv`` call (``ops/cuda/stencil.py``) over
   block tables from ``ops/sparse_bucket.py``: 39 calls per forward at 7
   levels with one block a level.
-* ``conv_method="hash"`` (``get_eval_net``): one sample at a time, with
-  sort + ``searchsorted`` rulebooks and gather-GEMM convolutions
-  (``ops/sparse.py``), in float32: the reference-exact twin, which does not
-  depend on the tables' segment budget.
+* ``conv_method="hash"`` (``get_eval_net``): sort + ``searchsorted``
+  rulebooks and gather-GEMM convolutions (``ops/sparse.py``), in float32:
+  the reference-exact twin, which does not depend on the tables' segment
+  budget. The rulebooks are each sample's; the features of all samples lie
+  one after another in one [B * V, C] tensor, the rulebooks' indices
+  offset to their sample's rows.
 
 The parameter names follow the JAX variable tree (``utils/convert_jax.py``
 maps one onto the other); stencil weights are [K, Cin, Cout] with the taps
@@ -29,13 +31,14 @@ counts of its last forward in ``overflow`` (device tensors, read without a
 synchronisation inside ``forward``) and logs the JAX package's warning when
 one is not 0 and ``warn_on_overflow`` is set.
 
-Training runs on the stencil path: BatchNorm takes the masked statistics
-of the whole [B, V] batch, and each ``stencil_conv`` whose values or weight
-need a gradient goes through ``StencilConv`` (the rulebook, the bucket
-gather and its backward). The hash path runs one sample at a time, so its
-batch statistics would be per sample where the JAX net's are the batch's:
-it raises in train mode. ``get_loss`` and ``get_optimizer`` are the
-training step's loss and its Adam.
+Training runs on both paths. On the stencil path each ``stencil_conv``
+whose values or weight need a gradient goes through ``StencilConv`` (the
+rulebook, the bucket gather and its backward); on the hash path autograd
+differentiates the gathers and products. Either way each BatchNorm sees
+the sites of every sample at once, so its train-mode statistics pool the
+count, sum and sum of squares of the whole batch, as the JAX hash net's
+``psum`` over its vmapped samples does. ``get_loss`` and ``get_optimizer``
+are the training step's loss and its Adam.
 """
 
 import logging
@@ -87,7 +90,7 @@ class SubmanifoldConv(nn.Module):
     """3x3x3 submanifold convolution: the same active sites in and out.
 
     ``ctx`` is a ``StencilCtx`` (stencil path, [B, V, C] features) or a
-    [V, K] rulebook (hash path, one sample); the weight [K, Cin, Cout] and
+    [B * V, K] rulebook (hash path, [B * V, C] features); the weight [K, Cin, Cout] and
     the tap order are the same on both.
     """
 
@@ -230,18 +233,9 @@ class SparseConvUnetNet(nn.Module):
         if self.conv_method == "bucket":
             logits, counters = self._forward_bucket(points, inputs["feat"],
                                                     pmask)
-        elif self.training:
-            raise NotImplementedError(
-                "SparseConvUnet hash path in train mode: it runs one sample "
-                "at a time, so its BatchNorm statistics would be per sample; "
-                "train on the stencil path (conv_method='bucket')")
         else:
-            outs = [self._forward_hash(points[i], inputs["feat"][i],
-                                       pmask[i])
-                    for i in range(points.shape[0])]
-            logits = torch.stack([o[0] for o in outs])
-            counters = {name: torch.stack([o[1][name] for o in outs])
-                        for name in outs[0][1]}
+            logits, counters = self._forward_hash(points, inputs["feat"],
+                                                  pmask)
         self._note_overflow(counters)
         return logits
 
@@ -356,56 +350,89 @@ class SparseConvUnetNet(nn.Module):
 
     # ------------------------------------------------------------- hash path
 
+    @staticmethod
+    def _rows(tables, v):
+        """Per-sample index tables (entries in [0, v], v = missing) as one
+        table over the batch's rows: sample i's entries offset by i * v,
+        and every missing entry b * v, the batch's missing row."""
+        b = len(tables)
+        return torch.cat([torch.where(t < v, t + i * v, b * v)
+                          for i, t in enumerate(tables)])
+
     def _forward_hash(self, points, feat_in, pmask):
-        """One sample: ([N, num_classes] logits, its counters)."""
+        """The batch's sites, sample after sample in one [B * V, .] set:
+        ([B, N, num_classes] logits, {name: [B] counters})."""
+        b, _, c = feat_in.shape
         cap = self.max_voxels
-        c = feat_in.shape[1]
-        vd = voxelize(points, (1.0, 1.0, 1.0), (0.0, 0.0, 0.0),
-                      (1024.0, 1024.0, 1024.0), cap, 1024 // 8,
-                      points_mask=pmask)
-        coords, mask = vd.coords, vd.voxel_mask
-        point_site = vd.point_to_voxel.long()
-        valid_pt = (point_site < cap) & pmask
-        counters = {"voxel_overflow_points":
-                    (pmask & ~valid_pt).sum().to(torch.int32)}
-        fsum = feat_in.new_zeros((cap + 1, c)).index_add_(
-            0, point_site, torch.where(valid_pt[:, None], feat_in, 0.0))
-        cnt = feat_in.new_zeros((cap + 1,)).index_add_(
+        coords, masks, sites, counters = [], [], [], []
+        for i in range(b):
+            vd = voxelize(points[i], (1.0, 1.0, 1.0), (0.0, 0.0, 0.0),
+                          (1024.0, 1024.0, 1024.0), cap, 1024 // 8,
+                          points_mask=pmask[i])
+            coords.append(vd.coords)
+            masks.append(vd.voxel_mask)
+            sites.append(vd.point_to_voxel.long())
+            valid_pt = (sites[i] < cap) & pmask[i]
+            counters.append({"voxel_overflow_points":
+                             (pmask[i] & ~valid_pt).sum().to(torch.int32)})
+        point_site = self._rows(sites, cap)
+        valid_pt = (point_site < b * cap) & pmask.reshape(-1)
+        feat_flat = feat_in.reshape(-1, c)
+        fsum = feat_in.new_zeros((b * cap + 1, c)).index_add_(
+            0, point_site, torch.where(valid_pt[:, None], feat_flat, 0.0))
+        cnt = feat_in.new_zeros((b * cap + 1,)).index_add_(
             0, point_site, valid_pt.to(feat_in.dtype))
-        feat = fsum[:cap] / torch.clamp(cnt[:cap], min=1.0)[:, None]
-        rulebook = build_rulebook(coords, mask, _OFFS27)
+        feat = fsum[:-1] / torch.clamp(cnt[:-1], min=1.0)[:, None]
+        mask = torch.cat(masks)
+        rulebook = self._rows([build_rulebook(xyz, m, _OFFS27)
+                               for xyz, m in zip(coords, masks)], cap)
         feat = self.input_conv(feat, rulebook, mask)
-        feat = self._u_hash(0, feat, coords, mask, rulebook, counters)
+        feat = self._u_hash(0, feat, coords, masks, rulebook, counters)
         logits = self._head(feat, mask)
         logits = torch.cat([logits, logits.new_zeros((1, logits.shape[1]))])
-        return logits[point_site], counters
+        logits = logits[point_site].reshape(b, -1, logits.shape[1])
+        return logits, {name: torch.stack([cn[name] for cn in counters])
+                        for name in counters[0]}
 
-    def _u_hash(self, level, feat, coords, mask, rulebook, counters):
+    def _u_hash(self, level, feat, coords, masks, rulebook, counters):
+        """One level of the U over the batch's sites: ``coords`` and
+        ``masks`` are each sample's [V, 3] and [V], ``feat`` [B * V, C] and
+        ``rulebook`` [B * V, 27] the batch's."""
         cdt = self.compute_dtype
+        mask = torch.cat(masks)
         feat = self._blocks("block", level, feat, rulebook, mask)
         if level == self.num_levels - 1:
             return feat
         x = F.relu(getattr(self, f"l{level}_down_bn")(feat, mask))
-        dcap = self.caps[level + 1]
-        pcoords, pmask, parent_idx, off_idx = downsample_sites(coords, mask,
-                                                               dcap)
-        counters[f"l{level}_down_overflow_children"] = (
-            mask & (parent_idx == dcap)).sum().to(torch.int32)
-        # each parent reads its children at 2 * p + {0, 1}^3
-        offs8 = torch.as_tensor(_OFFS8, device=coords.device)
-        child_q = pcoords[:, None, :] * 2 + offs8[None]
-        child_idx, _ = SiteHash(coords, mask).lookup(
-            child_q.reshape(-1, 3), pmask.repeat_interleave(8))
-        x_down = apply_sparse_conv(x, child_idx.reshape(-1, 8),
+        v, dcap = coords[0].shape[0], self.caps[level + 1]
+        offs8 = torch.as_tensor(_OFFS8, device=feat.device)
+        pcoords, pmasks, parents, child_offs, children = [], [], [], [], []
+        for i, (xyz, m) in enumerate(zip(coords, masks)):
+            pc, pm, parent_idx, off_idx = downsample_sites(xyz, m, dcap)
+            counters[i][f"l{level}_down_overflow_children"] = (
+                m & (parent_idx == dcap)).sum().to(torch.int32)
+            # each parent reads its children at 2 * p + {0, 1}^3
+            child_q = pc[:, None, :] * 2 + offs8[None]
+            child_idx, _ = SiteHash(xyz, m).lookup(child_q.reshape(-1, 3),
+                                                   pm.repeat_interleave(8))
+            pcoords.append(pc)
+            pmasks.append(pm)
+            parents.append(parent_idx)
+            child_offs.append(off_idx)
+            children.append(child_idx.reshape(-1, 8))
+        pmask = torch.cat(pmasks)
+        x_down = apply_sparse_conv(x, self._rows(children, v),
                                    getattr(self, f"l{level}_down_kernel"),
                                    out_mask=pmask, compute_dtype=cdt)
-        p_rb = build_rulebook(pcoords, pmask, _OFFS27)
-        x_deep = self._u_hash(level + 1, x_down, pcoords, pmask, p_rb,
+        p_rb = self._rows([build_rulebook(xyz, m, _OFFS27)
+                           for xyz, m in zip(pcoords, pmasks)], dcap)
+        x_deep = self._u_hash(level + 1, x_down, pcoords, pmasks, p_rb,
                               counters)
         y = F.relu(getattr(self, f"l{level}_up_bn")(x_deep, pmask))
         y_up = apply_sparse_conv_transpose(
-            y, parent_idx, off_idx, getattr(self, f"l{level}_up_kernel"),
-            out_mask=mask, compute_dtype=cdt)
+            y, self._rows(parents, dcap), torch.cat(child_offs),
+            getattr(self, f"l{level}_up_kernel"), out_mask=mask,
+            compute_dtype=cdt)
         return self._blocks("post", level, torch.cat([feat, y_up], -1),
                             rulebook, mask)
 

@@ -68,24 +68,29 @@ def build_rulebook(coords, mask, offsets, *, site_hash=None):
 
 
 def _cast(features, weights, compute_dtype):
+    """(features, weights) rounded to ``compute_dtype`` where given, and
+    the type the product sums in: float32, or float64 for float64
+    features."""
+    acc = torch.promote_types(features.dtype, torch.float32)
     if compute_dtype is None:
-        return features, weights
-    return features.to(compute_dtype), weights.to(compute_dtype)
+        return features, weights, acc
+    return features.to(compute_dtype), weights.to(compute_dtype), acc
 
 
 def apply_sparse_conv(features, rulebook, weights, *, out_mask=None,
                       normalize=False, compute_dtype=None):
-    """Gather-GEMM sparse convolution: [V_out, Cout] float32 from features
-    [V_in, Cin], the rulebook [V_out, K] (V_in = missing) and weights
-    [K, Cin, Cout]. ``compute_dtype`` rounds features and weights to it
-    before the product, whose sums stay float32; ``normalize`` divides by
-    the count of present taps; ``out_mask`` zeroes padded rows."""
+    """Gather-GEMM sparse convolution: [V_out, Cout] float32 (float64 for
+    float64 features) from features [V_in, Cin], the rulebook [V_out, K]
+    (V_in = missing) and weights [K, Cin, Cout]. ``compute_dtype`` rounds
+    features and weights to it before the product, whose sums stay
+    float32; ``normalize`` divides by the count of present taps;
+    ``out_mask`` zeroes padded rows."""
     v_in = features.shape[0]
     k, cin, cout = weights.shape
-    features, weights = _cast(features, weights, compute_dtype)
-    feats = torch.cat([features, features.new_zeros((1, cin))]).float()
+    features, weights, acc = _cast(features, weights, compute_dtype)
+    feats = torch.cat([features, features.new_zeros((1, cin))]).to(acc)
     gathered = feats[rulebook]  # [V_out, K, Cin]
-    out = gathered.reshape(-1, k * cin) @ weights.float().reshape(k * cin,
+    out = gathered.reshape(-1, k * cin) @ weights.to(acc).reshape(k * cin,
                                                                   cout)
     if normalize:
         cnt = (rulebook < v_in).sum(1, keepdim=True)
@@ -135,14 +140,16 @@ def apply_sparse_conv_transpose(coarse_features, parent_idx, child_off_idx,
                                 compute_dtype=None):
     """Stride-2 kernel-2 transpose convolution: each fine site reads its
     parent's row (``parent_idx``, V_coarse = missing) through the weight
-    slice ``weights[child_off_idx]``. [V_fine, Cout] float32."""
+    slice ``weights[child_off_idx]``. [V_fine, Cout] float32 (float64 for
+    float64 features)."""
     cin = coarse_features.shape[1]
     k, _, cout = weights.shape
-    coarse_features, weights = _cast(coarse_features, weights, compute_dtype)
+    coarse_features, weights, acc = _cast(coarse_features, weights,
+                                          compute_dtype)
     feats = torch.cat([coarse_features,
-                       coarse_features.new_zeros((1, cin))]).float()
+                       coarse_features.new_zeros((1, cin))]).to(acc)
     gathered = feats[parent_idx]  # [V_fine, Cin]
-    outs = torch.einsum("vc,kco->vko", gathered, weights.float())
+    outs = torch.einsum("vc,kco->vko", gathered, weights.to(acc))
     out = torch.gather(outs, 1, child_off_idx.long()[:, None, None].expand(
         -1, 1, cout))[:, 0]
     if out_mask is not None:

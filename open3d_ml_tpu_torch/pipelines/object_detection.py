@@ -10,7 +10,11 @@ Counterpart of ``open3d_ml_tpu/pipelines/object_detection.py``:
   per-point labels or roi targets, on the device), the backward and one
   AdamW step (``get_optimizer``: PointRCNN's moves one stage; no
   gradient clipping, as the JAX pipeline has none); the epoch's mean
-  losses to the log; ``run_valid`` every ``validation_freq`` epochs;
+  losses to the log and, as ``train/<loss>``, to a TensorBoard writer
+  (``BasePipeline._make_writer``: ``<train_sum_dir>/<run id>_<model>_
+  <dataset>_torch``, with the command line and the configuration as
+  text); ``run_valid`` every ``validation_freq`` epochs, its mAP also to
+  the writer as ``valid/mAP_BEV`` and ``valid/mAP_3D``;
   checkpoints every ``save_ckpt_freq`` epochs and at the last. A resume
   restores the weights and the BatchNorm statistics of the newest
   checkpoint and starts AdamW afresh, as the JAX pipeline does (it saves
@@ -37,8 +41,7 @@ stage-1 checkpoint (``models/point_rcnn.py`` ``HANDOFF_FAULT``, as in
 JAX): give it the RPN's weights with ``net.load_state_dict(state,
 strict=False)`` and a log directory of its own.
 
-Not ported: the TensorBoard writer (the epoch's scalars go to the log),
-and reading the JAX package's orbax checkpoints.
+Not ported: reading the JAX package's orbax checkpoints.
 """
 
 import logging
@@ -151,6 +154,14 @@ class ObjectDetection(BasePipeline):
         first_epoch = self.load_ckpt(model.cfg.get("ckpt_path"),
                                      is_resume=model.cfg.get("is_resume",
                                                              True))
+        writer = self._make_writer()
+        try:
+            self._epochs(first_epoch, steps, writer)
+        finally:
+            writer.close()
+
+    def _epochs(self, first_epoch, steps, writer):
+        cfg = self.cfg
         log.info("Started training")
         for epoch in range(first_epoch, cfg.max_epoch + 1):
             log.info(f"=== EPOCH {epoch:d}/{cfg.max_epoch:d} ===")
@@ -162,17 +173,19 @@ class ObjectDetection(BasePipeline):
                 for key, value in zip(losses, values):
                     self.losses.setdefault(key, []).append(value)
             for key, values in self.losses.items():
+                writer.add_scalar(f"train/{key}", float(np.mean(values)),
+                                  epoch)
                 log.info(f"{key}: {np.mean(values):.4f}")
             if epoch % cfg.get("validation_freq", 1) == 0:
-                self.run_valid(epoch)
+                self.run_valid(epoch, writer=writer)
             if epoch % cfg.save_ckpt_freq == 0 or epoch == cfg.max_epoch:
                 self.save_ckpt(epoch)
 
-    def run_valid(self, epoch=0):
+    def run_valid(self, epoch=0, writer=None):
         """The mAP (BEV and 3D) of the validation split at the config's
-        ``overlaps``, ``difficulties`` and ``similar_classes``; returns
-        (ap_bev, ap_3d), each [num_classes, num_difficulties, 1], or None
-        for an empty split."""
+        ``overlaps``, ``difficulties`` and ``similar_classes``, also to
+        ``writer`` where given; returns (ap_bev, ap_3d), each
+        [num_classes, num_difficulties, 1], or None for an empty split."""
         model, cfg = self.model, self.cfg
         self.eval_net.load_state_dict(self.net.state_dict())
         pred, gt = [], []
@@ -195,6 +208,9 @@ class ObjectDetection(BasePipeline):
             for i, c in enumerate(model.classes):
                 log.info(f"{c}: {ap[i].mean():.2f}")
             log.info(f"Overall: {ap.mean():.2f}")
+        if writer is not None:
+            writer.add_scalar("valid/mAP_BEV", float(ap_bev.mean()), epoch)
+            writer.add_scalar("valid/mAP_3D", float(ap_3d.mean()), epoch)
         self.valid_map_bev = float(ap_bev.mean())
         self.valid_map_3d = float(ap_3d.mean())
         return ap_bev, ap_3d

@@ -9,7 +9,13 @@ Counterpart of ``open3d_ml_tpu/pipelines/semantic_segmentation.py``:
   backward, the optional clip by value, the optimizer's step (the
   model's ``get_optimizer``), the scheduler step and the step's
   confusion matrix counted on the device; then validation through the
-  same net in eval mode (the inference budget); scalars to the log;
+  same net in eval mode (the inference budget); each epoch's six scalars
+  (the JAX package's tags: loss, accuracy and IoU, training and
+  validation) to the log and to a TensorBoard writer in
+  ``<train_sum_dir>/<run id>_<model>_<dataset>_torch``, which also holds
+  the command line and the configuration as text and, where the
+  ``summary`` config's ``record_for`` names "train", the first batch's
+  clouds coloured by the net's labels each epoch (``summaries.py``);
   checkpoints every ``save_ckpt_freq`` epochs and at the last, and resume
   from the newest one.
 * ``run_test`` and ``run_inference``: the possibility-map patch loop,
@@ -28,8 +34,7 @@ where the net has a dropout; load trained weights with
 
 Checkpoints are ``torch.save`` files ``<logs_dir>/checkpoint/
 ckpt_{epoch:05d}.pth`` of {"model", "optimizer", "scheduler", "epoch"}.
-Not ported: the TensorBoard writer and summaries, and reading the JAX
-package's orbax checkpoints.
+Not ported: reading the JAX package's orbax checkpoints.
 """
 
 import logging
@@ -48,6 +53,7 @@ from ..modules.metrics import SemSegMetric, confusion_matrix_device
 from ..utils import make_dir
 from ..utils.registry import PIPELINE
 from .base_pipeline import BasePipeline
+from .summaries import record_summary
 
 log = logging.getLogger(__name__)
 
@@ -206,39 +212,63 @@ class SemanticSegmentation(BasePipeline):
             # an epoch draws len(split) patches, cycling over the clouds
             # (the JAX package's sampler stops after one pass over them)
             split.sampler.initialize_with_dataloader(split)
-        batcher = DefaultBatcher()
         # the schedule decays once per epoch of optimizer steps
         cfg["steps_per_epoch"] = max(len(train_split) // cfg.batch_size, 1)
         self.optimizer, self.scheduler = model.get_optimizer(cfg, self.net)
         first_epoch = self.load_ckpt(model.cfg.get("ckpt_path"),
                                      is_resume=model.cfg.get("is_resume",
                                                              True))
+        writer = self._make_writer()
+        try:
+            self._epochs(first_epoch, train_split, valid_split, loss_fn,
+                         writer)
+        finally:
+            writer.close()
 
+    def _epochs(self, first_epoch, train_split, valid_split, loss_fn,
+                writer):
+        model, cfg = self.model, self.cfg
+        batcher = DefaultBatcher()
+        record_for = (cfg.get("summary") or {}).get("record_for") or []
         log.info("Started training")
         for epoch in range(first_epoch, cfg.max_epoch + 1):
             log.info(f"=== EPOCH {epoch:d}/{cfg.max_epoch:d} ===")
             self.metric_train.reset()
             self.metric_val.reset()
             self.losses, self.valid_losses = [], []
-            for split, bs, step, metric, losses in (
+            for split, bs, step, metric, losses, record in (
                     (train_split, cfg.batch_size, self._train_step,
-                     self.metric_train, self.losses),
+                     self.metric_train, self.losses, "train" in record_for),
                     (valid_split, cfg.val_batch_size, self._eval_step,
-                     self.metric_val, self.valid_losses)):
+                     self.metric_val, self.valid_losses, False)):
                 model.trans_point_sampler = split.sampler.get_point_sampler()
                 loader = BatchLoader(split, bs, batcher,
                                      num_workers=cfg.get("num_workers", 2),
                                      sampler=split.sampler, drop_last=True)
-                for batch in loader:
-                    loss, cm = step(self._device_batch(batch), loss_fn)
+                for i, batch in enumerate(loader):
+                    inputs = self._device_batch(batch)
+                    loss, cm = step(inputs, loss_fn)
                     metric.update_cm(cm)
                     losses.append(float(loss))
-            self.save_logs(epoch)
+                    if i == 0 and record:
+                        self._record_train(writer, batch, inputs, epoch)
+            self.save_logs(writer, epoch)
             if epoch % cfg.save_ckpt_freq == 0 or epoch == cfg.max_epoch:
                 self.save_ckpt(epoch)
 
-    def save_logs(self, epoch):
-        """Log the epoch's mean losses, accuracy and IoU."""
+    def _record_train(self, writer, batch, inputs, epoch):
+        """The summary of the epoch's first training batch: its clouds
+        coloured by the updated net's labels in eval mode."""
+        self.net.eval()
+        with torch.no_grad():
+            results = self.net(inputs).cpu().numpy()
+        record_summary(writer, self.cfg.get("summary"), "train", "semseg",
+                       batch["data"], results, epoch,
+                       getattr(self.dataset, "label_to_names", None))
+
+    def save_logs(self, writer, epoch):
+        """The epoch's mean losses, and the last accuracy and IoU of its
+        confusion matrices, to ``writer`` (NaN as 0) and to the log."""
         train_acc, val_acc = self.metric_train.acc(), self.metric_val.acc()
         train_iou, val_iou = self.metric_train.iou(), self.metric_val.iou()
 
@@ -248,6 +278,14 @@ class SemanticSegmentation(BasePipeline):
         def mean(values):
             return np.mean(values) if values else 0.0
 
+        scalars = {"Training loss": mean(self.losses),
+                   "Validation loss": mean(self.valid_losses),
+                   "Training accuracy": last(train_acc),
+                   "Validation accuracy": last(val_acc),
+                   "Training IoU": last(train_iou),
+                   "Validation IoU": last(val_iou)}
+        for tag, value in scalars.items():
+            writer.add_scalar(tag, float(np.nan_to_num(value)), epoch)
         log.info(f"Epoch {epoch}: loss train: {mean(self.losses):.3f} "
                  f"eval: {mean(self.valid_losses):.3f}")
         log.info(f"Epoch {epoch}: mean acc train: {last(train_acc):.3f} "

@@ -114,9 +114,11 @@ def test_training_augmentations_equal():
         SemsegAugmentation(hue, seed=8).augment(pc, colours.copy(), None,
                                                 hue)[1],
         JaxAugment(hue, seed=8).augment(pc, colours.copy(), None, hue)[1])
-    with pytest.raises(NotImplementedError, match="all"):
-        SemsegAugmentation({}).augment(pc, None, None,
-                                       {"rotate": {"method": "all"}})
+    every = {"rotate": {"method": "all"}}
+    np.testing.assert_array_equal(
+        SemsegAugmentation(every, seed=9).augment(pc.copy(), None, None,
+                                                  every)[0],
+        JaxAugment(every, seed=9).augment(pc.copy(), None, None, every)[0])
 
 
 def test_training_transform_equal():

@@ -116,8 +116,14 @@ def test_eval_knn_method_selects_the_path():
     assert fused.knn_method == "fused" and fused.round_bf16
     with pytest.raises(NotImplementedError, match="knn_method"):
         RandLANet(eval_knn_method="approx", **SMALL).get_eval_net()
-    with pytest.raises(NotImplementedError, match="knn_on_device"):
-        RandLANet(knn_on_device=False, **SMALL).get_eval_net()
+    # the host pyramid: the exact path's index gathers, in float32, fed
+    # from the inputs (held to JAX in tests/test_torch_randla_configs.py)
+    host = RandLANet(knn_on_device=False, **SMALL).get_eval_net()
+    assert host.knn_method == "exact" and not host.knn_on_device
+    assert not RandLANet(knn_on_device=False, **SMALL).get_net().round_bf16
+    with pytest.raises(ValueError, match="host-built pyramid"):
+        host({"coords": torch.zeros(1, N, 3),
+              "features": torch.zeros(1, N, 3)})
     # the fused path's knobs do not bind the exact path
     assert RandLANet(up_mode="search", **SMALL).get_eval_net()
 
@@ -155,9 +161,11 @@ def test_augment_recenter_normalize_equal():
     want = JaxAugment(cfg).augment(pc.copy(), feat.copy(), None, cfg)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
-    with pytest.raises(NotImplementedError, match="all"):
-        SemsegAugmentation({}).augment(pc, feat, None,
-                                       {"rotate": {"method": "all"}})
+    every = {"rotate": {"method": "all"}}
+    np.testing.assert_array_equal(
+        SemsegAugmentation({}, seed=4).augment(pc.copy(), feat, None,
+                                               every)[0],
+        JaxAugment({}, seed=4).augment(pc.copy(), feat, None, every)[0])
 
 
 def _cloud(n=1000, seed=7):

@@ -307,15 +307,22 @@ def test_update_probs_matches_jax():
 
 def test_training_split_augmentation_is_not_ported():
     """The shipped recipe runs on the training split (bit-equal to the JAX
-    package's: tests/test_torch_scu_train.py); the one augmentation still
-    unported, ``rotate`` with ``method="all"``, raises there."""
+    package's: tests/test_torch_scu_train.py), and so does it with
+    ``rotate`` about a random axis (``method="all"``): the same seed gives
+    the JAX package's sites, features and labels."""
     data = {"point": np.random.default_rng(0).uniform(0, 2, (50, 3)),
             "feat": np.full((50, 3), 100.0, np.float32)}
     out = SparseConvUnet(seed=1).preprocess(data, {"split": "train"})
     assert 0 < len(out["point"]) <= 50
     augment = dict(SparseConvUnet().cfg.augment, rotate={"method": "all"})
-    with pytest.raises(NotImplementedError, match="all"):
-        SparseConvUnet(augment=augment).preprocess(data, {"split": "train"})
+    got = SparseConvUnet(augment=augment, seed=1).preprocess(
+        data, {"split": "train"})
+    want = JaxSparseConvUnet(augment=augment, seed=1,
+                             voxel_size=SparseConvUnet().cfg.voxel_size
+                             ).preprocess(data, {"split": "train"})
+    assert set(got) == set(want)
+    for key in got:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 def test_defaults_equal_shipped_yaml():

@@ -522,12 +522,108 @@ def test_new_modules_import_no_jax():
                    timeout=120)
 
 
-def test_hash_path_refuses_train_mode():
-    model = SparseConvUnet(compute_dtype="float32", **SMALL)
-    net = model.get_eval_net().train()
-    batch = {k: torch.from_numpy(v) for k, v in _scu_batch(1, b=1).items()}
-    with pytest.raises(NotImplementedError, match="hash path in train"):
-        net(batch)
+def _hash_steps(cfg, variables, batch, dtype):
+    """One train-mode step of the hash net (``get_eval_net``, the JAX
+    package's ``_SCUBatcher`` over the vmapped per-sample net) in both
+    packages from the same variables, in ``dtype``: ({"logits", "loss",
+    "grads", "stats"} of JAX, the same of the port)."""
+    f64 = dtype == np.float64
+    jm = JaxSparseConvUnet(compute_dtype="float32", **cfg)
+    jnet = jm.get_eval_net()
+    data = types.SimpleNamespace(
+        cfg=JaxConfig({"class_weights": CLASS_COUNTS}))
+    with jax.enable_x64(f64):
+        cast = lambda t: jax.tree.map(lambda v: jnp.asarray(v, dtype), t)
+        params, stats = cast(variables["params"]), cast(
+            variables["batch_stats"])
+        jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+        jbatch["feat"] = jbatch["feat"].astype(dtype)
+        loss_obj = JaxSemSegLoss(None, jm, data)
+
+        def loss_fn(params):
+            out, upd = jnet.apply(
+                {"params": params, "batch_stats": stats}, jbatch,
+                training=True, mutable=["batch_stats", "intermediates"])
+            return jm.get_loss(loss_obj, out, jbatch)[0], (
+                upd["batch_stats"], out)
+
+        (loss, (new_stats, logits)), grads = jax.jit(jax.value_and_grad(
+            loss_fn, has_aux=True))(params)
+        tree = jax.tree.map(lambda v: np.asarray(v, np.float64),
+                            {"grads": grads, "stats": new_stats})
+    ref = {"logits": np.asarray(logits, np.float64), "loss": float(loss),
+           "grads": jax_to_state_dict({"params": tree["grads"]}),
+           "stats": jax_to_state_dict({"batch_stats": tree["stats"]})}
+
+    model = SparseConvUnet(compute_dtype="float32", **cfg)
+    net = load_jax_variables(model.get_eval_net(), variables).train()
+    inputs = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if f64:
+        net = net.double()
+        inputs["feat"] = inputs["feat"].double()
+    loss_obj = SemSegLoss(None, model, types.SimpleNamespace(
+        cfg=Config({"class_weights": CLASS_COUNTS})))
+    loss_obj.class_weights = loss_obj.class_weights.to(inputs["feat"].dtype)
+    logits = net(inputs)
+    loss = model.get_loss(loss_obj, logits, inputs)[0]
+    loss.backward()
+    got = {"logits": logits.detach().double().numpy(),
+           "loss": float(loss.detach()),
+           "grads": {n: p.grad.double().numpy()
+                     for n, p in net.named_parameters()},
+           "stats": {k: v.double().numpy()
+                     for k, v in net.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}}
+    return ref, got
+
+
+def _hash_step_apart(ref, got):
+    """The relative L2 distances of the logits, the gradients (all in one)
+    and the running statistics (each tensor), and the loss's relative
+    difference."""
+    assert set(got["grads"]) == set(ref["grads"])
+    assert set(got["stats"]) == set(ref["stats"]) and got["stats"]
+    keys = sorted(got["grads"])
+    flat = lambda d: np.concatenate([np.asarray(d[k]).ravel() for k in keys])
+    stats = max(_rel_l2(got["stats"][k], ref["stats"][k].numpy())
+                for k in got["stats"])
+    return {"logits": _rel_l2(got["logits"], ref["logits"]),
+            "grads": _rel_l2(flat(got["grads"]),
+                             flat({k: v.numpy()
+                                   for k, v in ref["grads"].items()})),
+            "stats": stats,
+            "loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"])}
+
+
+@pytest.fixture(scope="module")
+def hash_case():
+    batch = _scu_batch(13)
+    return batch, _variables(STEP, batch, 5)
+
+
+def test_hash_path_refuses_train_mode(hash_case):
+    """The hash path in train mode at B = 2 (the 3-level net), float32,
+    against the JAX hash net's step: logits, loss, every gradient and the
+    running statistics within 1e-4. Its BatchNorm pools the two samples'
+    sites, as the JAX net's ``psum`` over its vmapped samples does."""
+    batch, variables = hash_case
+    apart = _hash_step_apart(*_hash_steps(STEP, variables, batch,
+                                          np.float32))
+    assert max(apart.values()) <= 1e-4, apart
+
+
+def test_hash_path_train_step_float64(hash_case):
+    """The same step in float64 on both sides: within 1e-6; and each
+    BatchNorm's running statistics moved once, by momentum 0.99 towards
+    the pooled batch statistics."""
+    batch, variables = hash_case
+    ref, got = _hash_steps(STEP, variables, batch, np.float64)
+    apart = _hash_step_apart(ref, got)
+    assert max(apart.values()) <= 1e-6, apart
+    before = jax_to_state_dict({"batch_stats": variables["batch_stats"]})
+    moved = [k for k in got["stats"]
+             if not np.allclose(got["stats"][k], before[k].numpy())]
+    assert set(moved) == set(got["stats"])
 
 
 def test_loss_masks_padded_points_and_ignored_labels():
@@ -636,9 +732,12 @@ def test_unported_augmentations_raise():
     feat = np.zeros((10, 3), np.float32)
     with pytest.raises(NotImplementedError, match="not ported"):
         SemsegAugmentation({}).augment(pc, feat, None, {"Unknown": {}})
-    with pytest.raises(NotImplementedError, match="all"):
+    with pytest.raises(ValueError, match="Unsupported rotate method"):
         SemsegAugmentation({}).augment(pc, feat, None,
-                                       {"rotate": {"method": "all"}})
+                                       {"rotate": {"method": "upright"}})
+    with pytest.raises(ValueError, match="Unsupported rotate method"):
+        JaxAugment({}).augment(pc, feat, None,
+                               {"rotate": {"method": "upright"}})
 
 
 def _write_rooms(root, counts, n=900, seed=0):
