@@ -45,6 +45,8 @@ config, with random weights drawn from a seeded generator:
   (``bench.py:530-564``), and ``run_train`` from the port's
   ``pointtransformer_s3dis.yml`` through the command line on S3DIS rooms
   (3 x 16,384 a step, SGD, the YAML's augmentations), with validation;
+  and the same on the fused path (``--model.knn_method fused``: the
+  Hilbert-bucket pyramid, bf16);
 * KPConv (KPFCNN): the eval forward on the bench's request (a
   120,000-point lidar cloud, one 16,384-point patch, ``bench.py:430``),
   one training step against the CPU, ``run_train`` from the port's
@@ -90,6 +92,7 @@ its own branches and on the card's. ``python3 chip_smoke.py
 the pp_train phase (each builds the kernels at its first decode, whose
 NMS is the ``nms_bev`` kernel), ``--cli`` the build and the cli phase,
 ``--pointtransformer`` the build and the pointtransformer phase,
+``--pt-fused`` the build and the pt_fused phase,
 ``--kpconv`` only the kpconv phase (no kernel of the port's),
 ``--pointrcnn`` the build and the pointrcnn phase,
 ``--pointrcnn-train`` the build and the pointrcnn_train phase,
@@ -277,8 +280,28 @@ Phases, one line each (or more), in this order:
    ``--split test``, which must raise ``NotImplementedError``; one
    profiled eval forward and training step in a child process
    (``--pt-profile``).
+15. pt_fused: PointTransformer at the same config on the fused path
+   (``knn_method: fused``, bf16, seg 64, block 128, S64/G32):
+   ``bucket_knn`` at each of the 13 searches of the Hilbert-bucket
+   pyramid of the bench's request (``pt_fused_searches``: attention at k
+   = 8 and 16, grouping at 16, upsample at 3; tables of up to 4,096 rows)
+   on lattice points (rel row for row) and uniform ones (d2 bit-equal, rel
+   off ties, times beside the issue floor, a split search also unsplit);
+   ``bucket_gather`` and ``bucket_gather_bwd`` at the forward's 13 read
+   shapes (widths 35-1,027) against their plain versions, with
+   ``torch.gather`` and ``scatter_add_``; the fused forward at 2 x 16,384
+   (13 ``bucket_knn`` and 26 ``bucket_gather`` launches, no ``fps`` or
+   ``knn_exact``; float32 sample 0 card vs CPU within ``PT_FUSED_TOL``,
+   bf16 against float32 reported; the median forward); ``run_pipeline
+   .main --split train --model.knn_method fused`` on S3DIS rooms (3 steps
+   of 3 x 16,384 with 26 ``bucket_gather_bwd`` launches each, a
+   validation step through the same net in eval mode; finite losses,
+   every Linear weight moved, the step median, patches trained/s, peak
+   memory, the host's share); one float32 step of 1 x 16,384 card vs CPU
+   on the card's branches (``_SameBranches(net="pt")``); a profiled
+   forward and step in a child process (``--pt-fused-profile``).
 
-15. kpconv (~70 s): KPFCNN from the port's ``kpconv_semantickitti.yml``
+16. kpconv (~70 s): KPFCNN from the port's ``kpconv_semantickitti.yml``
    at full width and depth, seeded random weights: the bench's request
    (``kp_request``: a 120,000-point cloud of ``bench.py:421-427``'s
    formula, the test split's ``preprocess``, the random sampler, one
@@ -296,7 +319,7 @@ Phases, one line each (or more), in this order:
    room; a profiled forward and step in a child process
    (``--kpconv-profile``). No port kernel: every launch count stays 0.
    One JSON line ``{"kpconv": ...}`` holds the phase's numbers.
-16. pointrcnn (~45 s): ``PointRCNN(**POINTRCNN_KITTI, mode="RCNN")``
+17. pointrcnn (~45 s): ``PointRCNN(**POINTRCNN_KITTI, mode="RCNN")``
    with seeded ``random_weights`` on one KITTI frame (``prcnn_request``:
    ``prcnn_scene`` written by ``write_kitti_frame``, ~17,400 points in
    the camera's view out to 70.4 m, the test split's draw of 16,384
@@ -326,7 +349,7 @@ Phases, one line each (or more), in this order:
    test``, each with its launch counts, frames/s and host share; a
    profiled frame in a child process (``--prcnn-profile``). One JSON line
    ``{"pointrcnn": ...}``.
-17. pointrcnn_train: PointRCNN training, both stages of
+18. pointrcnn_train: PointRCNN training, both stages of
    ``pointrcnn_kitti.yml`` (mode RPN, then RCNN), seeded weights, on 4
    KITTI frames of ``prcnn_scene`` with a gt database from
    ``utils/collect_bboxes``: every kernel call of one training step
@@ -343,7 +366,7 @@ Phases, one line each (or more), in this order:
    ``run_pipeline.main --split train`` through both stages, each step's
    launches and the host share. One JSON line
    ``{"pointrcnn_train": ...}``.
-18. pvcnn: PVCNN at ``pvcnn_s3dis.yml``, seeded weights, float32:
+19. pvcnn: PVCNN at ``pvcnn_s3dis.yml``, seeded weights, float32:
    ``trilinear_devoxelize`` at the four path shapes (B = 4, N = 40,960,
    (r, C) = (64, 64), (32, 64), (32, 64), (32, 128)) against its plain
    versions (the plan equal to the plain plan; the forward bit-equal;
@@ -366,7 +389,7 @@ Phases, one line each (or more), in this order:
    steps and 1 validation step, then a resumed epoch, and ``--split
    test`` refused.
 
-19. randla_configs (run after inference): RandLA-Net at
+20. randla_configs (run after inference): RandLA-Net at
    ``RC_CONFIGS``, the four other shipped YAMLs, seeded random weights,
    each reader's files written by the phase (``write_rc_data``: S3DIS
    rooms, Semantic3D text scans, Toronto3D and ParisLille3D PLY tiles of
@@ -653,6 +676,14 @@ PT_ROOM_POINTS = 80_000
 PT_FPS_EXTRA = ((1_025, 256), (24_576, 512), (32_768, 512))
 # cluster sizes timed at 16,384 points, the forward's first level
 PT_FPS_CLUSTERS = (4, 8, 16)
+# PointTransformer's fused path (``knn_method: fused``) at the same config:
+# one forward's 13 searches and 26 gathers (18 attention, 4 grouping, 4
+# upsample reads at blocks [2, 3, 4, 6, 3]), a step's 26 gather backwards
+PT_FUSED_FORWARD_LAUNCHES = {"bucket_knn": 13, "bucket_gather": 26}
+PT_FUSED_STEP_LAUNCHES = dict(PT_FUSED_FORWARD_LAUNCHES,
+                              bucket_gather_bwd=26)
+PT_FUSED_TOL = 1e-4  # card vs CPU, float32: logits, gradients, statistics
+PT_FUSED_LOSS_TOL = 1e-5  # card vs CPU, float32: a step's loss, relative
 # KPConv (KPFCNN): the port's YAMLs, the bench's lidar request
 # (bench.py:430, ``child_kpconv``), the command line's SemanticKITTI
 # scans and the S3DIS room of the test area
@@ -1737,7 +1768,10 @@ class _SameBranches:
     its pillar max, whose near ties route the gradient to the points
     rounding makes the largest; with "kpconv": KPFCNN's LeakyReLUs and
     its max pools, ``models/kpconv.py`` ``leaky_relu`` and ``max_pool``,
-    whose near ties would split or move the gradient; with "prcnn":
+    whose near ties would split or move the gradient; with "pt":
+    PointTransformer's ReLUs, the fused grouping's maxima
+    (``neighbour_max``) and the fused pyramid's integers (perm, seg_ids,
+    rel: a near tie in a search moves a neighbour); with "prcnn":
     PointNet++'s ReLUs and neighbour maxima (``models/pointnet2.py``), its
     FPS, ball queries and 3-NN indices, and PointRCNN's proposal NMS,
     roi IoUs and roi membership, each only while autograd records, so
@@ -1754,7 +1788,8 @@ class _SameBranches:
     def __init__(self, active=True, net="randla"):
         self.active = active
         self.module = {"randla": trl, "scu": tscu, "pp": tpp,
-                       "kpconv": tkp, "prcnn": tp2, "pvcnn": tpv}[net]
+                       "kpconv": tkp, "prcnn": tp2, "pvcnn": tpv,
+                       "pt": tpt}[net]
         self.recorded, self.replaying, self.differ = [], False, 0
         self.total = 0  # choices recorded
         self.differ_cells = 0  # of ``differ``: PVCNN's voxel-cell indices
@@ -1876,6 +1911,29 @@ class _SameBranches:
                 return out
 
             tpv.voxel_cells = voxel_cells
+            return self
+        if self.module is tpt:
+            pyramid = tpt.build_pt_pyramid
+
+            def pt_pyramid(*args, **kwargs):
+                """The pyramid with its integers chosen (perm, seg_ids,
+                rel), the float coordinates its own."""
+                def pick(t):
+                    return (choose(t) if torch.is_tensor(t) and
+                            not t.is_floating_point() else t)
+                return {k: [pick(t) for t in v] if isinstance(v, list)
+                        else pick(v)
+                        for k, v in pyramid(*args, **kwargs).items()}
+
+            def pt_max(x):
+                pick = choose(x.argmax(dim=-2, keepdim=True))
+                return torch.gather(x, -2, pick).squeeze(-2)
+
+            self._saved = [(tpt, name, getattr(tpt, name)) for name in
+                           ("F", "neighbour_max", "build_pt_pyramid")]
+            tpt.F = Functional()
+            tpt.neighbour_max = pt_max
+            tpt.build_pt_pyramid = pt_pyramid
             return self
         if self.module is tkp:
             def kp_max_pool(x, inds):
@@ -4655,6 +4713,39 @@ def pt_searches(cfg, b=PT_EVAL_BATCH):
     return out
 
 
+def pt_fused_searches(cfg, n):
+    """(label, (npad, Q, k, S, qblock)) of each ``bucket_knn`` call of the
+    fused pyramid (``build_pt_pyramid``) of ``n``-point clouds at ``cfg``
+    (a PointTransformer model config), in call order: each level's
+    attention search, and but at the last its grouping search (unless the
+    attention tables are reused, at ``gather_segs`` 0) and its upsample
+    search. npad: the searched points, padded to a multiple of seg."""
+    seg, block = cfg.get("seg", 64), cfg.get("block", 128)
+    num_segs, gather_segs = cfg.get("num_segs", 64), cfg.get("gather_segs",
+                                                             32)
+
+    def pad(m):
+        return -(-m // seg) * seg
+
+    out = []
+    for i, ratio in enumerate(tpt.STRIDE[1:] + (None,)):
+        s, qb = min(num_segs, -(-n // seg)), min(block, max(8, n))
+        k = min(tpt.NSAMPLE[i], n)
+        out.append((f"L{i} attention", (pad(n), n, k, s, qb)))
+        if ratio is None:
+            break
+        sub = n // ratio
+        k_dn = min(tpt.NSAMPLE[i + 1], n)
+        if not (k_dn == k and qb % ratio == 0 and n % qb == 0 and
+                not gather_segs):
+            out.append((f"L{i} grouping", (pad(n), sub, k_dn, s, qb)))
+        s_up = min(max(2, num_segs // 2), -(-sub // seg))
+        out.append((f"L{i} upsample", (pad(sub), n, min(tpt.UP_K, sub), s_up,
+                                       qb)))
+        n = sub
+    return out
+
+
 def _pt_points(b, n, seed, kind="uniform"):
     """[b, n, 3] points on the card: uniform in [0, 8)^3; "padded", the
     last quarter repeating earlier points (a short room padded as
@@ -4957,18 +5048,27 @@ PT_RANGES = ("pt eval forward", "pt train forward", "pt backward",
              "pt sgd")
 
 
-def pt_profile():
-    """``--pt-profile``: one torch.profiler pass over one eval forward at
-    2 x 16,384 and one training step at 3 x 16,384 (the forward in train
-    mode, the loss and backward, the SGD step) on seeded weights, split by
-    record_function ranges; prints one JSON line per range: device ms
-    (kernel rows), kernels, wall ms, the fps and knn_exact kernels'
-    device ms, and the top 8 kernels. Run in a process of its own: the
-    profiler traces the card once a process."""
+# kernel families a PointTransformer profile sums, by a part of the name
+PT_PROFILED = {"fps": "fps_kernel", "knn": "knn_exact_kernel",
+               "bucket_knn": "bucket_knn_kernel",
+               "bucket_gather": "bucket_gather_kernel",
+               "bucket_gather_bwd": "bucket_gather_bwd"}
+
+
+def pt_profile(knn_method="exact"):
+    """``--pt-profile`` (``--pt-fused-profile``: ``knn_method`` "fused"):
+    one torch.profiler pass over one eval forward at 2 x 16,384 and one
+    training step at 3 x 16,384 (the forward in train mode, the loss and
+    backward, the SGD step) on seeded weights, split by record_function
+    ranges; prints one JSON line per range: device ms (kernel rows),
+    kernels, wall ms, the device ms of each of ``PT_PROFILED``'s kernel
+    families (``fps_ms``, ``knn_ms``, ...), and the top 8 kernels. Run in
+    a process of its own: the profiler traces the card once a process."""
     from torch.profiler import ProfilerActivity, profile, record_function
     phase_device()
     dev = torch.device(DEVICE)
-    model = MODEL.get("PointTransformer")(**POINTTRANSFORMER_S3DIS)
+    model = MODEL.get("PointTransformer")(**POINTTRANSFORMER_S3DIS,
+                                          knn_method=knn_method)
     net = random_weights(model.get_net(), SEED).to(dev)
     x = {k: v.to(dev) for k, v in pt_request(model).items()}
     train_x = {k: v.to(dev) for k, v in pt_request(
@@ -5022,34 +5122,37 @@ def pt_profile():
         print(json.dumps({
             "range": name, "device_ms": sum(kernels.values()),
             "kernels": sum(calls.values()), "wall_ms": (end - start) / 1e3,
-            "fps_ms": sum(ms for k, ms in kernels.items()
-                          if "fps_kernel" in k),
-            "knn_ms": sum(ms for k, ms in kernels.items()
-                          if "knn_exact_kernel" in k),
+            **{f"{family}_ms": sum(ms for k, ms in kernels.items()
+                                   if part in k)
+               for family, part in PT_PROFILED.items()},
             "top": top}), flush=True)
 
 
-def _pt_profiles(card):
+def _pt_profiles(card, knn_method="exact"):
     """``pt_profile`` in a child process; prints each range's line."""
+    flag = "--pt-profile" if knn_method == "exact" else "--pt-fused-profile"
+    phase = "pointtransformer" if knn_method == "exact" else "pt_fused"
     run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                          "--pt-profile"], cwd=REPO, capture_output=True,
-                         text=True, timeout=600)
+                          flag], cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
     if run.returncode != 0:
-        raise AssertionError(f"pointtransformer: the profiler run failed:\n"
+        raise AssertionError(f"{phase}: the profiler run failed:\n"
                              f"{run.stderr[-4000:]}")
     records = [json.loads(line) for line in run.stdout.splitlines()
                if line.startswith('{"range"')]
     if len(records) != len(PT_RANGES) or any(r["device_ms"] <= 0
                                             for r in records):
-        raise AssertionError(f"pointtransformer: the profiler saw no device "
-                             f"time: {run.stdout[-2000:]}")
+        raise AssertionError(f"{phase}: the profiler saw no device time: "
+                             f"{run.stdout[-2000:]}")
+    families = (("fps", "knn") if knn_method == "exact" else
+                ("bucket_knn", "bucket_gather", "bucket_gather_bwd"))
     for r in records:
         busy = r["device_ms"] / r["wall_ms"]
-        say("pointtransformer", f"profiled {r['range']}: device "
+        say(phase, f"profiled {r['range']}: device "
             f"{r['device_ms']:.3f} ms over {r['kernels']} kernels in a "
-            f"{r['wall_ms']:.3f} ms span (busy {busy:.1%}); fps "
-            f"{r['fps_ms']:.3f} ms, knn_exact "
-            f"{r['knn_ms']:.3f} ms; top: " + ", ".join(
+            f"{r['wall_ms']:.3f} ms span (busy {busy:.1%}); " + ", ".join(
+                f"{'knn_exact' if f == 'knn' else f} {r[f + '_ms']:.3f} ms"
+                for f in families) + "; top: " + ", ".join(
                 f"{k} {ms:.3f} ms x{n}" for k, ms, n in r["top"]) +
             f" (on {card})")
 
@@ -5097,6 +5200,333 @@ def phase_pointtransformer(card):
     _pt_profiles(card)
     say("pointtransformer", f"phase {time.perf_counter() - t_phase:.1f} s")
     return launches, knn_rec, fps_rec
+
+
+# ------------------------------------------------- PointTransformer, fused
+
+def pt_fused_model(**overrides):
+    """PointTransformer at the shipped S3DIS config on the fused path."""
+    return MODEL.get("PointTransformer")(
+        **dict(POINTTRANSFORMER_S3DIS, knn_method="fused", **overrides))
+
+
+def _pt_fused_pyramid(model, points):
+    cfg = model.cfg
+    return tb.build_pt_pyramid(points, tpt.NSAMPLE, tpt.STRIDE[1:],
+                               seg=cfg.seg, qblock=cfg.block,
+                               num_segs=cfg.num_segs,
+                               gather_segs=cfg.gather_segs, up_k=tpt.UP_K)
+
+
+def _pt_fused_calls(model, points):
+    """(the fused pyramid of ``points``, its bucket_knn calls as (label,
+    args, kwargs)), the calls' shapes checked against
+    ``pt_fused_searches``."""
+    out = {}
+    calls = _captured(tb, "knn_bucket", lambda: out.update(
+        pyr=_pt_fused_pyramid(model, points)))
+    want = pt_fused_searches(model.cfg, points.shape[1])
+    got = [(a[0].shape[1], a[1].shape[1], a[3], a[2].shape[-1],
+            kw["qblock"]) for a, kw in calls]
+    if got != [shape for _, shape in want]:
+        raise AssertionError(f"pt_fused: the pyramid's searches {got}, "
+                             f"expected {want}")
+    return out["pyr"], [(label, a, kw) for (label, _), (a, kw) in
+                        zip(want, calls)]
+
+
+def _pt_fused_reads(model, pyr):
+    """(label, table, level, value rows, channels, reads a forward) of each
+    gather shape of a fused forward: level i's attention (3 + 2 * planes,
+    one a Bottleneck), its grouping onto level i + 1 (3 + planes[i]) and
+    the upsample from level i + 1 (3 + planes[i])."""
+    rows = [c.shape[1] for c in pyr["coords"]]
+    out = []
+    for i, planes in enumerate(tpt.PLANES):
+        out.append((f"L{i} attention", "nbr", i, rows[i], 3 + 2 * planes,
+                    model.cfg.blocks[i]))
+    for i, planes in enumerate(tpt.PLANES[:4]):
+        out.append((f"L{i} grouping", "pool", i, rows[i], 3 + planes, 1))
+        out.append((f"L{i} upsample", "up", i, rows[i + 1], 3 + planes, 1))
+    return out
+
+
+def _pt_fused_kernels(model):
+    """The kernels at a fused forward's shapes, 2 x 16,384 points (the
+    bench's request), against their plain versions on the card:
+    ``bucket_knn`` at each of the pyramid's 13 searches (k 8, 16 and 3,
+    tables of up to 64 segments of 64) on lattice points (rel row for
+    row) and uniform ones (``_knn_check``: d2 bit-equal, rel off ties,
+    times, issue floor, the unsplit search beside a split one);
+    ``bucket_gather`` and ``bucket_gather_bwd`` at each of the 13 read
+    shapes (``_pt_fused_reads``; dyadic cotangents bit-equal), with
+    ``torch.gather`` and ``scatter_add_`` beside them. Returns the records
+    of one forward's 13 searches, of its 26 reads (each shape as often as
+    a forward reads it), and the (label, record) pairs of each read shape
+    and of each backward shape."""
+    dev = torch.device(DEVICE)
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, n = PT_EVAL_BATCH, cfg.num_points
+    _, lattice = _pt_fused_calls(model, lattice_points(b, n, SEED))
+    for label, args, kwargs in lattice:
+        _knn_check(f"PT {label}", *args, **kwargs, lattice=True)
+    say("pt_fused", f"bucket_knn, lattice points: the fused pyramid's "
+        f"{len(lattice)} searches bit-equal, rel row for row")
+    pyr, calls = _pt_fused_calls(model, pt_request(model)["point"].to(dev))
+    knn = [_knn_check(f"PT {label}", *args, **kwargs)
+           for label, args, kwargs in calls]
+    reads, gathers, bwds = [], [], []
+    for label, name, i, rows, c, count in _pt_fused_reads(model, pyr):
+        tables = (pyr[f"{name}_seg_ids"][i], pyr[f"{name}_rel"][i],
+                  cfg.seg, pyr[f"{name}_qblock"][i])
+        values = tb.pad_seg(torch.randn((b, rows, c), generator=gen,
+                                        device=dev), cfg.seg)
+        rec = _gather_check(f"PT {label}", values, *tables)
+        gathers.append((f"PointTransformer {label}", rec))
+        reads += [rec] * count
+        bwds.append((f"PointTransformer {label}", _gather_bwd_check(
+            f"PT {label}", tables[0], tables[1], values.shape[1], c,
+            cfg.seg, tables[3], gen)))
+    search, read, bwd = combine(knn), combine(reads), combine(
+        [r for _, r in bwds])
+    say("pt_fused", f"one forward's {len(knn)} bucket_knn launches: device "
+        f"ms {search['ms']:.4f}, plain {search['plain_ms']:.4f}, bound "
+        f"{search['bound_ms']:.4f}; by search " + ", ".join(
+            f"{label} {r['ms']:.4f}" for (label, _, _), r in zip(calls, knn)))
+    say("pt_fused", f"one forward's {len(reads)} bucket_gather launches: "
+        f"device ms {read['ms']:.4f}, plain {read['plain_ms']:.4f}, "
+        f"torch.gather {read['library_ms']:.4f}, bound "
+        f"{read['bound_ms']:.4f}")
+    say("pt_fused", f"bucket_gather_bwd at the {len(bwds)} read shapes: "
+        f"device ms {bwd['ms']:.4f}, plain {bwd['plain_ms']:.4f}, "
+        f"scatter_add_ {bwd['library_ms']:.4f}, bound {bwd['bound_ms']:.4f};"
+        f" by shape " + ", ".join(f"{label} {r['ms']:.4f}"
+                                  for label, r in bwds))
+    return search, read, gathers, bwds
+
+
+def _pt_fused_forward(model, card):
+    """The bench's request (2 x 16,384) through the fused ``get_net()`` in
+    bf16 on seeded weights: one forward's launch counts (13 bucket_knn,
+    26 bucket_gather, no fps, no knn_exact), finite logits; the same
+    weights at compute_dtype float32, sample 0 on the card against the
+    CPU (relative L2 <= ``PT_FUSED_TOL``), the bf16 logits against the
+    float32 ones (reported); the median forward and peak memory. Returns
+    (the launch counts, the median ms)."""
+    dev = torch.device(DEVICE)
+    net = random_weights(model.get_net(), SEED)
+    state = {k: v.clone() for k, v in net.state_dict().items()}
+    net = net.eval().to(dev)
+    batch_cpu = pt_request(model)
+    batch = {k: v.to(dev) for k, v in batch_cpu.items()}
+    with torch.no_grad():
+        net(batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        logits = net(batch)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    check_counts("pt_fused", launches, PT_FUSED_FORWARD_LAUNCHES)
+    n, c = model.cfg.num_points, model.cfg.num_classes
+    if tuple(logits.shape) != (PT_EVAL_BATCH, n, c):
+        raise AssertionError(f"pt_fused logits {logits.shape}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("pt_fused: non-finite logits")
+    f32 = pt_fused_model(compute_dtype="float32")
+    net32, cpu32 = f32.get_net(), f32.get_net()
+    for m in (net32, cpu32):
+        m.load_state_dict(state)
+        m.eval()
+    net32.to(dev)
+    with torch.no_grad():
+        logits32 = net32(batch)
+        t0 = time.perf_counter()
+        ref = cpu32({k: v[:1] for k, v in batch_cpu.items()})[0]
+        cpu_s = time.perf_counter() - t0
+    rel_l2, agree = _compare(logits32[0], ref)
+    bf_rel, bf_agree = _compare(logits, logits32.cpu())
+    say("pt_fused", f"fused forward B={PT_EVAL_BATCH} N={n} blocks "
+        f"{list(model.cfg.blocks)} seg {model.cfg.seg} block "
+        f"{model.cfg.block} S{model.cfg.num_segs}/G{model.cfg.gather_segs} "
+        f"bf16: logits {tuple(logits.shape)} finite; float32 sample 0 card "
+        f"vs CPU relative L2 {rel_l2:.3e} (bound {PT_FUSED_TOL:g}), argmax "
+        f"agreement {agree:.6f} (CPU forward {cpu_s:.1f} s); bf16 vs float32"
+        f" on the card: relative L2 {bf_rel:.3e}, argmax agreement "
+        f"{bf_agree:.6f}")
+    if not rel_l2 <= PT_FUSED_TOL:
+        raise AssertionError(f"pt_fused card vs CPU {rel_l2} > "
+                             f"{PT_FUSED_TOL}")
+    ms, times = _pt_forward(net, batch)
+    ms32, _ = _pt_forward(net32, batch)
+    say("pt_fused", f"fused forward bf16: median {ms:.3f} ms over "
+        f"{len(times)} runs (min {min(times):.3f}, max {max(times):.3f}), "
+        f"{PT_EVAL_BATCH * n / ms * 1e3:.0f} points/s, peak {peak:.2f} GiB; "
+        f"float32 median {ms32:.3f} ms, on {card}")
+    return launches, ms
+
+
+def _pt_fused_step_vs_cpu():
+    """One float32 fused training step, 1 x 16,384 points of the bench's
+    request with seeded labels, on the card and on the CPU from the same
+    seeded weights, the CPU on the card's branches (``_SameBranches``
+    with "pt": the pyramid's integers, the ReLUs' signs, the grouping
+    maxima's winners). Returns (loss relative difference, gradient and
+    running statistics relative L2, the choices the CPU would have made
+    otherwise, CPU seconds)."""
+    model = pt_fused_model(compute_dtype="float32")
+    state = random_weights(model.get_net(), SEED + 2).state_dict()
+    x = pt_request(model, 1, SEED + 3)
+    x["label"] = torch.randint(0, model.cfg.num_classes,
+                               x["point"].shape[:2],
+                               generator=torch.Generator().manual_seed(SEED))
+    loss_fn = SemSegLoss(None, model, None)
+    out = {}
+    with _SameBranches(net="pt") as branches:
+        for device in (DEVICE, "cpu"):
+            net = model.get_net()
+            net.load_state_dict(state)
+            net.train().to(device)
+            inputs = {k: v.to(device) for k, v in x.items()}
+            t0 = time.perf_counter()
+            loss, _, _ = model.get_loss(loss_fn, net(inputs), inputs)
+            loss.backward()
+            if device == DEVICE:
+                torch.cuda.synchronize()
+            out[device] = {
+                "loss": loss.double().cpu(),
+                "grad": torch.cat([p.grad.reshape(-1).cpu()
+                                   for p in net.parameters()]),
+                "stats": torch.cat([b.reshape(-1).cpu() for k, b in
+                                    net.state_dict().items()
+                                    if k.endswith(("running_mean",
+                                                   "running_var"))]),
+                "seconds": time.perf_counter() - t0}
+            if device == DEVICE:
+                branches.replay()
+        if branches.recorded:
+            raise AssertionError("pt_fused: the CPU step took fewer branches "
+                                 "than the card's")
+    gpu, cpu = out[DEVICE], out["cpu"]
+    return ((abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])).item(),
+            _rel_l2(gpu["grad"], cpu["grad"]),
+            _rel_l2(gpu["stats"], cpu["stats"]), branches.differ,
+            branches.total, cpu["seconds"])
+
+
+def _pt_fused_train(card, root):
+    """``run_pipeline.main -c pointtransformer_s3dis.yml --split train
+    --model.knn_method fused`` on S3DIS rooms (``PT_TRAIN_STEPS`` train
+    steps of 3 x 16,384 and a validation step, which runs the training
+    net in eval mode, as the JAX pipeline does): each step's launches
+    (``PT_FUSED_STEP_LAUNCHES``, ``PT_FUSED_FORWARD_LAUNCHES``), finite
+    losses, every Linear weight moved, the checkpoint; the step median,
+    patches trained/s, peak memory and the host's share; then one float32
+    step against the CPU (``_pt_fused_step_vs_cpu``). Returns the run's
+    launch counts."""
+    steps, valid_steps = PT_TRAIN_STEPS
+    batch, val_batch = PT_TRAIN_BATCH
+    write_s3dis_rooms(root / "s3dis", PT_ROOM_POINTS)
+    common = ["-c", REPO / PT_CONFIG, "--device", DEVICE,
+              "--dataset.dataset_path", root / "s3dis",
+              "--dataset.cache_dir", root / "cache",
+              "--main_log_dir", root / "logs",
+              "--pipeline.train_sum_dir", root / "train_log",
+              "--model.knn_method", "fused"]
+    first = {}
+    real = SemanticSegmentation._train_step
+
+    def step(self, inputs, loss_fn):
+        if not first:
+            first.update({k: v.detach().clone()
+                          for k, v in self.net.state_dict().items()})
+            torch.cuda.reset_peak_memory_stats()
+        first["net"] = self.net
+        return real(self, inputs, loss_fn)
+
+    with mock.patch.object(SemanticSegmentation, "_train_step", step):
+        wall, launches, record, spent = _cli_run(common + [
+            "--split", "train", "--pipeline.max_epoch", 0,
+            "--dataset.steps_per_epoch_train", steps * batch,
+            "--dataset.steps_per_epoch_valid", valid_steps * val_batch],
+            ((tpt.PointTransformer, "preprocess"),))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    net = first.pop("net")
+    if net.knn_method != "fused":
+        raise AssertionError(f"pt_fused: trained the {net.knn_method} net")
+    train_s = _check_steps(record, 0, len(record), PT_FUSED_STEP_LAUNCHES,
+                           PT_FUSED_FORWARD_LAUNCHES,
+                           ["train"] * steps + ["eval"] * valid_steps)
+    check_counts("pt_fused", launches, {
+        k: v * steps + PT_FUSED_FORWARD_LAUNCHES.get(k, 0) * valid_steps
+        for k, v in PT_FUSED_STEP_LAUNCHES.items()})
+    after = net.state_dict()
+    weights = [k for k, v in first.items() if k.endswith("weight") and
+               v.dim() == 2]
+    moved = [k for k in weights if not torch.equal(first[k], after[k])]
+    if len(moved) != len(weights):
+        raise AssertionError(f"pt_fused: {len(weights) - len(moved)} Linear "
+                             "weights did not move")
+    ckpt = (root / "logs" / "PointTransformer_S3DIS_torch" / "checkpoint" /
+            "ckpt_00000.pth")
+    if not ckpt.exists():
+        raise AssertionError(f"pt_fused: no checkpoint at {ckpt}")
+    steady = statistics.median(train_s[1:])
+    in_steps = sum(t1 - t0 for _, t0, t1, _, _ in record)
+    pre_s = spent["PointTransformer.preprocess"]
+    n = POINTTRANSFORMER_S3DIS["num_points"]
+    say("pt_fused", f"run_pipeline -c {PT_CONFIG} --split train "
+        f"--model.knn_method fused: {steps} train steps of {batch} x {n} "
+        f"(bf16, SGD, the YAML's augmentations) and {valid_steps} "
+        f"validation step(s) of {val_batch}, losses "
+        f"{[round(r[4], 4) for r in record]}, finite; all {len(weights)} "
+        f"Linear weights moved; {ckpt.name} written; each train step "
+        f"launched {PT_FUSED_STEP_LAUNCHES}, each validation step "
+        f"{PT_FUSED_FORWARD_LAUNCHES}")
+    say("pt_fused", f"train run: wall {wall:.3f} s; step median "
+        f"{steady * 1e3:.2f} ms over steps 2..{steps} (first "
+        f"{train_s[0] * 1e3:.2f} ms), {batch / steady:.2f} patches trained/s "
+        f"({batch * n / steady:.0f} points/s); peak device memory "
+        f"{peak:.2f} GiB; host share {1 - in_steps / wall:.1%} of the run "
+        f"outside the steps (preprocess {pre_s:.3f} s over "
+        f"{spent['PointTransformer.preprocess calls']} rooms) on {card}")
+    loss_d, grad_d, stats_d, differ, total, cpu_s = _pt_fused_step_vs_cpu()
+    say("pt_fused", f"float32 step 1 x {n}, card vs CPU on the card's "
+        f"branches ({differ} of {total} choices the CPU would have made "
+        f"otherwise): loss {loss_d:.3e} (bound {PT_FUSED_LOSS_TOL:g}), "
+        f"gradients relative L2 {grad_d:.3e}, running statistics "
+        f"{stats_d:.3e} (bound {PT_FUSED_TOL:g}); CPU step {cpu_s:.1f} s")
+    if not (loss_d <= PT_FUSED_LOSS_TOL and grad_d <= PT_FUSED_TOL and
+            stats_d <= PT_FUSED_TOL):
+        raise AssertionError("pt_fused: the float32 step card vs CPU is out "
+                             "of bounds")
+    return launches
+
+
+def phase_pt_fused(card):
+    """PointTransformer's fused path at the shipped S3DIS config: the
+    kernels at a forward's shapes (``_pt_fused_kernels``), the fused
+    forward (``_pt_fused_forward``), training through the command line
+    (``_pt_fused_train``) and one profiled forward and step in a child
+    process (``--pt-fused-profile``). Returns (the forward's and the
+    training run's launch counts summed, bucket_knn's record for one
+    forward's 13 searches, the (label, record) pairs of the 13 read shapes
+    of bucket_gather and of bucket_gather_bwd)."""
+    t_phase = time.perf_counter()
+    model = pt_fused_model()
+    knn, reads, gathers, bwds = _pt_fused_kernels(model)
+    launches, fwd_ms = _pt_fused_forward(model, card)
+    say("pt_fused", f"the kernels' share of the {fwd_ms:.3f} ms forward: "
+        f"bucket_knn {knn['ms'] / fwd_ms:.1%}, bucket_gather "
+        f"{reads['ms'] / fwd_ms:.1%} (their device times one by one)")
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = _pt_fused_train(card, Path(tmp))
+    _pt_profiles(card, "fused")
+    say("pt_fused", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return ({k: launches[k] + trained[k] for k in launches}, knn, gathers,
+            bwds)
 
 
 # ------------------------------------------------------------------ KPConv
@@ -8406,6 +8836,13 @@ def main():
         return None
     if sys.argv[1:] == ["--pt-profile"]:
         return pt_profile()
+    if sys.argv[1:] == ["--pt-fused"]:
+        card = phase_device()
+        phase_build()
+        phase_pt_fused(card)
+        return None
+    if sys.argv[1:] == ["--pt-fused-profile"]:
+        return pt_profile("fused")
     if sys.argv[1:] == ["--kpconv"]:
         phase_kpconv(phase_device())
         return None
@@ -8454,13 +8891,8 @@ def main():
     launches["knn_exact"] = phase_inference(model, state, card)["knn_exact"]
     yaml_launches, yaml_records, yaml_gathers, yaml_bwds = (
         phase_randla_configs(card))
-    measured["bucket_knn"] = combine([knn] + yaml_records["bucket_knn"])
     (scu_launches, measured["stencil_conv"], measured["stencil_match"],
      scu_gathers, scu_bwds) = phase_scu(card)
-    measured["bucket_gather"] = bucket_summary(
-        "bucket_gather", gathers + yaml_gathers + scu_gathers, "torch.gather")
-    measured["bucket_gather_bwd"] = bucket_summary(
-        "bucket_gather_bwd", bwds + yaml_bwds + scu_bwds, "scatter_add_")
     launches["stencil_conv"] = scu_launches["stencil_conv"]
     # stencil_match's launches are SCU training's, the main path of its
     # slice
@@ -8469,6 +8901,20 @@ def main():
     phase_pp_train(card)
     phase_cli(card)
     pt_launches, pt_knn, measured["fps"] = phase_pointtransformer(card)
+    ptf_launches, ptf_knn, ptf_gathers, ptf_bwds = phase_pt_fused(card)
+    # the bucket kernels: RandLA's, its other YAMLs', SparseConvUnet's and
+    # PointTransformer's fused shapes; their launches, the fused
+    # PointTransformer forward's and training run's too
+    measured["bucket_knn"] = combine([knn, *yaml_records["bucket_knn"],
+                                      ptf_knn])
+    measured["bucket_gather"] = bucket_summary(
+        "bucket_gather", gathers + yaml_gathers + scu_gathers + ptf_gathers,
+        "torch.gather")
+    measured["bucket_gather_bwd"] = bucket_summary(
+        "bucket_gather_bwd", bwds + yaml_bwds + scu_bwds + ptf_bwds,
+        "scatter_add_")
+    for name in ("bucket_knn", "bucket_gather", "bucket_gather_bwd"):
+        launches[name] += ptf_launches[name]
     phase_kpconv(card)
     (rc_launches, rc_knn, rc_fps,
      measured["nms_bev"]) = phase_pointrcnn(card)

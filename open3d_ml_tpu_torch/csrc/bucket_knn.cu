@@ -30,6 +30,16 @@
 // block of the query block to finish merges them by (d2, position): one
 // launch a call either way.
 //
+// k is 1, 3, 8 or 16, each its own instance: the lists hold K = 1, 4, 8 or
+// 16 entries (knn_select.cuh's bitonic sort and merge need a power of
+// two) and a query writes the first k of its list. The exact K best by
+// (d2, position) hold the exact k best as their first k, so k = 3 keeps
+// the tie rule of k = 16. RandLA-Net asks for k = 16 and 1;
+// PointTransformer's pyramid for k = 8 (level-0 attention), 16 and 3 (its
+// 3-NN upsample), over tables of up to 64 segments of 64 points (66,048
+// bytes of shared memory a block, past the 48 KB default: the launch opts
+// in).
+//
 // Not carried over from the TPU kernel: the packed int32 distance/position
 // keys of its min-extraction rounds (they truncate the low bits of d2),
 // the broadcast-select column writes and the scalar-prefetch batch split.
@@ -64,9 +74,10 @@ __device__ __forceinline__ float pair_d2(float qx, float qy, float qz,
 // threads a block at most: 128 registers a thread
 constexpr int kMaxThreads = 512;
 
-// SPLIT: a query block's table is split over gridDim.y > 1 blocks, which
-// post their lists and the last of them to finish merges them (compiled
-// apart, so the kernel of an unsplit call carries none of it)
+// K: the list's entries, k <= K of them written. SPLIT: a query block's
+// table is split over gridDim.y > 1 blocks, which post their lists of K
+// and the last of them to finish merges them (compiled apart, so the
+// kernel of an unsplit call carries none of it)
 template <int K, int QPT, bool SPLIT>
 __global__ void __launch_bounds__(kMaxThreads)
     bucket_knn_kernel(const float* __restrict__ points,
@@ -75,7 +86,8 @@ __global__ void __launch_bounds__(kMaxThreads)
                       float* __restrict__ d2, int* __restrict__ part_i,
                       float* __restrict__ part_d,
                       unsigned* __restrict__ tickets, int npad, int q,
-                      int nqb, int s, int seg_shift, int qblock, int span) {
+                      int nqb, int s, int seg_shift, int qblock, int k,
+                      int span) {
   extern __shared__ float4 table[];
   const int blk = blockIdx.x, g = blockIdx.y;
   const long long b = blockIdx.z;
@@ -182,8 +194,14 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
   for (int u = 0; u < QPT; ++u) {
     if (qi[u] >= q) continue;
-    const long long at = (b * q + qi[u]) * K;
-    top[u].store(d2 + at, rel + at, 1);
+    const long long at = (b * q + qi[u]) * k;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (j < k) {
+        d2[at + j] = top[u].d[j];
+        rel[at + j] = top[u].i[j];
+      }
+    }
   }
 }
 
@@ -191,9 +209,10 @@ template <int K, int QPT>
 cudaError_t launch(const float* points, const float* queries,
                    const int* seg_ids, int* rel, float* d2, int* part_i,
                    float* part_d, unsigned* tickets, int b, int npad, int q,
-                   int nqb, int s, int seg_shift, int qblock, int threads,
-                   int groups, int span, size_t shared, cudaStream_t stream) {
-  if (threads * QPT < qblock || threads > kMaxThreads)
+                   int nqb, int s, int seg_shift, int qblock, int k,
+                   int threads, int groups, int span, size_t shared,
+                   cudaStream_t stream) {
+  if (threads * QPT < qblock || threads > kMaxThreads || k < 1 || k > K)
     return cudaErrorInvalidValue;
   const auto kernel = groups > 1 ? bucket_knn_kernel<K, QPT, true>
                                   : bucket_knn_kernel<K, QPT, false>;
@@ -204,7 +223,7 @@ cudaError_t launch(const float* points, const float* queries,
   }
   kernel<<<dim3(nqb, groups, b), threads, shared, stream>>>(
       points, queries, seg_ids, rel, d2, part_i, part_d, tickets, npad, q,
-      nqb, s, seg_shift, qblock, span);
+      nqb, s, seg_shift, qblock, k, span);
   return cudaGetLastError();
 }
 
@@ -212,16 +231,17 @@ template <int K>
 cudaError_t launch_k(int qpt, const float* points, const float* queries,
                      const int* seg_ids, int* rel, float* d2, int* part_i,
                      float* part_d, unsigned* tickets, int b, int npad, int q,
-                     int nqb, int s, int seg_shift, int qblock, int threads,
-                     int groups, int span, size_t shared, cudaStream_t st) {
+                     int nqb, int s, int seg_shift, int qblock, int k,
+                     int threads, int groups, int span, size_t shared,
+                     cudaStream_t st) {
   switch (qpt) {
     case 1:
       return launch<K, 1>(points, queries, seg_ids, rel, d2, part_i, part_d,
-                          tickets, b, npad, q, nqb, s, seg_shift, qblock,
+                          tickets, b, npad, q, nqb, s, seg_shift, qblock, k,
                           threads, groups, span, shared, st);
     case 2:
       return launch<K, 2>(points, queries, seg_ids, rel, d2, part_i, part_d,
-                          tickets, b, npad, q, nqb, s, seg_shift, qblock,
+                          tickets, b, npad, q, nqb, s, seg_shift, qblock, k,
                           threads, groups, span, shared, st);
     default:
       return cudaErrorInvalidValue;
@@ -237,14 +257,15 @@ extern "C" int bucket_knn_shared(int rows) {
 }
 
 // points [B, npad, 3], queries [B, Q, 3] float32, seg_ids [B, nqb, S]
-// int32; rel [B, Q, k] int32 and d2 [B, Q, k] float32 are written, k 1 or
-// 16. seg = 1 << seg_shift. The plan (ops/cuda/bucket.py, bucket_knn_plan):
+// int32; rel [B, Q, k] int32 and d2 [B, Q, k] float32 are written, k 1,
+// 3, 8 or 16. seg = 1 << seg_shift. The plan (ops/cuda/bucket.py, bucket_knn_plan):
 // qpt queries a thread (1 or 2), threads a block (at most 512, threads *
 // qpt >= qblock), groups blocks per query block, each over span table
 // positions ((groups - 1) * span < S * seg <= groups * span), ``shared`` bytes
 // as bucket_knn_shared(span) gives them. With groups > 1 part_i and part_d
-// hold [groups, B, Q, k] for the blocks' lists and tickets [B * nqb] are 0
-// (the kernel leaves them 0).
+// hold [groups, B, Q, K] for the blocks' lists of K = 1, 4, 8 or 16
+// entries (ops/cuda/bucket.py, knn_list) and tickets [B * nqb] are 0 (the
+// kernel leaves them 0).
 extern "C" int bucket_knn_launch(const float* points, const float* queries,
                                  const int* seg_ids, int* rel, float* d2,
                                  int* part_i, float* part_d, unsigned* tickets,
@@ -267,11 +288,19 @@ extern "C" int bucket_knn_launch(const float* points, const float* queries,
     case 1:
       return launch_k<1>(qpt, points, queries, seg_ids, rel, d2, part_i,
                          part_d, tickets, b, npad, q, nqb, s, seg_shift,
-                         qblock, threads, groups, span, shared, st);
+                         qblock, k, threads, groups, span, shared, st);
+    case 3:
+      return launch_k<4>(qpt, points, queries, seg_ids, rel, d2, part_i,
+                         part_d, tickets, b, npad, q, nqb, s, seg_shift,
+                         qblock, k, threads, groups, span, shared, st);
+    case 8:
+      return launch_k<8>(qpt, points, queries, seg_ids, rel, d2, part_i,
+                         part_d, tickets, b, npad, q, nqb, s, seg_shift,
+                         qblock, k, threads, groups, span, shared, st);
     case 16:
       return launch_k<16>(qpt, points, queries, seg_ids, rel, d2, part_i,
                           part_d, tickets, b, npad, q, nqb, s, seg_shift,
-                          qblock, threads, groups, span, shared, st);
+                          qblock, k, threads, groups, span, shared, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -5,6 +5,15 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def dense(linear, x, dtype):
+    """``linear`` applied in ``dtype`` (when None, float32, or float64 for
+    a float64 input): inputs, weight and bias are all cast to it, as
+    flax's Dense does."""
+    dt = dtype or torch.promote_types(x.dtype, torch.float32)
+    bias = None if linear.bias is None else linear.bias.to(dt)
+    return F.linear(x.to(dt), linear.weight.to(dt), bias)
+
+
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
     """BatchNorm with flax's training semantics (``flax.linen.BatchNorm``,
     ``use_fast_variance``), in float32, over every axis but the channel

@@ -56,21 +56,12 @@ from ..ops.cuda.bucket import BucketGather
 from ..ops.neighbors import build_knn_pyramid
 from ..utils.registry import MODEL
 from .base_model import BaseModel
-from .common import BatchNorm
+from .common import BatchNorm, dense
 from .common import Dropout as _Dropout
 
 log = logging.getLogger(__name__)
 
 KNN_METHODS = ("fused", "exact")
-
-
-def _dense(linear, x, dtype):
-    """``linear`` applied in ``dtype`` (when None, float32, or float64 for
-    a float64 input): inputs, weight and bias are all cast to it, as
-    flax's Dense does."""
-    dt = dtype or torch.promote_types(x.dtype, torch.float32)
-    bias = None if linear.bias is None else linear.bias.to(dt)
-    return F.linear(x.to(dt), linear.weight.to(dt), bias)
 
 
 class _IndexLevel:
@@ -147,7 +138,7 @@ class SharedMLP(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        x = _dense(self.conv, x, self.dtype)
+        x = dense(self.conv, x, self.dtype)
         if self.batch_norm is not None:
             # float32 parameters promote the (possibly bf16) product
             x = self.batch_norm(x)
@@ -199,7 +190,7 @@ class AttentivePooling(nn.Module):
 
     def forward(self, x):
         """x [B, N, K, d_in] -> [B, N, d_out]."""
-        scores = torch.softmax(_dense(self.score_fn, x, self.dtype), dim=-2)
+        scores = torch.softmax(dense(self.score_fn, x, self.dtype), dim=-2)
         return self.mlp((scores * x).sum(dim=-2))
 
 
@@ -334,7 +325,7 @@ class RandLANetNet(nn.Module):
             # sorted order from here to the head
             feat = torch.gather(
                 feat, 1, perm[..., None].expand(-1, -1, feat.shape[-1]))
-        feat = self.bn0(_dense(self.fc0, feat, self.cdt))
+        feat = self.bn0(dense(self.fc0, feat, self.cdt))
         feat = F.leaky_relu(feat, 0.2)
 
         encoder_feats = []

@@ -1,12 +1,14 @@
 """Segment-bucketed neighbour pyramid over Hilbert-sorted point batches.
 
-Counterpart of ``open3d_ml_tpu/ops/bucket.py`` on the path RandLA-Net's
-fused inference takes: sort each cloud along the Hilbert curve, cut the
+Counterpart of ``open3d_ml_tpu/ops/bucket.py`` on the paths RandLA-Net's
+and PointTransformer's fused nets take (``build_bucket_pyramid``,
+``build_pt_pyramid``): sort each cloud along the Hilbert curve, cut the
 sorted order into segments of ``seg`` points, give every block of
 ``qblock`` queries a candidate table of the S segments nearest to it
 (``select_segments``), search the table exactly (the bucket KNN kernel),
-shrink the tables to the slots the search hit (``compact_tables``) and read
-the upsample tables off the fine search (``derive_up_tables``).
+shrink the tables to the slots the search hit (``compact_tables``), and
+read RandLA-Net's upsample tables off the fine search
+(``derive_up_tables``) or search PointTransformer's 3-NN ones.
 
 The JAX package built these stages from one-hot matmuls and ``top_k``
 because row gathers and scatters were slow on its TPU. Here they are
@@ -225,6 +227,78 @@ def build_bucket_pyramid(points, k, sub_ratios, *, seg, qblock, num_segs,
                             ("pool_seg_ids", psids), ("pool_rel", prel),
                             ("pool_qblock", pool_qb), ("up_seg_ids", usids),
                             ("up_rel", urel), ("up_qblock", qblock)):
+            out[name].append(value)
+        pc = sub
+    return out
+
+
+def build_pt_pyramid(points, nsamples, sub_ratios, *, seg, qblock, num_segs,
+                     gather_segs, up_k=3):
+    """The per-level attention, grouping and upsample tables of
+    PointTransformer's fused path, for a [B, N, 3] batch in the caller's
+    order.
+
+    Counterpart of ``build_pt_pyramid_tpu`` at ``curve="hilbert"`` and
+    ``presorted=False``. It has one level more than ``sub_ratios``, each
+    level's points the stride-``ratio`` slice of the level above in
+    Hilbert order. Level i's attention tables hold each point's
+    ``nsamples[i]`` nearest points of the level (cut to its point count),
+    its grouping (``pool``) tables each point of level i + 1's
+    ``nsamples[i + 1]`` nearest points of level i, its upsample tables
+    each point of level i's ``up_k`` nearest points of level i + 1. A
+    level of fewer than ``qblock`` points is one query block of at least
+    8. Attention and grouping tables are compacted to ``gather_segs``
+    slots where they have more; the grouping search reuses the attention
+    tables (rows ::ratio) only with ``gather_segs`` 0. Returns a dict of
+    per-level lists (``coords``, ``{nbr,pool,up}_{seg_ids,rel,qblock}``)
+    plus ``perm`` [B, N].
+    """
+    perm, pc = hilbert_sort(points)
+    out = {"perm": perm, "coords": []}
+    for name in ("nbr", "pool", "up"):
+        for part in ("seg_ids", "rel", "qblock"):
+            out[f"{name}_{part}"] = []
+    for i in range(len(sub_ratios) + 1):
+        n = pc.shape[1]
+        s_here = min(num_segs, -(-n // seg))
+        qb = min(qblock, max(8, n))
+        pcp = pad_seg(pc, seg, fill=1e9)
+        sids = select_segments(pc, pc, seg=seg, qblock=qb, num_segs=s_here)
+        # k cut to the level's points: past them the table holds pad rows
+        k_here = min(nsamples[i], n)
+        rel, _ = knn_bucket(pcp, pc, sids, k_here, seg=seg, qblock=qb)
+        if gather_segs and gather_segs < s_here:
+            sids, rel = compact_tables(sids, rel, gather_segs, seg=seg,
+                                       qblock=qb)
+        for name, value in (("coords", pc), ("nbr_seg_ids", sids),
+                            ("nbr_rel", rel), ("nbr_qblock", qb)):
+            out[name].append(value)
+        if i == len(sub_ratios):
+            break
+        ratio = sub_ratios[i]
+        sub = pc[:, ::ratio][:, :n // ratio].contiguous()
+        k_dn = min(nsamples[i + 1], n)
+        if (k_dn == k_here and qb % ratio == 0 and n % qb == 0 and
+                not gather_segs):
+            # the sub points are rows ::ratio of pc, searched against the
+            # same tables
+            psids, prel, pool_qb = sids, rel[:, ::ratio].contiguous(), \
+                qb // ratio
+        else:
+            psids = select_segments(pc, sub, seg=seg, qblock=qb,
+                                    num_segs=s_here)
+            prel, _ = knn_bucket(pcp, sub, psids, k_dn, seg=seg, qblock=qb)
+            pool_qb = qb
+            if gather_segs and gather_segs < s_here:
+                psids, prel = compact_tables(psids, prel, gather_segs,
+                                             seg=seg, qblock=qb)
+        s_up = min(max(2, num_segs // 2), -(-sub.shape[1] // seg))
+        usids = select_segments(sub, pc, seg=seg, qblock=qb, num_segs=s_up)
+        urel, _ = knn_bucket(pad_seg(sub, seg, fill=1e9), pc, usids,
+                             min(up_k, sub.shape[1]), seg=seg, qblock=qb)
+        for name, value in (("pool_seg_ids", psids), ("pool_rel", prel),
+                            ("pool_qblock", pool_qb), ("up_seg_ids", usids),
+                            ("up_rel", urel), ("up_qblock", qb)):
             out[name].append(value)
         pc = sub
     return out

@@ -21,10 +21,10 @@ from ._launch import (check, fits, partials, ptr, raise_on, route, sm_count,
 
 LAUNCHES = {"bucket_knn": 0, "bucket_gather": 0, "bucket_gather_bwd": 0}
 
-# what bucket_knn is built for: k 1 or 16, seg a power of two, a table of
-# S * seg points that fits one block's shared memory (the kernel library's
-# ``bucket_knn_shared``), and at most 512 threads a block
-KNN_KS = (1, 16)
+# what bucket_knn is built for: k 1, 3, 8 or 16, seg a power of two, a
+# table of S * seg points that fits one block's shared memory (the kernel
+# library's ``bucket_knn_shared``), and at most 512 threads a block
+KNN_KS = (1, 3, 8, 16)
 KNN_MAX_THREADS = 512  # threads a block: 128 registers a thread
 KNN_BATCH = 32  # table rows per hit mask, the least rows a block scans
 # the most blocks a query block's table is split over: the last of them to
@@ -65,6 +65,13 @@ def knn_bucket_plain(points, queries, seg_ids, k, *, seg, qblock):
     return rel[:, :q].contiguous(), d2[:, :q].contiguous()
 
 
+def knn_list(k):
+    """Entries of the kernel's list of each query at ``k``: the least
+    power of two of 1, 4, 8 and 16 that holds k (its sort and merge need a
+    power of two); the lists a split plan posts hold as many."""
+    return next(n for n in (1, 4, 8, 16) if n >= k)
+
+
 def knn_bucket_plan(b, q, s, seg, qblock, *, sms):
     """How the ``bucket_knn`` kernel runs a call: {"qpt": queries a
     thread, 1, or 2 where qblock passes ``KNN_MAX_THREADS`` (two a thread
@@ -97,8 +104,8 @@ def knn_bucket_plan(b, q, s, seg, qblock, *, sms):
 def knn_bucket(points, queries, seg_ids, k, *, seg, qblock):
     """``knn_bucket_plain``'s contract, checked for both routes; on a CUDA
     device it launches the ``bucket_knn`` kernel, as ``knn_bucket_plan``
-    sizes it: k must be 1 or 16, seg a power of two, qblock at most 1024
-    and the table fit one block's shared memory there."""
+    sizes it: k must be in ``KNN_KS``, seg a power of two, qblock at most
+    1024 and the table fit one block's shared memory there."""
     dev = points.device
     check(points, "points", torch.float32, 3, dev)
     check(queries, "queries", torch.float32, 3, dev)
@@ -128,8 +135,8 @@ def knn_bucket(points, queries, seg_ids, k, *, seg, qblock):
     plan = knn_bucket_plan(b, q, s, seg, qblock, sms=sm_count(dev.index))
     rel = torch.empty((b, q, k), dtype=torch.int32, device=dev)
     d2 = torch.empty((b, q, k), dtype=torch.float32, device=dev)
-    part_i, part_d, tickets = partials(plan["groups"], (b, q, k), b * nqb,
-                                       dev)
+    part_i, part_d, tickets = partials(plan["groups"], (b, q, knn_list(k)),
+                                       b * nqb, dev)
     err = library().bucket_knn_launch(
         points.data_ptr(), queries.data_ptr(), seg_ids.data_ptr(),
         rel.data_ptr(), d2.data_ptr(), ptr(part_i), ptr(part_d), ptr(tickets),
@@ -160,7 +167,7 @@ def gather_bucket_plain(values, seg_ids, rel, *, seg, qblock, round_bf16):
     values [B, Npad, C] float32 (Npad a multiple of ``seg``), seg_ids
     [B, nqb, S] int32 with nqb * qblock >= Q, rel [B, Q, K] int32.
     Returns [B, Q, K, C] float32, each value rounded to bfloat16 when
-    ``round_bf16`` is set.
+    ``round_bf16`` is set (float64 values give a float64 reference).
     """
     b, q, k = rel.shape
     c = values.shape[2]
@@ -187,6 +194,13 @@ def _check_gather(values_shape, seg_ids, rel, seg, qblock):
                          f"rows: more than {GATHER_MAX_ROWS}")
 
 
+def _value_type(t):
+    """What a gather wrapper takes: float32, or on the CPU also float64
+    (the plain versions' references)."""
+    return (torch.float64 if t.dtype == torch.float64 and
+            t.device.type == "cpu" else torch.float32)
+
+
 def float4_units(c, *tensors):
     """Whether the gather kernels move rows of ``c`` float32 channels in
     16-byte units: ``c`` a multiple of 4 and every tensor's data 16-byte
@@ -203,7 +217,7 @@ def gather_bucket(values, seg_ids, rel, *, seg, qblock, round_bf16):
         return BucketGather.apply(values, seg_ids, rel, seg, qblock,
                                   round_bf16)
     dev = values.device
-    check(values, "values", torch.float32, 3, dev)
+    check(values, "values", _value_type(values), 3, dev)
     check(seg_ids, "seg_ids", torch.int32, 3, dev)
     check(rel, "rel", torch.int32, 3, dev)
     _check_gather(values.shape, seg_ids, rel, seg, qblock)
@@ -252,7 +266,7 @@ def gather_bucket_bwd(g, seg_ids, rel, npad, *, seg, qblock, round_bf16):
     a CUDA device it launches the ``bucket_gather_bwd`` kernel, whose sums
     are taken in a run-dependent order."""
     dev = g.device
-    check(g, "g", torch.float32, 4, dev)
+    check(g, "g", _value_type(g), 4, dev)
     check(seg_ids, "seg_ids", torch.int32, 3, dev)
     check(rel, "rel", torch.int32, 3, dev)
     b, q, k, c = g.shape

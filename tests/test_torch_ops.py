@@ -586,16 +586,21 @@ def test_knn_refuses_a_table_past_shared_memory(monkeypatch):
 
 
 def test_knn_kernel_route_refuses_what_it_is_not_built_for(monkeypatch):
-    """On the kernel route k must be 1 or 16 and seg a power of two (the
-    plain version takes any)."""
+    """On the kernel route k must be 1, 3, 8 or 16 and seg a power of two
+    (the plain version takes any)."""
     pts = torch.zeros((1, 48 * 4, 3))
     sids = torch.zeros((1, 1, 4), dtype=torch.int32)
     cb.knn_bucket(pts, pts[:, :8], sids, 4, seg=48, qblock=8)
-    _knn_kernel_route(monkeypatch)
+    calls = _knn_kernel_route(monkeypatch)
     with pytest.raises(ValueError, match="power of two"):
         cb.knn_bucket(pts, pts[:, :8], sids, 16, seg=48, qblock=8)
-    with pytest.raises(ValueError, match="k in"):
-        cb.knn_bucket(pts, pts[:, :8], sids, 4, seg=64, qblock=8)
+    for k in (1, 3, 8, 16):
+        cb.knn_bucket(torch.zeros((1, 64 * 4, 3)), pts[:, :8], sids, k,
+                      seg=64, qblock=8)
+    assert [args[15] for args in calls] == [1, 3, 8, 16]
+    for k in (2, 4, 32):
+        with pytest.raises(ValueError, match="k in"):
+            cb.knn_bucket(pts, pts[:, :8], sids, k, seg=64, qblock=8)
     with pytest.raises(ValueError, match="qblock"):
         cb.knn_bucket(torch.zeros((1, 64 * 4, 3)),
                       torch.zeros((1, 2048, 3)), sids, 16, seg=64,
@@ -646,10 +651,10 @@ def test_knn_bucket_plan_splits_within_one_wave(monkeypatch, budget):
 def test_knn_bucket_wrapper_passes_the_plan(monkeypatch, search):
     """On the kernel route ``knn_bucket`` hands its entry point seg's
     shift, the plan and its shared memory, and scratch for the blocks'
-    lists and zeroed tickets where the plan splits the table; one launch
-    per call."""
+    lists (of ``knn_list(k)`` entries) and zeroed tickets where the plan
+    splits the table; one launch per call, at k = 1, 3, 8 and 16."""
     calls = _knn_kernel_route(monkeypatch)
-    for k in (1, K):
+    for k in (1, 3, 8, K):
         cb.knn_bucket(search["pcp"], search["sp"], search["seg_ids"], k,
                       seg=SEG, qblock=QBLOCK)
         plan = cb.knn_bucket_plan(B, N, S, SEG, QBLOCK, sms=132)
@@ -662,7 +667,21 @@ def test_knn_bucket_wrapper_passes_the_plan(monkeypatch, search):
                             plan["groups"], plan["span"], plan["shared"], 0)
         assert ((args[5] is None) == (args[6] is None) == (args[7] is None)
                 == (plan["groups"] == 1))
-    assert cb.LAUNCHES == {"bucket_knn": 2, "bucket_gather": 0,
+    # one query block a sample: its table split over blocks, whose posted
+    # lists hold knn_list(k) entries (4 at k = 3)
+    parts = []
+    real = cb.partials
+    monkeypatch.setattr(cb, "partials", lambda groups, shape, *rest: (
+        parts.append((groups, shape)), real(groups, shape, *rest))[1])
+    for k in (1, 3, 8, K):
+        cb.knn_bucket(search["pcp"], search["sp"][:, :QBLOCK].contiguous(),
+                      search["seg_ids"][:, :1].contiguous(), k, seg=SEG,
+                      qblock=QBLOCK)
+        assert calls[-1][5] is not None
+    groups = cb.knn_bucket_plan(B, QBLOCK, S, SEG, QBLOCK, sms=132)["groups"]
+    assert groups > 1
+    assert parts == [(groups, (B, QBLOCK, n)) for n in (1, 4, 8, 16)]
+    assert cb.LAUNCHES == {"bucket_knn": 8, "bucket_gather": 0,
                            "bucket_gather_bwd": 0}
 
 
