@@ -72,7 +72,11 @@ config, with random weights drawn from a seeded generator:
   ``_semantic3d``, ``_toronto3d``, ``_parislille3d``): the fused forward
   at 4 x 40,960 or 4 x 65,536, the exact eval net, and the command line's
   train and test on each reader's own files; a host-pyramid step; a
-  SparseConvUnet hash-path step at B = 2.
+  SparseConvUnet hash-path step at B = 2;
+* PointPillars at its four other shipped YAMLs (``pointpillars_lyft.yml``,
+  ``_nuscenes``, ``_waymo``, ``_argoverse``): the serving and eval nets
+  and the decode at full width, a training step, the command line on
+  frames in each reader's format, and a converted reference checkpoint.
 
 The models are the port's ``RandLANet()`` and ``SparseConvUnet()`` at their
 defaults, which equal the model sections of
@@ -97,7 +101,8 @@ NMS is the ``nms_bev`` kernel), ``--cli`` the build and the cli phase,
 ``--pointrcnn`` the build and the pointrcnn phase,
 ``--pointrcnn-train`` the build and the pointrcnn_train phase,
 ``--pvcnn`` the build and the pvcnn phase, ``--randla-configs`` the
-build and the randla_configs phase.
+build and the randla_configs phase, ``--pp-configs`` the build and the
+pp_configs phase.
 ``python3 chip_smoke.py --stencil-calls`` times only the room request's
 39 stencil convolutions,
 alone and inside a forward; ``python3 chip_smoke.py --knn-calls`` only
@@ -411,6 +416,33 @@ Phases, one line each (or more), in this order:
    at B = 2 of the room request against the CPU on the card's ReLU
    branches, with its BN statistics (loss ``RC_LOSS_TOL``, gradients and
    statistics ``RC_TOL``).
+21. pp_configs: PointPillars at its four other shipped YAMLs
+   (``PP_CONFIGS``), seeded weights, on ``pp_scene`` frames written in
+   each reader's own format (``write_nuscenes``, ``write_waymo``,
+   ``write_argoverse``: 12 train, 1 validation and 2 test frames of
+   40,000 points, cut to 32,768). Per net that runs (Lyft, nuScenes,
+   Argoverse; Argoverse's frames with a zero intensity column) on test
+   frame 0 at B = 1: the eval net (compact, float32) and the canvas net
+   at float32 card vs CPU (``PPC_TOL``), canvas vs compact at float32
+   where no cap binds (``PPC_CANVAS_TOL``; where one binds the largest
+   pillar is printed and nothing compared), the serving net (canvas,
+   bf16) vs float32 (``PP_BF16_BOUND``), the decode on the card
+   (one ``nms_bev`` call over B x C rows) against the CPU's, the median
+   of 10 forwards of the serving and the eval net with peak memory; then
+   ``run_pipeline.main`` on each YAML (Lyft and nuScenes: 2 steps of 6
+   and a validation frame's mAP, Lyft's peak memory, then ``--split
+   test``, which detects in both frames and raises ``NO_CAMERA_FAULT``;
+   Waymo raises ``NECK_FAULT``; Argoverse ``COLUMNS_FAULT``); the
+   Argoverse net trains one step through the model API; one float32
+   nuScenes step B = ``PP_CPU_BATCH`` from weights trained
+   ``PP_FIT_STEPS`` steps, its anchor targets card vs CPU
+   (``_pp_targets_vs_cpu``), held to float64 on the card's branches and
+   anchor targets (``_pp_step_vs_cpu``); ``convert_checkpoint`` of a
+   reference-shaped state_dict (``pp_reference_state_dict``) strict-loaded
+   on the card, card vs CPU; the launch counts (``PPC_LAUNCHES``); each
+   decode's ``nms_bev`` call held to the plain version and timed
+   (``_prcnn_nms_check``); one profiler pass over the six forwards in
+   this process (``ppc_profile``).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after. Any failed check raises, so the exit code is not 0. The
@@ -426,6 +458,7 @@ fallback: without CUDA the script fails first.
 
 import collections
 import contextlib
+import copy
 import functools
 import json
 import pickle
@@ -451,6 +484,7 @@ from open3d_ml_tpu_torch.datasets._resources.semantickitti import (
     LEARNING_MAP, LEARNING_MAP_INV)
 from open3d_ml_tpu_torch.datasets.synthetic import make_semseg_scene
 from open3d_ml_tpu_torch.datasets.utils import BEVBox3D
+from open3d_ml_tpu_torch.datasets.utils.bev_box import NO_CAMERA_FAULT
 from open3d_ml_tpu_torch.datasets.utils.ply import write_ply
 from open3d_ml_tpu_torch.models import kpconv as tkp
 from open3d_ml_tpu_torch.models import point_pillars as tpp
@@ -478,7 +512,7 @@ from open3d_ml_tpu_torch.ops.morton import hilbert_sort
 from open3d_ml_tpu_torch.ops.voxelize import voxelize
 from open3d_ml_tpu_torch.pipelines import (ObjectDetection,
                                            SemanticSegmentation)
-from open3d_ml_tpu_torch.utils import Config, collect_bboxes
+from open3d_ml_tpu_torch.utils import Config, collect_bboxes, convert_torch
 
 REPO = Path(__file__).resolve().parent
 TPU_KERNELS = "open3d_ml_tpu/ops/pallas/bucket.py"
@@ -633,6 +667,14 @@ PP_BF16_BOUND = 0.03
 PP_BF16_STAGE_SHARE = 0.01
 # the wrong casts planted_cast plants, besides one convolution in float32
 PP_FAULTS = ("bn_bf16", "head_bf16", "canvas_f32")
+# pp_configs: PointPillars' four other shipped YAMLs, and the points and
+# boxes of a pp_scene frame
+PP_CONFIGS = {
+    "lyft": "open3d_ml_tpu_torch/configs/pointpillars_lyft.yml",
+    "nuscenes": "open3d_ml_tpu_torch/configs/pointpillars_nuscenes.yml",
+    "argoverse": "open3d_ml_tpu_torch/configs/pointpillars_argoverse.yml",
+    "waymo": "open3d_ml_tpu_torch/configs/pointpillars_waymo.yml"}
+PP_SCENE_POINTS, PP_SCENE_BOXES = 40_000, 12
 # KITTI calib lines: velodyne -> camera swaps the axes (x_cam = -y,
 # y_cam = -z, z_cam = x), P2 a KITTI camera's intrinsics
 KITTI_P = ("7.215377e+02 0.000000e+00 6.095593e+02 0.000000e+00 "
@@ -3274,8 +3316,69 @@ def write_kitti_frame(root, split, idx, seed, scene=make_objdet_scene):
     points.tofile(dirs["velodyne"] / f"{idx:06d}.bin")
     calib_path = dirs["calib"] / f"{idx:06d}.txt"
     calib_path.write_text("\n".join(KITTI_CALIB) + "\n")
-    calib = KITTI.read_calib(calib_path)
+    lines = kitti_label_lines(boxes, KITTI.read_calib(calib_path),
+                              np.random.default_rng(seed))
+    (dirs["label_2"] / f"{idx:06d}.txt").write_text("\n".join(lines) + "\n")
+
+
+def pp_scene(cfg, seed, n=None, boxes=None, columns=4):
+    """A lidar-like frame for the PointPillars model section ``cfg``:
+    (points [n, columns] float32: x, y, z, intensity and 0s; box dicts
+    {'center' (its middle), 'size' (w, h, l), 'yaw', 'label_class',
+    'points' (how many of the points are its)}). Ground returns over the
+    config's range from 2.5 m out (the ego vehicle's footprint holds
+    none), denser near the sensor, at the first class's anchor height;
+    ``boxes`` boxes (``PP_SCENE_BOXES``) of the config's classes in turn
+    at their anchor sizes, jittered, standing on that ground, each a
+    shell of points (more the nearer it is, and fewer in a frame of
+    fewer points), the first within 15 m. ``n`` is ``PP_SCENE_POINTS`` by
+    default."""
+    n = PP_SCENE_POINTS if n is None else n
+    boxes = PP_SCENE_BOXES if boxes is None else boxes
     rng = np.random.default_rng(seed)
+    pr = cfg["point_cloud_range"]
+    head = cfg["head"]
+    ground = head["ranges"][0][2]
+    reach = min(pr[3], -pr[0], pr[4], -pr[1])
+    parts, out = [], []
+    for i in range(boxes):
+        cls = cfg["classes"][i % len(cfg["classes"])]
+        w, l, h = np.asarray(head["sizes"][i % len(head["sizes"])]) * \
+            rng.uniform(0.9, 1.1, 3)
+        r = rng.uniform(4, 15) if i == 0 else rng.uniform(4, 0.9 * reach)
+        phi = rng.uniform(-np.pi, np.pi)
+        cx, cy, cz = r * np.cos(phi), r * np.sin(phi), ground + h / 2
+        yaw = rng.uniform(-np.pi, np.pi)
+        k = max(8, int(min(60 * (w * l + h * (w + l)) * 12 / r, 600) *
+                       n / PP_SCENE_POINTS))
+        face = rng.integers(0, 5, k)
+        u, v = rng.uniform(-0.5, 0.5, (2, k))
+        px = np.where(face == 0, -w / 2, np.where(face == 1, w / 2, u * w))
+        py = np.where(face == 2, -l / 2, np.where(face == 3, l / 2, v * l))
+        py = np.where(face < 2, u * l, py)
+        pz = np.where(face == 4, h / 2, rng.uniform(-0.5, 0.5, k) * h)
+        c, sn = np.cos(yaw), np.sin(yaw)
+        parts.append(np.stack([cx + c * px - sn * py, cy + sn * px + c * py,
+                               cz + pz, rng.uniform(0.3, 1.0, k)], 1))
+        out.append({"center": np.array([cx, cy, cz]),
+                    "size": np.array([w, h, l]), "yaw": yaw,
+                    "label_class": cls, "points": k})
+    m = n - sum(len(p) for p in parts)
+    r = 2.5 + (reach - 2.5) * rng.uniform(0, 1, m) ** 1.5
+    phi = rng.uniform(-np.pi, np.pi, m)
+    parts.append(np.stack([r * np.cos(phi), r * np.sin(phi),
+                           rng.normal(ground, 0.05, m),
+                           rng.uniform(0, 0.4, m)], 1))
+    points = np.zeros((n, max(columns, 4)), np.float32)
+    points[:, :4] = np.concatenate(parts)[rng.permutation(n)]
+    return points[:, :columns], out
+
+
+def kitti_label_lines(boxes, calib, rng):
+    """KITTI label lines of box dicts (``pp_scene``'s or
+    ``make_objdet_scene``'s) in the camera frame of ``calib``, the image
+    rectangle projected through P2, truncation and occlusion drawn from
+    ``rng``."""
     lines = []
     for box in boxes:
         bev = BEVBox3D(box["center"], box["size"], box["yaw"],
@@ -3289,7 +3392,93 @@ def write_kitti_frame(root, split, idx, seed, scene=make_objdet_scene):
             f"{rng.integers(0, 3)} 0.00 {cx - w / 2:.2f} {cy - h / 2:.2f} "
             f"{cx + w / 2:.2f} {cy + h / 2:.2f} {height:.2f} {width:.2f} "
             f"{length:.2f} {x:.2f} {y:.2f} {z:.2f} {box['yaw']:.2f}")
-    (dirs["label_2"] / f"{idx:06d}.txt").write_text("\n".join(lines) + "\n")
+    return lines
+
+
+def write_nuscenes(root, cfg, frames, n=None):
+    """``pp_scene`` frames in nuScenes' (and Lyft's) info format under
+    ``root``: ``frames`` {split: [seed, ...]} -> ``infos_{split}.pkl``
+    and a [n, 5] float32 sweep a frame (x, y, z, intensity, ring 0); each
+    info's gt boxes (x, y, z, w, l, h, yaw), names and lidar point counts,
+    and one more box of the first class with no points (the reader drops
+    it), the lidar-to-ego pose a yaw and a lift."""
+    root = Path(root)
+    (root / "sweeps").mkdir(parents=True, exist_ok=True)
+    for split, seeds in frames.items():
+        infos = []
+        for seed in seeds:
+            points, boxes = pp_scene(cfg, seed, n, columns=5)
+            path = root / "sweeps" / f"{split}_{seed:05d}.bin"
+            points.tofile(path)
+            rows = [[*b["center"], b["size"][0], b["size"][2],
+                     b["size"][1], b["yaw"]] for b in boxes]
+            rows.append([0.0, 0.0, -50.0, 1.0, 1.0, 1.0, 0.0])
+            half = np.random.default_rng(seed).uniform(-0.2, 0.2)
+            infos.append({
+                "lidar_path": str(path),
+                "lidar2ego_rot": [0.0, 0.0, np.sin(half), np.cos(half)],
+                "lidar2ego_tr": [0.9, 0.0, 1.8],
+                "num_lidar_pts": np.array([b["points"] for b in boxes] +
+                                          [0]),
+                "gt_boxes": np.array(rows),
+                "gt_names": np.array([b["label_class"] for b in boxes] +
+                                     [cfg["classes"][0]])})
+        with open(root / f"infos_{split}.pkl", "wb") as f:
+            pickle.dump(infos, f)
+
+
+def write_waymo(root, cfg, frames, n=None):
+    """``pp_scene`` frames in the Waymo export's KITTI layout under
+    ``root``: ``frames`` {prefix: [seed, ...]} -> ``velodyne/
+    {prefix}_{seed}.bin`` ([n, 6] float32), the KITTI calib
+    (``KITTI_CALIB``) and ``label_all/`` lines (``kitti_label_lines``)."""
+    root = Path(root)
+    for d in ("velodyne", "calib", "label_all"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    for prefix, seeds in frames.items():
+        for seed in seeds:
+            name = f"{prefix}_{seed:05d}"
+            points, boxes = pp_scene(cfg, seed, n, columns=6)
+            points.tofile(root / "velodyne" / f"{name}.bin")
+            calib_path = root / "calib" / f"{name}.txt"
+            calib_path.write_text("\n".join(KITTI_CALIB) + "\n")
+            lines = kitti_label_lines(boxes, KITTI.read_calib(calib_path),
+                                      np.random.default_rng(seed))
+            (root / "label_all" / f"{name}.txt").write_text(
+                "\n".join(lines) + "\n")
+
+
+def write_argoverse(root, cfg, frames, n=None):
+    """``pp_scene`` frames in Argoverse's info format under ``root``:
+    ``frames`` {split: [seed, ...]} -> ``infos_{split}.pkl`` holding one
+    log of those sweeps, each a PLY of x, y, z, its boxes as dicts whose
+    ``2d_coord`` (two BEV corners along the box's length) gives the yaw,
+    in (0, pi) as the reader reads it."""
+    root = Path(root)
+    (root / "lidar").mkdir(parents=True, exist_ok=True)
+    for split, seeds in frames.items():
+        paths, bboxes = [], []
+        for seed in seeds:
+            points, boxes = pp_scene(cfg, seed, n, columns=3)
+            path = root / "lidar" / f"{split}_{seed:05d}.ply"
+            write_ply(str(path), [points], ["x", "y", "z"])
+            paths.append(str(path))
+            frame = []
+            for b in boxes:
+                yaw = b["yaw"] % np.pi
+                yaw = min(max(yaw, 0.05), np.pi - 0.05)
+                if abs(yaw - np.pi / 2) < 0.05:
+                    yaw = np.pi / 2 + 0.05
+                t = np.tan(yaw - np.pi / 2)
+                frame.append({"label_class": b["label_class"],
+                              "center": np.asarray(b["center"]),
+                              "w": b["size"][0], "h": b["size"][1],
+                              "l": b["size"][2],
+                              "2d_coord": np.array([[t, 1.0], [0.0, 0.0]])})
+            bboxes.append(frame)
+        with open(root / f"infos_{split}.pkl", "wb") as f:
+            pickle.dump([{"num_pc": len(paths), "lidar_path": paths,
+                          "bbox": bboxes}], f)
 
 
 def pp_request(model, seed=SEED):
@@ -3337,6 +3526,17 @@ def pp_random_weights(net, seed=SEED):
                 m.running_var.copy_(
                     torch.rand(m.running_var.shape, generator=gen) + 0.5)
     return net
+
+
+def pp_reference_state_dict(net, seed=SEED):
+    """What ``convert_pointpillars`` takes from a reference checkpoint: a
+    state_dict under the reference's names (``convert_torch``'s
+    ``POINTPILLARS_NAMES``, inverted) with ``net``'s widths,
+    ``pp_random_weights``' draws in a copy of ``net``, on the CPU."""
+    state = pp_random_weights(copy.deepcopy(net).cpu(), seed).state_dict()
+    return {convert_torch.rename(key, convert_torch.POINTPILLARS_NAMES,
+                                 inverse=True): value.clone()
+            for key, value in state.items()}
 
 
 def pp_flops(model, scans):
@@ -4007,7 +4207,7 @@ def _pp_step_events(pipeline, inputs, steps):
     return losses, ms
 
 
-def _pp_targets_vs_cpu(model, gt):
+def _pp_targets_vs_cpu(model, gt, phase="pp_train"):
     """The anchor targets of a batch's gt boxes on the card and on the
     CPU: masks, labels and direction targets equal, the largest delta
     difference returned."""
@@ -4018,7 +4218,7 @@ def _pp_targets_vs_cpu(model, gt):
                                   gt["bbox_count"])
     for key in ("pos_mask", "neg_mask", "target_labels", "dir_targets"):
         if not torch.equal(card[key].cpu(), cpu[key]):
-            raise AssertionError(f"pp_train: anchor {key} card vs CPU")
+            raise AssertionError(f"{phase}: anchor {key} card vs CPU")
     return (card["target_deltas"].cpu() - cpu["target_deltas"]).abs().max()\
         .item(), int(cpu["pos_mask"].sum())
 
@@ -4034,17 +4234,26 @@ def _float64_step():
     return stack
 
 
-def _pp_step_vs_cpu(state, batch, witness=False):
+def _pp_step_vs_cpu(state, batch, witness=False, cfg=POINTPILLARS_KITTI,
+                    phase="pp_train"):
     """One float32 training step (canvas, float32 convolutions) of the
-    KITTI net from ``state`` on the host ``batch``, on the card and on the
-    CPU, the CPU on the card's ReLU and pillar-max branches
-    (``_SameBranches(net="pp")``). With ``witness`` the CPU runs the step
-    in float64 too, on the same branches. Returns (loss relative
+    net of the model section ``cfg`` (KITTI's by default) from ``state``
+    on the host ``batch``, on the card and on the CPU, the CPU on the
+    card's ReLU and pillar-max branches (``_SameBranches(net="pp")``) and
+    on its anchor targets. With ``witness`` the CPU runs the step in
+    float64 too, on the same branches and targets: the anchor assignment
+    compares IoUs with its thresholds and with each gt's best IoU, and in
+    float64 some of those comparisons fall the other way (11 of 842
+    positive anchors on nuScenes frames of ``pp_configs``), which moves
+    the gradient by far more than rounding. Returns (loss relative
     difference, [(gradient relative L2, parameter)] and [(relative L2
     after the step, BatchNorm statistic)], each worst first, the branches,
-    CPU seconds, and with ``witness`` {parameter: (the card's, the CPU's
-    gradient relative L2 from the float64 one)})."""
+    CPU seconds, with ``witness`` {parameter: (the card's, the CPU's
+    gradient relative L2 from the float64 one)}, and {side: anchor
+    decisions (positive, negative, label, direction) it would have taken
+    otherwise})."""
     out = {}
+    targets, targets_differ = {}, {}
     sides = [("card", DEVICE), ("cpu", "cpu")]
     if witness:
         sides.append(("float64", "cpu"))
@@ -4052,8 +4261,11 @@ def _pp_step_vs_cpu(state, batch, witness=False):
         for side, device in sides:
             with (_float64_step() if side == "float64" else
                   contextlib.nullcontext()):
-                model = MODEL.get("PointPillars")(**POINTPILLARS_KITTI,
+                model = MODEL.get("PointPillars")(**cfg,
                                                   compute_dtype="float32")
+                model.assign_bboxes = functools.partial(
+                    _card_targets, model.assign_bboxes, side, targets,
+                    targets_differ)
                 net = model.get_net()
                 net.load_state_dict(state)
                 if side == "float64":
@@ -4076,7 +4288,7 @@ def _pp_step_vs_cpu(state, batch, witness=False):
                 branches.replay()
             else:
                 if branches.recorded:
-                    raise AssertionError(f"pp_train: the {side} step took "
+                    raise AssertionError(f"{phase}: the {side} step took "
                                          f"fewer branches than the card's")
                 branches.recorded = list(recorded)
                 if side == "cpu":
@@ -4090,7 +4302,28 @@ def _pp_step_vs_cpu(state, batch, witness=False):
     exact = {k: (_rel_l2(gpu["grad"][k], v), _rel_l2(cpu["grad"][k], v))
              for k, v in out["float64"]["grad"].items()} if witness else None
     return (abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"]), grads, stats,
-            branches, cpu["seconds"], exact)
+            branches, cpu["seconds"], exact, targets_differ)
+
+
+def _flipped_line(flipped):
+    """``_pp_step_vs_cpu``'s anchor decisions apart, as text."""
+    return "; ".join(f"the {side} step's own differ in {n} decisions"
+                     for side, n in flipped.items())
+
+
+def _card_targets(assign, side, targets, differ, *args):
+    """``assign(*args)`` (a model's ``assign_bboxes``) on the card's side,
+    kept in ``targets``; on another side the card's targets in its dtype
+    and device, the decisions its own would have taken otherwise counted
+    in ``differ[side]``."""
+    own = assign(*args)
+    if side == "card":
+        targets.update({k: v.cpu() for k, v in own.items()})
+        return own
+    differ[side] = sum(int((own[k].cpu() != targets[k]).sum()) for k in
+                       ("pos_mask", "neg_mask", "target_labels",
+                        "dir_targets"))
+    return {k: targets[k].to(v.device, v.dtype) for k, v in own.items()}
 
 
 def pp_train_profile():
@@ -4156,7 +4389,8 @@ def pp_train_profile():
                       "conv_ms": conv, "top": top}), flush=True)
 
 
-def _pp_fit(model, dataset, root, batch, seeded):
+def _pp_fit(model, dataset, root, batch, seeded,
+            pipeline_cfg=POINTPILLARS_TRAIN_PIPELINE, phase="pp_train"):
     """The weights after ``PP_FIT_STEPS`` AdamW steps on ``batch`` of a
     fresh pipeline seeded as pp_train's first (its net checked equal to
     ``seeded``), under torch's deterministic algorithms, and the total
@@ -4169,10 +4403,10 @@ def _pp_fit(model, dataset, root, batch, seeded):
     pipeline = ObjectDetection(model, dataset=dataset, device=DEVICE,
                                seed=SEED, max_epoch=0,
                                main_log_dir=str(root / "fit"),
-                               **POINTPILLARS_TRAIN_PIPELINE)
+                               **pipeline_cfg)
     for key, value in pipeline.net.state_dict().items():
         if not torch.equal(value.cpu(), seeded[key]):
-            raise AssertionError(f"pp_train fit: {key} is not the seeded "
+            raise AssertionError(f"{phase} fit: {key} is not the seeded "
                                  f"weights'")
     pipeline.optimizer, _ = model.get_optimizer(pipeline.cfg, pipeline.net)
     inputs = pipeline._device_batch(batch)
@@ -4183,7 +4417,7 @@ def _pp_fit(model, dataset, root, batch, seeded):
     finally:
         torch.use_deterministic_algorithms(False)
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"pp_train fit: loss did not fall: {losses}")
+        raise AssertionError(f"{phase} fit: loss did not fall: {losses}")
     return ({k: v.cpu().clone()
              for k, v in pipeline.net.state_dict().items()}, losses)
 
@@ -4349,12 +4583,13 @@ def phase_pp_train(card):
                             (f"the weights after {PP_FIT_STEPS} steps",
                              fitted)):
             t1 = time.perf_counter()
-            loss_rel, grads, stats, branches, cpu_s, exact = \
+            loss_rel, grads, stats, branches, cpu_s, exact, flipped = \
                 _pp_step_vs_cpu(state, host, witness=state is fitted)
             say("pp_train", f"one float32 step B={PP_CPU_BATCH} from {name}, "
                 f"card vs CPU on the card's branches ({branches.differ} of "
                 f"{branches.total} ReLU and pillar-max choices the CPU would "
-                f"have made otherwise): loss relative difference "
+                f"have made otherwise) and anchor targets "
+                f"({_flipped_line(flipped)}): loss relative difference "
                 f"{loss_rel:.3e} (bound 1e-5); relative L2 of each "
                 f"parameter's gradient ("
                 f"{'printed' if exact else 'bound 1e-4'}), the worst: "
@@ -6095,7 +6330,7 @@ def nms_trace(boxes, valid, thr, keep):
     return int(off.sum())
 
 
-def _prcnn_nms_check(label, args):
+def _prcnn_nms_check(label, args, phase="pointrcnn"):
     """nms_bev on one captured call (boxes [R, N, 5] in score order, valid,
     threshold) against its plain version on the card: every keep decision
     of the kernel traced through the plain IoU (``nms_trace``), and the
@@ -6116,7 +6351,7 @@ def _prcnn_nms_check(label, args):
     pairs = _overlapping_pairs(boxes, valid)
     bounds = bound(nbytes(boxes, valid) + r * n, pairs * NMS_PAIR_OPS)
     rows_valid = valid.sum(1).tolist()
-    say("pointrcnn", f"nms_bev {label} R={r} N={n} threshold {thr}: valid "
+    say(phase, f"nms_bev {label} R={r} N={n} threshold {thr}: valid "
         f"boxes a row {rows_valid}, kernel keeps {got.sum(1).tolist()}, "
         f"plain {want.sum(1).tolist()}; every kernel decision traced "
         f"through the plain IoU, {near} decided by a kept pair within "
@@ -8453,6 +8688,519 @@ def phase_randla_configs(card):
 
 # the sources ``--vs-parent`` builds from an earlier commit, where DIR
 # holds them
+# ------------------------------------------------------------- pp_configs
+
+# pp_configs: each config's frames by split (pp_scene seeds; the train
+# split two steps of the YAMLs' 6), the configs whose net runs, the
+# config of the float32 step, and the phase's launches: one decode in
+# each net's gates, and in Lyft's and nuScenes' command lines one a
+# validation frame and one a test frame
+PPC_FRAMES = {"train": 12, "val": 1, "test": 2}
+PPC_NETS = ("lyft", "nuscenes", "argoverse")
+PPC_STEP = "nuscenes"
+PPC_TOL = 1e-4  # float32 card vs CPU; the step's gradients vs float64
+PPC_CANVAS_TOL = 1e-5  # canvas vs compact, float32, where no cap binds
+PPC_LAUNCHES = {"nms_bev": len(PPC_NETS) + 2 * (PPC_FRAMES["val"] +
+                                                PPC_FRAMES["test"])}
+PPC_WRITERS = {"lyft": write_nuscenes, "nuscenes": write_nuscenes,
+               "waymo": write_waymo, "argoverse": write_argoverse}
+PPC_READERS = {"lyft": "Lyft", "nuscenes": "NuScenes", "waymo": "Waymo",
+               "argoverse": "Argoverse"}
+
+
+def ppc_section(name, section="model"):
+    """A section of the port's YAML of config ``name``, as keyword
+    arguments: the model's but its name and checkpoint, the pipeline's
+    but its name, directories and epochs."""
+    cfg = Config.load_from_file(REPO / PP_CONFIGS[name])[section].to_dict()
+    drop = ("name", "ckpt_path", "main_log_dir", "train_sum_dir",
+            "max_epoch")
+    return {k: v for k, v in cfg.items() if k not in drop}
+
+
+def ppc_model(name, **overrides):
+    return MODEL.get("PointPillars")(**ppc_section(name), seed=SEED,
+                                     **overrides)
+
+
+def write_ppc_data(name, root):
+    """``PPC_FRAMES`` frames of config ``name`` in its reader's format
+    under ``root`` (``pp_scene`` seeds from 300 + 100 i); its dataset."""
+    base = 300 + 100 * list(PP_CONFIGS).index(name)
+    frames, seed = {}, base
+    for split, count in PPC_FRAMES.items():
+        frames[split] = list(range(seed, seed + count))
+        seed += count
+    PPC_WRITERS[name](root, ppc_section(name), frames)
+    return DATASET.get(PPC_READERS[name])(
+        dataset_path=str(root), test_result_folder=str(root / "results"))
+
+
+def _four_columns(data):
+    """A frame of 3 columns (Argoverse's) with a zero intensity column."""
+    pts = data["point"]
+    if pts.shape[1] == 3:
+        pts = np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], 1)
+    return dict(data, point=pts)
+
+
+def ppc_request(model, dataset):
+    """The test split's first frame through preprocess and transform, a
+    batch of the YAMLs' ``test_batch_size`` 1 (numpy); Argoverse's with
+    a zero intensity column (``_four_columns``)."""
+    split = dataset.get_split("test")
+    attr = split.get_attr(0)
+    sample = model.transform(
+        model.preprocess(_four_columns(split.get_data(0)), attr), attr)
+    return {"point": sample["point"][None],
+            "point_count": np.array([sample["point_count"]], np.int32)}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside are not counted: each count is restored after."""
+    saved = [dict(counts) for counts in COUNTERS]
+    try:
+        yield
+    finally:
+        for counts, before in zip(COUNTERS, saved):
+            counts.update(before)
+
+
+def _ppc_nets(name, dataset, card):
+    """Config ``name``'s serving net (canvas, bf16) and eval net (compact,
+    float32) on one frame: the eval net and the canvas net at float32 card
+    vs CPU, canvas vs compact at float32 where no cap binds, bf16 vs
+    float32 (``PP_BF16_BOUND``), the decode on the card (its ``nms_bev``
+    call captured) against the CPU's, median forwards and peak memory. Returns (its record, the nets and the
+    batch, kept for the profile)."""
+    model = ppc_model(name)
+    serve = model.get_net(training=False)
+    state = pp_random_weights(serve).state_dict()
+    nets = {"canvas bf16": serve,
+            "canvas float32": ppc_model(name, compute_dtype="float32")
+            .get_net(training=False),
+            "compact float32": model.get_eval_net()}
+    for net in nets.values():
+        net.load_state_dict(state)
+        net.eval().to(DEVICE)
+    batch = ppc_request(model, dataset)
+    x = _pp_batch(batch)
+    cfg = model.cfg
+    classes = len(model.classes)
+    anchors = model._anchors()
+    say("pp_configs", f"{name}: {classes} classes, canvas "
+        f"{model.output_shape[0]} x {model.output_shape[1]}, "
+        f"{anchors[..., 0].size:,} anchors ({anchors.shape[2]} sizes x "
+        f"{anchors.shape[3]} rotations a cell of the "
+        f"{anchors.shape[0]} x {anchors.shape[1]} map), max_num_points "
+        f"{model.max_num_points}, max_voxels {model.max_voxels}; test frame "
+        f"0 of the reader: {int(batch['point_count'][0])} points of "
+        f"{cfg.max_points}")
+
+    compact = _pp_outputs(nets["compact float32"], x)
+    cpu_net = model.get_eval_net()
+    cpu_net.load_state_dict(state)
+    t0 = time.perf_counter()
+    cpu = _pp_outputs(cpu_net.eval(), {k: torch.from_numpy(v)
+                                       for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    rel = _pp_rel(compact, cpu)
+    say("pp_configs", f"{name} compact float32 card vs CPU: relative L2 "
+        f"{rel:.3e} (bound {PPC_TOL:g}; CPU forward {cpu_s:.1f} s)")
+    if not rel <= PPC_TOL:
+        raise AssertionError(f"pp_configs {name}: card vs CPU {rel}")
+
+    canvas32 = _pp_outputs(nets["canvas float32"], x)
+    cpu_net = ppc_model(name, compute_dtype="float32").get_net(
+        training=False)
+    cpu_net.load_state_dict(state)
+    rel = _pp_rel(canvas32, _pp_outputs(cpu_net.eval(), {
+        k: torch.from_numpy(v) for k, v in batch.items()}))
+    say("pp_configs", f"{name} canvas float32 card vs CPU: relative L2 "
+        f"{rel:.3e} (bound {PPC_TOL:g})")
+    if not rel <= PPC_TOL:
+        raise AssertionError(f"pp_configs {name}: canvas card vs CPU {rel}")
+
+    (most, pillars), = _pp_occupancy(model, batch)
+    rel = _pp_rel(canvas32, compact)
+    binds = most > model.max_num_points or pillars > model.max_voxels[1]
+    say("pp_configs", f"{name} canvas vs compact, float32 on the card: "
+        f"relative L2 {rel:.3e}; the largest pillar holds {most} points "
+        f"(cap {model.max_num_points}), {pillars} pillars (cap "
+        f"{model.max_voxels[1]}): " +
+        ("a cap binds, so the nets differ by design: reported, not "
+         "compared" if binds else f"no cap binds (bound {PPC_CANVAS_TOL:g})"))
+    if not binds and not rel <= PPC_CANVAS_TOL:
+        raise AssertionError(f"pp_configs {name}: canvas vs compact {rel}")
+    bf16 = _pp_rel(_pp_outputs(nets["canvas bf16"], x), canvas32)
+    say("pp_configs", f"{name} canvas bf16 vs float32 on the card: "
+        f"relative L2 {bf16:.3e} (bound {PP_BF16_BOUND})")
+    if not 0 < bf16 <= PP_BF16_BOUND:
+        raise AssertionError(f"pp_configs {name}: bf16 vs float32 {bf16}")
+
+    found = []
+    calls = _captured(cnms, "nms_bev",
+                      lambda: found.append(model.get_bboxes(*compact)))
+    if len(calls) != 1:
+        raise AssertionError(f"pp_configs {name}: {len(calls)} nms_bev calls")
+    card_dec = found[0]
+    cpu_dec = model.get_bboxes(*[o.cpu() for o in compact])
+    valid = card_dec[3].cpu()
+    same = (torch.equal(valid, cpu_dec[3]) and
+            torch.equal(card_dec[2].cpu(), cpu_dec[2]))
+    diff = (card_dec[0].cpu()[valid] - cpu_dec[0][valid]).abs()
+    drel = (diff / cpu_dec[0][valid].abs().clamp(min=1)).max().item() \
+        if valid.any() else 0.0
+    boxes = calls[0][0][0]
+    say("pp_configs", f"{name} decode on the card: one nms_bev call over "
+        f"{boxes.shape[0]} rows (B x {classes} classes) of "
+        f"{boxes.shape[1]} candidates; {int(valid.sum())} detections, the "
+        f"CPU's decode the same kept set {same}, boxes within {drel:.3e} "
+        f"of max(1, |v|) (bound 1e-5)")
+    if not same or not drel <= 1e-5:
+        raise AssertionError(f"pp_configs {name}: decode card vs CPU")
+
+    times = {}
+    for key in ("canvas bf16", "compact float32"):
+        torch.cuda.reset_peak_memory_stats()
+        fwd, runs = median_forward_s(nets[key], x)
+        times[key] = (fwd, min(runs), max(runs),
+                      torch.cuda.max_memory_allocated())
+    return ({"nms_args": calls[0][0], "times": times, "most": most,
+             "binds": binds}, (nets, x))
+
+
+def ppc_profile(nets_and_batches):
+    """One torch.profiler pass over one forward of each config's serving
+    and eval net, split by record_function ranges: {(config, net): device
+    ms of the kernel rows, kernels, wall ms}. In this process: no other
+    phase profiles in it, and the profiler traces the card once a
+    process."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    keys = [(name, net) for name in nets_and_batches
+            for net in ("canvas bf16", "compact float32")]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for name, net in keys:
+                nets, x = nets_and_batches[name]
+                with record_function(f"ppc {name} {net}"):
+                    nets[net](x)
+                    torch.cuda.synchronize()
+    events = prof.events()
+    out = {}
+    for name, net in keys:
+        rng = next(e for e in events if e.name == f"ppc {name} {net}" and
+                   e.device_type == torch.autograd.DeviceType.CPU)
+        start, end = rng.time_range.start, rng.time_range.end
+        rows = [e for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA and
+                not e.name.startswith("ppc ") and
+                start <= e.time_range.start <= end]
+        out[name, net] = {
+            "device_ms": sum(e.time_range.elapsed_us() for e in rows) / 1e3,
+            "kernels": len(rows), "wall_ms": (end - start) / 1e3}
+        if out[name, net]["device_ms"] <= 0:
+            raise AssertionError(f"pp_configs: the profiler saw no device "
+                                 f"time in {name} {net}")
+    return out
+
+
+def _ppc_step(dataset, root, card):
+    """One float32 training step at ``PPC_STEP`` (B = ``PP_CPU_BATCH``) on
+    the card from weights trained ``PP_FIT_STEPS`` steps under torch's
+    deterministic algorithms (``_pp_fit``), held to the same step in
+    float64 on the CPU, both on the card's branches
+    (``_pp_step_vs_cpu``): the full-width float32 step is
+    ill-conditioned, so the card's CPU twin is printed, not held."""
+    model = ppc_model(PPC_STEP)
+    pipe = ppc_section(PPC_STEP, "pipeline")
+    pipeline = ObjectDetection(model, dataset=dataset, device=DEVICE,
+                               seed=SEED, max_epoch=0,
+                               main_log_dir=str(root / "step"), **pipe)
+    seeded = {k: v.cpu().clone()
+              for k, v in pipeline.net.state_dict().items()}
+    loader = PointCloudDataloader(dataset.get_split("train"),
+                                  preprocess=model.preprocess,
+                                  transform=model.transform)
+    batch = next(iter(BatchLoader(loader, pipe["batch_size"],
+                                  DefaultBatcher(), num_workers=0)))
+    fitted, losses = _pp_fit(model, dataset, root, batch, seeded,
+                             pipeline_cfg=pipe, phase="pp_configs")
+    host = {k: torch.from_numpy(v[:PP_CPU_BATCH])
+            for k, v in batch["data"].items() if isinstance(v, np.ndarray)}
+    delta, pos = _pp_targets_vs_cpu(model, host, "pp_configs")
+    say("pp_configs", f"{PPC_STEP}: anchor targets of the step's batch "
+        f"({pos} positives of {host['bbox_count'].sum().item()} gt boxes), "
+        f"card vs CPU: masks, labels and direction targets equal, deltas "
+        f"within {delta:.3e} (bound 1e-6)")
+    if not delta <= 1e-6:
+        raise AssertionError("pp_configs: anchor deltas card vs CPU")
+    loss_rel, grads, stats, branches, cpu_s, exact, flipped = _pp_step_vs_cpu(
+        fitted, host, witness=True, cfg=ppc_section(PPC_STEP),
+        phase="pp_configs")
+    worst = max(a for a, _ in exact.values())
+    cpu_worst = max(b for _, b in exact.values())
+    say("pp_configs", f"{PPC_STEP}: {PP_FIT_STEPS} steps of "
+        f"{pipe['batch_size']} frames from the seeded weights under "
+        f"deterministic algorithms, total loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; then one float32 step B={PP_CPU_BATCH} on the "
+        f"card and on the CPU, and in float64 on the CPU, on the card's "
+        f"branches ({branches.differ} of {branches.total} ReLU and "
+        f"pillar-max choices the CPU would have made otherwise) and anchor "
+        f"targets ({_flipped_line(flipped)}): loss card "
+        f"vs CPU {loss_rel:.3e} (bound 1e-5); gradients' relative L2 from "
+        f"float64, the worst: card {worst:.3e} (bound {PPC_TOL:g}), CPU "
+        f"{cpu_worst:.3e}; card vs CPU, the worst: " +
+        ", ".join(f"{k} {v:.3e}" for v, k in grads[:3]) +
+        f"; BN statistics card vs CPU, the worst {stats[0][1]} "
+        f"{stats[0][0]:.3e} (bound 1e-4); CPU step {cpu_s:.1f} s")
+    if not (loss_rel <= 1e-5 and worst <= PPC_TOL and
+            stats[0][0] <= 1e-4):
+        raise AssertionError(f"pp_configs: the {PPC_STEP} step disagrees")
+
+
+def _ppc_argoverse_step(dataset, card):
+    """The Argoverse net (the YAML's, canvas bf16) trains one AdamW step
+    of the YAML's batch on the card through the model API, on the
+    reader's train frames with a zero intensity column: finite losses."""
+    model = ppc_model("argoverse")
+    pipe = ppc_section("argoverse", "pipeline")
+    split = dataset.get_split("train")
+    samples = []
+    for i in range(pipe["batch_size"]):
+        attr = split.get_attr(i)
+        samples.append({"data": model.transform(model.preprocess(
+            _four_columns(split.get_data(i)), attr), attr), "attr": attr})
+    batch = DefaultBatcher().collate_fn(samples)
+    x = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch["data"].items()
+         if isinstance(v, np.ndarray)}
+    net = model.get_net().to(DEVICE).train()
+    opt, _ = model.get_optimizer(pipe, net)
+    losses = model.get_loss(net(x), x)
+    opt.zero_grad(set_to_none=True)
+    sum(losses.values()).backward()
+    opt.step()
+    values = {k: v.item() for k, v in losses.items()}
+    say("pp_configs", f"argoverse: one AdamW step of {pipe['batch_size']} "
+        f"frames through the model API (x, y, z and a zero intensity), "
+        f"{int(batch['data']['bbox_count'].sum())} gt boxes: losses "
+        f"{values}")
+    if not all(np.isfinite(v) for v in values.values()):
+        raise AssertionError(f"pp_configs argoverse step: {values}")
+
+
+@contextlib.contextmanager
+def _ppc_record(record):
+    """Within: each ``ObjectDetection`` train step appends (seconds,
+    losses) to ``record["steps"]``, its end after a synchronise; each
+    ``run_valid`` its mAP to ``record["valid"]``; each ``_detect`` its
+    frames to ``record["frames"]``."""
+    step, valid, detect = (ObjectDetection._train_step,
+                           ObjectDetection.run_valid,
+                           ObjectDetection._detect)
+
+    def train_step(self, inputs):
+        t0 = time.perf_counter()
+        losses = step(self, inputs)
+        torch.cuda.synchronize()
+        record["steps"].append((time.perf_counter() - t0,
+                                {k: float(v) for k, v in losses.items()}))
+        return losses
+
+    def run_valid(self, *args, **kwargs):
+        out = valid(self, *args, **kwargs)
+        record["valid"].append(out)
+        return out
+
+    def _detect(self, batch):
+        out = detect(self, batch)
+        record["frames"] += len(out)
+        return out
+
+    with mock.patch.object(ObjectDetection, "_train_step", train_step), \
+            mock.patch.object(ObjectDetection, "run_valid", run_valid), \
+            mock.patch.object(ObjectDetection, "_detect", _detect):
+        yield
+
+
+def _ppc_cli(name, root, card):
+    """``run_pipeline.main`` on the port's YAML of ``name`` over its
+    frames under ``root / name``. Lyft and nuScenes: ``--split train``
+    (the YAML's batch of 6: 2 steps, then the validation frame's mAP),
+    then ``--split test`` from the checkpoint, which detects in each test
+    frame and then cannot write the boxes as KITTI lines (the frames have
+    no camera: ``NO_CAMERA_FAULT``, as in JAX). Waymo: the net fails in
+    the neck (``NECK_FAULT``); Argoverse: ``transform`` fails on the
+    reader's 3 columns (``COLUMNS_FAULT``). Returns the train run's
+    record."""
+    argv = ["-c", str(REPO / PP_CONFIGS[name]),
+            "--dataset.dataset_path", str(root / name),
+            "--dataset.test_result_folder", str(root / name / "results"),
+            "--main_log_dir", str(root / "logs" / name),
+            "--pipeline.train_sum_dir", str(root / "tb"),
+            "--pipeline.max_epoch", "0", "--device", DEVICE]
+    faults = {"waymo": (RuntimeError, tpp.NECK_FAULT),
+              "argoverse": (ValueError, tpp.COLUMNS_FAULT)}
+    record = {"steps": [], "valid": [], "frames": 0}
+    with _ppc_record(record):
+        t0 = time.perf_counter()
+        if name in faults:
+            error, fault = faults[name]
+            try:
+                run_pipeline.main(argv + ["--split", "train"])
+            except error as err:
+                if fault not in str(err):
+                    raise
+                say("pp_configs", f"{name} --split train raised the pinned "
+                    f"fault after {time.perf_counter() - t0:.1f} s, "
+                    f"{len(record['steps'])} steps: {str(err)[:160]}...")
+                return record
+            raise AssertionError(f"pp_configs: {name} trained: no fault")
+        torch.cuda.reset_peak_memory_stats()
+        run_pipeline.main(argv + ["--split", "train"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        (ckpt,) = (root / "logs" / name).glob("**/ckpt_00000.pth")
+        t0 = time.perf_counter()
+        try:
+            run_pipeline.main(argv + ["--split", "test", "--ckpt_path",
+                                      str(ckpt)])
+            raise AssertionError(f"pp_configs: {name} test split saved "
+                                 f"its boxes: no fault")
+        except TypeError as err:
+            if NO_CAMERA_FAULT not in str(err):
+                raise
+        test_s = time.perf_counter() - t0
+    steps, valid = record["steps"], record["valid"]
+    expected = PPC_FRAMES["train"] // 6
+    if len(steps) != expected or len(valid) != 1 or \
+            record["frames"] != PPC_FRAMES["val"] + PPC_FRAMES["test"]:
+        raise AssertionError(f"pp_configs {name}: {len(steps)} steps, "
+                             f"{len(valid)} validations, "
+                             f"{record['frames']} frames detected")
+    if not all(np.isfinite(v) for _, losses in steps
+               for v in losses.values()):
+        raise AssertionError(f"pp_configs {name}: losses {steps}")
+    ap_bev, ap_3d = valid[0]
+    say("pp_configs", f"{name} command line: --split train {train_s:.1f} s, "
+        f"{len(steps)} steps of 6 frames "
+        f"({', '.join(f'{s * 1e3:.1f}' for s, _ in steps)} ms, "
+        f"synchronised), total losses "
+        f"{[round(sum(v.values()), 4) for _, v in steps]}, validation mAP "
+        f"BEV {ap_bev.mean():.4f}, 3D {ap_3d.mean():.4f} over "
+        f"{ap_bev.shape[0]} classes, peak device memory "
+        f"{peak / 2**30:.2f} GiB; --split test {test_s:.1f} s: "
+        f"{PPC_FRAMES['test']} frames detected, then the pinned fault "
+        f"(no camera matrix for the KITTI lines)")
+    return record
+
+
+def _ppc_convert(dataset, root, card):
+    """``convert_checkpoint`` on the card: a reference-shaped state_dict of
+    ``PPC_STEP``'s net (``pp_reference_state_dict``) saved as a ``.pth``,
+    converted, strict-loaded into the eval net on the card and on the
+    CPU; their head outputs on a frame within ``PPC_TOL``."""
+    model = ppc_model(PPC_STEP)
+    ref = pp_reference_state_dict(model.get_net(), seed=SEED + 7)
+    path = root / "reference.pth"
+    torch.save({"model_state_dict": ref}, path)
+    state = convert_torch.convert_checkpoint(path, "PointPillars")
+    batch = ppc_request(model, dataset)
+    outs = []
+    for device in (DEVICE, "cpu"):
+        net = model.get_eval_net()
+        net.load_state_dict(state, strict=True)
+        net.eval().to(device)
+        outs.append(_pp_outputs(net, {k: torch.from_numpy(v).to(device)
+                                      for k, v in batch.items()}))
+    rel = _pp_rel(*outs)
+    say("pp_configs", f"convert_checkpoint of a reference-shaped "
+        f"{PPC_STEP} state_dict ({len(ref)} tensors in a .pth): strict "
+        f"load on the card, eval net card vs CPU relative L2 {rel:.3e} "
+        f"(bound {PPC_TOL:g})")
+    if not rel <= PPC_TOL:
+        raise AssertionError(f"pp_configs: converted weights card vs CPU "
+                             f"{rel}")
+
+
+def phase_pp_configs(card):
+    """PointPillars at its four other shipped YAMLs, at full width, on
+    frames in each reader's own format: per net that runs (Lyft,
+    nuScenes, Argoverse) the serving and eval nets' gates, the decode over
+    B x C rows and its ``nms_bev`` call held to the plain version, median
+    forwards and a profile; one float32 step at nuScenes held to float64;
+    the command line on each YAML (Waymo's and Argoverse's failing as in
+    JAX), Argoverse's net training one step through the model API; and
+    ``convert_checkpoint`` on the card. Returns (``nms_bev``'s launches,
+    its records at the decode shapes). Its last line splits its seconds
+    by step."""
+    t0 = time.perf_counter()
+    spent = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t1 = time.perf_counter()
+        datasets = {name: write_ppc_data(name, root / name)
+                    for name in PP_CONFIGS}
+        spent["frames"] = time.perf_counter() - t1
+        say("pp_configs", f"frames written in {spent['frames']:.1f} s: " +
+            "; ".join(f"{name} " + ", ".join(
+                f"{s} {len(d.get_split(s))}" for s in PPC_FRAMES)
+                for name, d in datasets.items()))
+        frame = datasets["waymo"].get_split("train").get_data(0)
+        say("pp_configs", f"waymo reader: frame 0 {frame['point'].shape}, "
+            f"{len(frame['bounding_boxes'])} boxes")
+        reset_counts()
+        t1 = time.perf_counter()
+        results, kept = {}, {}
+        for name in PPC_NETS:
+            results[name], kept[name] = _ppc_nets(name, datasets[name],
+                                                  card)
+        spent["nets"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        for name in ("lyft", "nuscenes", "waymo", "argoverse"):
+            _ppc_cli(name, root, card)
+        spent["command line"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        _ppc_argoverse_step(datasets["argoverse"], card)
+        _ppc_step(datasets[PPC_STEP], root, card)
+        spent["steps"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        _ppc_convert(datasets[PPC_STEP], root, card)
+        spent["convert"] = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check_counts("pp_configs", launches, PPC_LAUNCHES)
+
+        t1 = time.perf_counter()
+        records = []
+        with uncounted():
+            for name in PPC_NETS:
+                records.append(_prcnn_nms_check(
+                    f"{name} decode", results[name]["nms_args"],
+                    phase="pp_configs"))
+        spent["nms checks"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        prof = ppc_profile(kept)
+        spent["profile"] = time.perf_counter() - t1
+        for name in PPC_NETS:
+            for net, (fwd, lo, hi, peak) in results[name]["times"].items():
+                p = prof[name, net]
+                say("pp_configs", f"{name} {net} forward B=1: median "
+                    f"{fwd * 1e3:.3f} ms over 10 runs (min {lo * 1e3:.3f}, "
+                    f"max {hi * 1e3:.3f}), peak device memory "
+                    f"{peak / 2**30:.2f} GiB; under torch.profiler "
+                    f"{p['kernels']} kernels, {p['device_ms']:.3f} ms device "
+                    f"time in a {p['wall_ms']:.3f} ms forward (busy "
+                    f"{p['device_ms'] / p['wall_ms']:.1%}) on {card}")
+    say("pp_configs", f"phase {time.perf_counter() - t0:.1f} s: " +
+        "; ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
+    return launches["nms_bev"], records
+
+
 PARENT_SOURCES = ("fps.cu", "nms_bev.cu", "trilinear_devoxelize.cu")
 
 
@@ -8878,6 +9626,11 @@ def main():
         return None
     if sys.argv[1:] == ["--pvcnn-profile"]:
         return pv_profile()
+    if sys.argv[1:] == ["--pp-configs"]:
+        card = phase_device()
+        phase_build()
+        phase_pp_configs(card)
+        return None
     card = phase_device()
     model = MODEL.get("RandLANet")()
     phase_build()
@@ -8922,6 +9675,7 @@ def main():
     (pv_launches, measured["trilinear_devoxelize"],
      measured["trilinear_devoxelize_bwd"],
      measured["trilinear_devoxelize_plan"]) = phase_pvcnn(card)
+    ppc_launches, ppc_nms = phase_pp_configs(card)
     # knn_exact: one RandLA eval forward's 4 launches, one
     # PointTransformer forward's 26, one PointRCNN frame's 14 and its two
     # training steps' 12 and 14; its launches, run_inference's, the three
@@ -8937,10 +9691,13 @@ def main():
     measured["fps"] = combine([measured["fps"], rc_fps, tr["fps"]])
     launches["fps"] = (pt_launches["fps"] + rc_launches["fps"] +
                        trained["fps"])
-    # nms_bev: one served PointRCNN frame's 2 calls and the RCNN-mode
-    # training step's 1
-    measured["nms_bev"] = combine([measured["nms_bev"], tr["nms_bev"]])
-    launches["nms_bev"] = rc_launches["nms_bev"] + trained["nms_bev"]
+    # nms_bev: one served PointRCNN frame's 2 calls, the RCNN-mode
+    # training step's 1 and the decodes of PointPillars' other configs;
+    # its launches, theirs and those of pp_configs' command lines
+    measured["nms_bev"] = combine([measured["nms_bev"], tr["nms_bev"],
+                                   *ppc_nms])
+    launches["nms_bev"] = (rc_launches["nms_bev"] + trained["nms_bev"] +
+                           ppc_launches)
     # the devoxelisation: one PVCNN forward's 4 launches and 2 plans, and
     # one step's 4 + 4 launches and 2 plans
     for name in ("trilinear_devoxelize", "trilinear_devoxelize_bwd",

@@ -10,6 +10,14 @@ import numpy as np
 
 from ...vis.boundingbox import BoundingBox3D
 
+# the KITTI line of a box without a camera matrix fails, in JAX too
+NO_CAMERA_FAULT = (
+    "ROADMAP.md queue 3, 'The nuScenes, Lyft and Argoverse test splits "
+    "cannot save their boxes': their frames carry no camera matrix "
+    "(cam_img), so a detected box has no image rectangle, and "
+    "save_test_result's KITTI line fails on it "
+    "(open3d_ml_tpu/datasets/utils/bev_box.py:44, in JAX too)")
+
 
 class BEVBox3D(BoundingBox3D):
 
@@ -41,6 +49,8 @@ class BEVBox3D(BoundingBox3D):
     def to_kitti_format(self, score=1.0):
         """Serialize to a KITTI label line."""
         box2d = self.to_img()
+        if box2d is None:
+            raise TypeError(f"no image rectangle: {NO_CAMERA_FAULT}")
         box2d[2:] += box2d[:2]  # (cx,cy,w,h) -> (x1,y1,x2,y2)
         truncation = -1
         occlusion = -1

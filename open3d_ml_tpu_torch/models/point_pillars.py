@@ -36,6 +36,12 @@ losses, ``get_optimizer`` AdamW (no gradient clipping: the JAX pipeline
 never reads ``grad_clip_norm``), and ``preprocess`` of the train split
 runs ``ObjdetAugmentation`` (ObjectSample with its gt database,
 ObjectRangeFilter, PointShuffle) after the range filter.
+
+Of the five shipped configs, two fail where the JAX package fails, and
+the port's error names the fault (``NECK_FAULT``, ``COLUMNS_FAULT``):
+``pointpillars_waymo.yml``'s canvas gives neck maps of different sizes,
+and the Argoverse reader's frames have 3 columns where ``transform``
+takes 4.
 """
 
 import numpy as np
@@ -56,6 +62,20 @@ from .objdet_helper import (Anchor3DRangeGenerator, BBoxCoder, bbox_overlaps,
                             box3d_to_bev, box3d_to_bev2d, limit_period)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# Two shipped configs that the JAX package cannot run either; the port
+# fails where it fails, and names the fault
+NECK_FAULT = (
+    "ROADMAP.md queue 3, 'The Waymo PointPillars net cannot join its "
+    "neck': a canvas side that the backbone's strides do not divide "
+    "(pointpillars_waymo.yml's 468: stages of 234, 117 and 59) gives neck "
+    "maps of different sizes (234, 234, 236), whose concatenation fails "
+    "(open3d_ml_tpu/models/point_pillars.py:263, in JAX too)")
+COLUMNS_FAULT = (
+    "ROADMAP.md queue 3, 'Argoverse frames have 3 columns, PointPillars "
+    "takes 4': the Argoverse reader gives x, y, z only, and transform's "
+    "copy into the [max_points, 4] points fails "
+    "(open3d_ml_tpu/models/point_pillars.py:546, in JAX too)")
 
 
 def segment_max(y, seg_ids, num_segments):
@@ -287,6 +307,9 @@ class SECONDFPN(nn.Module):
                            else f"deblock{i}_conv")
             ups.append(_conv_bn_relu(x, conv, getattr(self, f"deblock{i}_bn"),
                                      self.dtype, transpose=transposed))
+        sizes = [tuple(u.shape[2:]) for u in ups]
+        if len(set(sizes)) > 1:
+            raise RuntimeError(f"neck maps of sizes {sizes}: {NECK_FAULT}")
         return torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
 
 
@@ -529,7 +552,10 @@ class PointPillars(ObjdetBaseModel):
         p = int(self.cfg.max_points)
         count = min(len(points), p)
         out_pts = np.zeros((p, 4), np.float32)
-        out_pts[:count] = points[:count]
+        try:
+            out_pts[:count] = points[:count]
+        except ValueError as err:
+            raise ValueError(f"{err}: {COLUMNS_FAULT}") from err
 
         t_data = {
             "point": out_pts,

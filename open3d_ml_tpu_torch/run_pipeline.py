@@ -19,13 +19,23 @@ there, as in JAX.
 It runs on ``--device cuda`` (the default) or ``cpu``, and on no other
 device: ``tpu`` raises, as does ``cuda`` with no card visible; nothing
 falls back to the CPU. ``--distributed`` raises (data parallelism is not
-ported). SparseConvUnet's and PointTransformer's test and valid splits
-raise in the pipeline (``run_test_on_split``): their ``transform`` never
-advances the possibility map, so the loop would not end.
+ported). SparseConvUnet's, PointTransformer's and PVCNN's test and valid
+splits raise in the pipeline (``run_test_on_split``): their
+``transform`` never advances the possibility map, so the loop would not
+end. Three shipped PointPillars configs fail as the JAX package fails
+(ROADMAP.md queue 3): ``pointpillars_waymo.yml``'s net cannot join its
+neck (``NECK_FAULT``), an Argoverse frame has the 3 columns that
+``transform`` cannot take (``COLUMNS_FAULT``), and the nuScenes, Lyft
+and Argoverse test splits cannot write their boxes as KITTI lines
+(``datasets/utils/bev_box.py`` ``NO_CAMERA_FAULT``).
 
     python -m open3d_ml_tpu_torch.run_pipeline \\
         -c open3d_ml_tpu_torch/configs/randlanet_semantickitti.yml \\
         --dataset.dataset_path <root> --split train [--section.key value]
+
+    python -m open3d_ml_tpu_torch.run_pipeline \\
+        -c open3d_ml_tpu_torch/configs/pointpillars_nuscenes.yml \\
+        --dataset.dataset_path <root of infos_*.pkl> --split train
 """
 
 import argparse

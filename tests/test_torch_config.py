@@ -29,7 +29,9 @@ PORTED = ("randlanet_semantickitti", "sparseconvunet_scannet",
           "randlanet_parislille3d", "pointtransformer_s3dis",
           "kpconv_semantickitti", "kpconv_s3dis", "kpconv_semantic3d",
           "kpconv_toronto3d", "kpconv_parislille3d", "pointrcnn_kitti",
-          "pvcnn_s3dis")
+          "pvcnn_s3dis", "pointpillars_kitti", "pointpillars_lyft",
+          "pointpillars_nuscenes", "pointpillars_waymo",
+          "pointpillars_argoverse")
 # dotted extras as the command line gives them: coerced to bool, None,
 # int and float, a nested key new to the file, and a string
 EXTRAS = {"dataset.use_cache": "true", "model.ckpt_path": "none",

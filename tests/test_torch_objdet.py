@@ -327,7 +327,9 @@ def test_pipeline_registry_and_training_not_ported(tmp_path):
 
 def test_chip_smoke_config_equals_shipped_yaml():
     cfg = Config.load_from_file(
-        REPO / "open3d_ml_tpu/configs/pointpillars_kitti.yml")
+        REPO / "open3d_ml_tpu_torch/configs/pointpillars_kitti.yml")
+    assert cfg.to_dict() == Config.load_from_file(
+        REPO / "open3d_ml_tpu/configs/pointpillars_kitti.yml").to_dict()
     model = {k: v for k, v in cfg.model.to_dict().items()
              if k not in ("name", "ckpt_path", "augment")}
     assert chip_smoke.POINTPILLARS_KITTI == model
@@ -358,6 +360,11 @@ def test_port_imports_no_jax():
             "import open3d_ml_tpu_torch.ops.bev\n"
             "import open3d_ml_tpu_torch.metrics.mAP\n"
             "import open3d_ml_tpu_torch.datasets.kitti\n"
+            "import open3d_ml_tpu_torch.datasets.nuscenes\n"
+            "import open3d_ml_tpu_torch.datasets.lyft\n"
+            "import open3d_ml_tpu_torch.datasets.waymo\n"
+            "import open3d_ml_tpu_torch.datasets.argoverse\n"
+            "import open3d_ml_tpu_torch.utils.convert_torch\n"
             "import open3d_ml_tpu_torch.pipelines.object_detection\n"
             "import open3d_ml_tpu_torch.vis.boundingbox\n"
             "import open3d_ml_tpu_torch.modules.losses\n"

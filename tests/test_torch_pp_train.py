@@ -879,7 +879,9 @@ def test_chip_smoke_training_config_equals_shipped_yaml():
     """``chip_smoke.py``'s augment section (but for the pickle, written at
     run time) and training pipeline entries are the KITTI YAML's."""
     cfg = JaxConfig.load_from_file(
-        REPO / "open3d_ml_tpu/configs/pointpillars_kitti.yml")
+        REPO / "open3d_ml_tpu_torch/configs/pointpillars_kitti.yml")
+    assert cfg.to_dict() == JaxConfig.load_from_file(
+        REPO / "open3d_ml_tpu/configs/pointpillars_kitti.yml").to_dict()
     augment = cfg.model.augment.to_dict()
     augment["ObjectSample"]["pickle_path"] = None
     assert chip_smoke.POINTPILLARS_AUGMENT == augment
@@ -919,7 +921,9 @@ def test_kitti_train_step_full_width(monkeypatch):
     from open3d_ml_tpu_torch.pipelines.semantic_segmentation import \
         init_weights
     cfg = JaxConfig.load_from_file(
-        REPO / "open3d_ml_tpu/configs/pointpillars_kitti.yml")
+        REPO / "open3d_ml_tpu_torch/configs/pointpillars_kitti.yml")
+    assert cfg.to_dict() == JaxConfig.load_from_file(
+        REPO / "open3d_ml_tpu/configs/pointpillars_kitti.yml").to_dict()
     kw = {k: v for k, v in cfg.model.to_dict().items()
           if k not in ("name", "ckpt_path", "augment")}
     kw["compute_dtype"] = "float32"
