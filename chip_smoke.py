@@ -127,7 +127,7 @@ not shipped) against this tree's the same way, on the same calls.
 Phases, one line each (or more), in this order:
 
 1. device: the card's name and power limit; TF32 off for matmuls and
-   convolutions.
+   convolutions; which of ``OPTIONAL_MODULES`` are installed.
 2. build: compile the CUDA kernels from ``open3d_ml_tpu_torch/csrc``; the
    KNN kernels' registers and spill bytes, as ptxas reported them (a
    spill fails the run).
@@ -148,7 +148,10 @@ Phases, one line each (or more), in this order:
    function).
 4. slice: the fused forward; the launch counts of one forward; sample 0
    against the same model on the CPU (float32: relative L2 <= 1e-4); the
-   median forward time and points/s.
+   median forward time and points/s; the forward's model FLOPs
+   (``utils/flops.py`` ``randlanet_forward_flops``) and their share of the
+   card's dense bf16 peak (``peak_flops_for``), beside the card's name and
+   power limit.
 5. train: ``run_train`` for one epoch of 6 steps of 4 x 45,056 points and
    2 validation steps of 2 patches, on 8 + 2 synthetic scenes of 120,000
    points with the shipped class weights; the launch counts of every step;
@@ -395,21 +398,26 @@ Phases, one line each (or more), in this order:
    test`` refused.
 
 20. randla_configs (run after inference): RandLA-Net at
-   ``RC_CONFIGS``, the four other shipped YAMLs, seeded random weights,
+   ``RC_CONFIGS``, the five other shipped YAMLs, seeded random weights,
    each reader's files written by the phase (``write_rc_data``: S3DIS
-   rooms, Semantic3D text scans, Toronto3D and ParisLille3D PLY tiles of
-   ``street_scene``): the kernels at the two point counts, 40,960 and
-   65,536 (``_rc_kernels``: every ``bucket_knn`` search of the fused
-   pyramid at S32 checked and timed and at S48 checked, ``bucket_gather``
-   and ``bucket_gather_bwd`` at the level-0 neighbour and pool shapes,
-   ``knn_exact`` at the eval pyramid's levels, as in phase 3); per YAML
+   rooms, Semantic3D text scans, Toronto3D and ParisLille3D PLY tiles and
+   PandaSet pickled frames of ``street_scene``); for the four YAMLs other
+   than ``RC_CLI_ONLY`` (PandaSet's net is the main path's, 45,056
+   points, which phases 4-7 hold card vs CPU) the kernels at the two
+   point counts, 40,960 and 65,536 (``_rc_kernels``: every ``bucket_knn``
+   search of the fused pyramid at S32 checked and timed and at S48
+   checked, ``bucket_gather`` and ``bucket_gather_bwd`` at the level-0
+   neighbour and pool shapes, ``knn_exact`` at the eval pyramid's
+   levels, as in phase 3); per YAML
    the fused forward at B = 4 (launch counts ``fused_launches``, median),
    the exact eval net at B = 1 against the CPU net reading the card's
    pyramid (``RC_TOL``; the KD-tree's host pyramid printed beside), and
    ``run_pipeline.main --split train`` (2 steps of 4, 1 validation step,
    each step's launches) then ``--split test`` on a 300,000-point cloud
    (launches, scans/s, host share, the predictions in the reader's
-   format); after S3DIS the TensorBoard events read back (the six scalar
+   format; PandaSet's frames are 150,000 points and its command line
+   adds ``RC_CLI_EXTRAS``); after PandaSet its TensorBoard events read
+   back; after S3DIS the TensorBoard events read back (the six scalar
    tags of the JAX ``save_logs``, the text) and one float32 host-pyramid
    step (``knn_on_device=False``, 1 x ``RC_HOST_POINTS``) against the CPU
    on the card's branches; then one float32 SparseConvUnet hash-path step
@@ -460,6 +468,8 @@ import collections
 import contextlib
 import copy
 import functools
+import importlib.metadata
+import importlib.util
 import json
 import pickle
 import re
@@ -513,6 +523,8 @@ from open3d_ml_tpu_torch.ops.voxelize import voxelize
 from open3d_ml_tpu_torch.pipelines import (ObjectDetection,
                                            SemanticSegmentation)
 from open3d_ml_tpu_torch.utils import Config, collect_bboxes, convert_torch
+from open3d_ml_tpu_torch.utils.flops import (peak_flops_for,
+                                             randlanet_forward_flops)
 
 REPO = Path(__file__).resolve().parent
 TPU_KERNELS = "open3d_ml_tpu/ops/pallas/bucket.py"
@@ -534,6 +546,10 @@ TRAIN_PIPELINE = {"batch_size": 4, "val_batch_size": 2,
                   "save_ckpt_freq": 5, "num_workers": 2}
 COUNTERS = (cb.LAUNCHES, ck.LAUNCHES, cs.LAUNCHES, cfps.LAUNCHES,
             cnms.LAUNCHES, cdv.LAUNCHES)
+# (module, distribution): pandas reads PandaSet frames, joblib Matterport
+# files, PyYAML config files, tensorboard the events read back
+OPTIONAL_MODULES = (("pandas", "pandas"), ("joblib", "joblib"),
+                    ("yaml", "PyYAML"), ("tensorboard", "tensorboard"))
 # the H100 SXM's device memory rate and its dense peaks (NVIDIA's
 # datasheet): a kernel's bound is the larger of its bytes over the rate
 # and its operations over the peak for their type
@@ -1014,6 +1030,11 @@ def phase_device():
     say("device", f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    say("device", "modules the port imports only to read a file or a "
+        "config: " + ", ".join(
+            f"{name} {importlib.metadata.version(dist)}"
+            if importlib.util.find_spec(name) else f"{name} absent"
+            for name, dist in OPTIONAL_MODULES))
     return card
 
 
@@ -1666,6 +1687,18 @@ def phase_slice(model, card):
         f"{model_cfg.compute_dtype}: median {fwd * 1e3:.2f} ms over "
         f"{len(times)} runs (min {min(times) * 1e3:.2f}, max "
         f"{max(times) * 1e3:.2f}), {b * n / fwd:.0f} points/s on {card}")
+    flops = randlanet_forward_flops(
+        n, num_neighbors=model_cfg.num_neighbors,
+        dim_output=model_cfg.dim_output,
+        dim_features=model_cfg.dim_features,
+        in_channels=model_cfg.in_channels,
+        sub_sampling_ratio=model_cfg.sub_sampling_ratio,
+        num_classes=model_cfg.num_classes, batch_size=b)
+    peak = peak_flops_for(torch.cuda.get_device_name())
+    say("slice", f"forward B={b} N={n}: model FLOPs {flops:.6e} "
+        f"(utils/flops.py randlanet_forward_flops), {flops / fwd / 1e12:.3f} "
+        f"TFLOP/s at the median, {flops / fwd / peak:.4%} of the "
+        f"{peak / 1e12:g} TFLOP/s dense bf16 peak; card {card}")
     return launches
 
 
@@ -8052,7 +8085,18 @@ RC_CONFIGS = {"S3DIS": "open3d_ml_tpu_torch/configs/randlanet_s3dis.yml",
                   "open3d_ml_tpu_torch/configs/randlanet_semantic3d.yml",
               "Toronto3D": "open3d_ml_tpu_torch/configs/randlanet_toronto3d.yml",
               "ParisLille3D":
-                  "open3d_ml_tpu_torch/configs/randlanet_parislille3d.yml"}
+                  "open3d_ml_tpu_torch/configs/randlanet_parislille3d.yml",
+              "Pandaset": "open3d_ml_tpu_torch/configs/randlanet_pandaset.yml"}
+# the YAMLs that only the command line runs here: PandaSet's net is the
+# main path's at 45,056 points, which slice, train, eval and inference
+# hold card vs CPU
+RC_CLI_ONLY = ("Pandaset",)
+# the PandaSet reader gives the intensity as a feature, 3 + 1 input
+# channels against the YAML's 3, in JAX too (ROADMAP.md queue 3)
+RC_CLI_EXTRAS = {"Pandaset": CLI_RANDLANET_EXTRAS}
+# one sequence of each of the PandaSet reader's default splits
+PANDASET_SEQUENCES = {"training": "001", "validation": "122",
+                      "test": "115"}
 RC_BATCH = 4  # the YAMLs' batch_size: the fused forward's batch
 RC_STEPS = (2, 1)  # the command line's train steps of 4, validation steps
 RC_CLOUD_POINTS = 150_000  # each training and validation cloud
@@ -8179,14 +8223,41 @@ def write_parislille3d(root, n, test_n, seed=SEED):
                       ["x", "y", "z", "class"])
 
 
+def write_pandaset(root, n, seed=SEED):
+    """A PandaSet folder: frame ``00`` of ``n`` points in each sequence of
+    ``PANDASET_SEQUENCES``, as the dataset ships it: ``lidar/00.pkl.gz``,
+    a pandas DataFrame of x, y, z, i (intensity 0-255), t and d, and
+    ``annotations/semseg/00.pkl.gz``, a DataFrame of ``class`` (the
+    street's classes plus 1, in 1-39). Returns the test frame's name."""
+    import pandas as pd
+    root = Path(root)
+    for seq in PANDASET_SEQUENCES.values():
+        seed += 1
+        xyz, _, labels = street_scene(n, seed, 39)
+        rng = np.random.default_rng(seed)
+        (root / seq / "lidar").mkdir(parents=True, exist_ok=True)
+        (root / seq / "annotations" / "semseg").mkdir(parents=True,
+                                                       exist_ok=True)
+        pd.DataFrame({"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+                      "i": rng.uniform(0, 255, n), "t": np.zeros(n),
+                      "d": np.zeros(n)}).to_pickle(
+                          root / seq / "lidar" / "00.pkl.gz")
+        pd.DataFrame({"class": labels + 1}).to_pickle(
+            root / seq / "annotations" / "semseg" / "00.pkl.gz")
+    return f"{PANDASET_SEQUENCES['test']}_00"
+
+
 def write_rc_data(name, root, n, test_n):
     """``name``'s reader's files under ``root`` (S3DIS: three rooms of
-    ``test_n`` points, the last in the YAML's test area 5); returns the
-    path of the cloud the test split holds and its point count."""
+    ``test_n`` points, the last in the YAML's test area 5; PandaSet: a
+    frame of ``n`` points a sequence); returns the name of the cloud the
+    test split holds and its point count."""
     root = Path(root)
     if name == "S3DIS":
         write_s3dis_rooms(root, test_n, S3DIS_RC_ROOMS)
         return "Area_5_office_1", test_n
+    if name == "Pandaset":
+        return write_pandaset(root, n), n
     writer = {"Semantic3D": write_semantic3d, "Toronto3D": write_toronto3d,
               "ParisLille3D": write_parislille3d}[name]
     writer(root, n, test_n)
@@ -8196,10 +8267,13 @@ def write_rc_data(name, root, n, test_n):
 
 def read_predictions(name, folder, cloud):
     """The labels that ``name``'s ``save_test_result`` wrote for
-    ``cloud`` under ``folder``."""
+    ``cloud`` under ``folder`` (PandaSet's without a folder of the
+    dataset's name)."""
     if name == "Semantic3D":
         return np.loadtxt(Path(folder) / name / f"{cloud}.labels",
                           dtype=np.int64)
+    if name == "Pandaset":
+        return np.load(Path(folder) / f"{cloud}.npy")
     return np.load(Path(folder) / name / f"{cloud}.npy")
 
 
@@ -8410,7 +8484,8 @@ def _rc_cli(name, root, card):
               "--dataset.cache_dir", root / "cache",
               "--dataset.test_result_folder", root / "test",
               "--main_log_dir", root / "logs",
-              "--pipeline.train_sum_dir", root / "tb"]
+              "--pipeline.train_sum_dir", root / "tb",
+              *RC_CLI_EXTRAS.get(name, ())]
     host = ((trl.RandLANet, "preprocess"), (trl.RandLANet, "transform"))
     wall, launches, record, spent = _cli_run(common + [
         "--split", "train", "--pipeline.max_epoch", 0,
@@ -8619,13 +8694,14 @@ def _rc_s3dis_extras(root, tb_dir):
 
 
 def phase_randla_configs(card):
-    """RandLA-Net at the four other shipped YAMLs (S3DIS, Semantic3D,
-    Toronto3D, ParisLille3D), full width, seeded random weights: the
-    kernels at their two point counts (40,960 and 65,536) against their
-    plain versions; per YAML the fused forward at B = 4 (its launches
-    and median), the exact eval net at B = 1 against the CPU, and the
-    command line's train (with the TensorBoard events read back once) and
-    test on the reader's own files; one host-pyramid step at the S3DIS
+    """RandLA-Net at the five other shipped YAMLs (S3DIS, Semantic3D,
+    Toronto3D, ParisLille3D, Pandaset), full width, seeded random
+    weights: the kernels at their two point counts (40,960 and 65,536)
+    against their plain versions; per YAML but those of ``RC_CLI_ONLY``
+    the fused forward at B = 4 (its launches and median) and the exact
+    eval net at B = 1 against the CPU; per YAML the command line's train
+    and test on the reader's own files (the TensorBoard events read back
+    after S3DIS and PandaSet); one host-pyramid step at the S3DIS
     YAML and one SparseConvUnet hash-path step at B = 2, each against the
     CPU. Returns (the main paths' launches summed, {kernel: [records]},
     the gather's and its backward's (label, record) pairs)."""
@@ -8636,6 +8712,16 @@ def phase_randla_configs(card):
     launches = collections.Counter()
     checked = set()
     for name in RC_CONFIGS:
+        t0 = time.perf_counter()
+        if name in RC_CLI_ONLY:
+            with tempfile.TemporaryDirectory() as tmp:
+                cli_launches, tb_dir = _rc_cli(name, Path(tmp), card)
+                launches.update(cli_launches)
+                run, _ = _tensorboard_check(tb_dir)
+            say("randla_configs", f"{name}: TensorBoard {run}: the six "
+                "scalars, finite, and the text read back")
+            seconds[f"{name} command line"] = time.perf_counter() - t0
+            continue
         model = randla_yaml(name)
         n = model.cfg.num_points
         if n not in checked:

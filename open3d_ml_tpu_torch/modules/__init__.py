@@ -1,5 +1,5 @@
-"""Losses, metrics and learning-rate schedules of the port."""
+"""Losses, metrics, optimizers and learning-rate schedules of the port."""
 
-from . import losses, metrics, schedulers
+from . import losses, metrics, optimizers, schedulers
 
-__all__ = ["losses", "metrics", "schedulers"]
+__all__ = ["losses", "metrics", "optimizers", "schedulers"]

@@ -1,18 +1,18 @@
-"""Point clouds in TensorBoard summaries.
+"""Point clouds and boxes in TensorBoard summaries.
 
 Counterpart of ``open3d_ml_tpu/pipelines/summaries.py``
-``add_pointcloud_summary`` and ``record_summary``: a cloud goes to
-TensorBoard's mesh plugin as coloured vertices through the
+``add_pointcloud_summary``, ``add_boxes_summary`` and ``record_summary``:
+a cloud goes to TensorBoard's mesh plugin as coloured vertices through the
 ``torch.utils.tensorboard.SummaryWriter`` that the pipeline gives, its
-points coloured by label through a ``LabelLUT``. The boxes' summary of the
-JAX package (``add_boxes_summary``) is not ported: the port's
-``BoundingBox3D`` has no line sets.
+points coloured by label through a ``LabelLUT``; boxes go there as the
+vertices of their line sets (``BoundingBox3D.create_lines``: the mesh
+plugin has no line primitive).
 """
 
 import numpy as np
 import torch
 
-from ..vis import LabelLUT
+from ..vis import BoundingBox3D, LabelLUT
 
 
 def _label_colors(labels, lut):
@@ -53,6 +53,19 @@ def add_pointcloud_summary(writer, tag, points, labels=None, lut=None,
             vertices=torch.from_numpy(pts[None].astype(np.float32)),
             colors=torch.from_numpy(colors[None].astype(np.int32)),
             global_step=step)
+
+
+def add_boxes_summary(writer, tag, boxes, step=0, lut=None):
+    """Log ``boxes`` under ``tag`` as the 14 vertices a box of their line
+    set; nothing for no boxes. The line colours are not drawn (nor are
+    they in JAX)."""
+    if not boxes:
+        return
+    lines = BoundingBox3D.create_lines(boxes, lut=lut, out_format="dict")
+    writer.add_mesh(tag,
+                    vertices=torch.from_numpy(
+                        lines["vertex_positions"][None].astype(np.float32)),
+                    global_step=step)
 
 
 def record_summary(writer, cfg_summary, split, tag_prefix, data, results,

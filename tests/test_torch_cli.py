@@ -318,16 +318,17 @@ def test_cli_builds_from_names_as_jax(tmp_path, monkeypatch):
     pipeline, not a key of its config); the dotted extras, the
     seed and the three --cfg_* files are parsed and ignored."""
     chip_smoke.write_semantickitti(tmp_path / "kitti", 300, {})
-    default_cfgs = REPO / "open3d_ml_tpu" / "configs" / "default_cfgs"
     argv = ["-d", "SemanticKITTI", "-m", "RandLANet",
             "--dataset_path", str(tmp_path / "kitti"),
             "--ckpt_path", str(tmp_path / "none.pth"),
             "--main_log_dir", str(tmp_path / "logs"), "--seed", "5",
-            "--model.num_points", "2048",
-            "--cfg_model", str(default_cfgs / "randlanet.yml")]
+            "--model.num_points", "2048", "--cfg_model"]
+    default_cfg = Path("configs") / "default_cfgs" / "randlanet.yml"
     tpipe, split = run_pipeline.build_pipeline(*run_pipeline.parse_args(
-        ["--device", "cpu", *argv]))
-    jpipe = _jax_build_from_names(argv, monkeypatch)
+        ["--device", "cpu", *argv,
+         str(REPO / "open3d_ml_tpu_torch" / default_cfg)]))
+    jpipe = _jax_build_from_names(
+        [*argv, str(REPO / "open3d_ml_tpu" / default_cfg)], monkeypatch)
     assert split == "train" and tpipe.device == torch.device("cpu")
     assert type(tpipe).__name__ == type(jpipe).__name__
     assert dict(tpipe.dataset.cfg) == dict(jpipe.dataset.cfg)

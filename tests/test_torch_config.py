@@ -1,7 +1,9 @@
 """The port's configuration against the JAX package's: ``Config`` loading
 of every shipped YAML, ``merge_cfg_file`` and ``merge_module_cfg_file``
 under one set of command-line arguments and dotted extras, the port's
-copies of the YAMLs it runs, ``get_module`` over the port's registries,
+copies of the YAMLs it runs and of the ten ``default_cfgs`` (each
+instantiated through the port's registries), ``get_module`` over the
+port's registries,
 and the two kinds of dict (a file's ``ConfigDict``, where a missing key
 reads as None, and a module's ``ModuleConfig``, where it raises)."""
 
@@ -12,6 +14,7 @@ import pytest
 import yaml
 
 from open3d_ml_tpu.utils import Config as JaxConfig
+from open3d_ml_tpu.utils import get_module as jax_get_module
 from open3d_ml_tpu.utils import config as jax_config
 from open3d_ml_tpu_torch import DATASET, MODEL, PIPELINE, SAMPLER
 from open3d_ml_tpu_torch.utils import (Config, ConfigDict, ModuleConfig,
@@ -23,6 +26,7 @@ JAX_CONFIGS = REPO / "open3d_ml_tpu" / "configs"
 PORT_CONFIGS = REPO / "open3d_ml_tpu_torch" / "configs"
 SHIPPED = sorted(JAX_CONFIGS.glob("*.yml"))
 DEFAULTS = sorted((JAX_CONFIGS / "default_cfgs").glob("*.yml"))
+PORT_DEFAULTS = PORT_CONFIGS / "default_cfgs"
 # the YAMLs the port ships: each a copy of the JAX file of the same name
 PORTED = ("randlanet_semantickitti", "sparseconvunet_scannet",
           "randlanet_s3dis", "randlanet_semantic3d", "randlanet_toronto3d",
@@ -31,7 +35,7 @@ PORTED = ("randlanet_semantickitti", "sparseconvunet_scannet",
           "kpconv_toronto3d", "kpconv_parislille3d", "pointrcnn_kitti",
           "pvcnn_s3dis", "pointpillars_kitti", "pointpillars_lyft",
           "pointpillars_nuscenes", "pointpillars_waymo",
-          "pointpillars_argoverse")
+          "pointpillars_argoverse", "randlanet_pandaset")
 # dotted extras as the command line gives them: coerced to bool, None,
 # int and float, a nested key new to the file, and a string
 EXTRAS = {"dataset.use_cache": "true", "model.ckpt_path": "none",
@@ -101,15 +105,21 @@ def test_merge_cfg_file_equals_jax(path):
     ("toronto3d", "randlanet", "object_detection")])
 def test_merge_module_cfg_file_equals_jax(triple):
     """--cfg_dataset/--cfg_model/--cfg_pipeline: three default_cfgs files,
-    one a section, with the extras."""
-    dataset, model, pipeline = (JAX_CONFIGS / "default_cfgs" / f"{name}.yml"
-                                for name in triple)
-    kw = dict(cfg_dataset=str(dataset), cfg_model=str(model),
-              cfg_pipeline=str(pipeline))
-    got = Config.merge_module_cfg_file(_args("cuda", **kw), dict(EXTRAS))
-    want = JaxConfig.merge_module_cfg_file(_args("tpu", **kw), dict(EXTRAS))
+    one a section, with the extras; the port reads its own copies, JAX
+    its files."""
+
+    def files(root):
+        dataset, model, pipeline = (root / f"{name}.yml" for name in triple)
+        return dict(cfg_dataset=str(dataset), cfg_model=str(model),
+                    cfg_pipeline=str(pipeline))
+
+    got = Config.merge_module_cfg_file(
+        _args("cuda", **files(PORT_DEFAULTS)), dict(EXTRAS))
+    want = JaxConfig.merge_module_cfg_file(
+        _args("tpu", **files(JAX_CONFIGS / "default_cfgs")), dict(EXTRAS))
     assert _drop_device(got) == _drop_device(want)
-    assert got[1].name == yaml.safe_load(model.read_text())["name"]
+    assert got[1].name == yaml.safe_load(
+        (PORT_DEFAULTS / f"{triple[1]}.yml").read_text())["name"]
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -127,6 +137,69 @@ def test_port_yaml_equals_jax_twin(name):
 def test_port_ships_only_those_yamls():
     assert sorted(p.stem for p in PORT_CONFIGS.glob("*.yml")) == sorted(
         PORTED)
+
+
+def test_port_ships_every_default_cfg():
+    assert sorted(p.name for p in PORT_DEFAULTS.glob("*.yml")) == sorted(
+        p.name for p in DEFAULTS)
+
+
+@pytest.mark.parametrize("path", DEFAULTS, ids=lambda p: p.name)
+def test_port_default_cfg_equals_jax_twin(path):
+    """The port's copy of a default_cfgs file parses to the JAX file's
+    values and loads to the same config; its comments cite no figure of
+    the JAX package's studies."""
+    port = PORT_DEFAULTS / path.name
+    assert yaml.safe_load(port.read_text()) == yaml.safe_load(
+        path.read_text())
+    assert (Config.load_from_file(port).to_dict() ==
+            JaxConfig.load_from_file(path).to_dict())
+    text = port.read_text()
+    for word in ("TPU", "ACCURACY_", "mIoU", "throughput", "docs/"):
+        assert word not in text
+
+
+def _default_dataset_root(name, path):
+    """The folders a reader's constructor lists, empty (as
+    ``tests/test_cli.py`` makes them for the JAX readers)."""
+    path.mkdir(exist_ok=True)
+    if name == "ParisLille3D":
+        (path / "training_10_classes").mkdir(exist_ok=True)
+        (path / "test_10_classes").mkdir(exist_ok=True)
+    if name == "ShapeNet":
+        sub = path / "shapenetcore_partanno_segmentation_benchmark_v0"
+        (sub / "02691156" / "points").mkdir(parents=True, exist_ok=True)
+        (sub / "02691156" / "points_label").mkdir(exist_ok=True)
+        (sub / "train_test_split").mkdir(exist_ok=True)
+        (sub / "synsetoffset2category.txt").write_text("Airplane\t02691156\n")
+        for s in ("train", "val", "test"):
+            (sub / "train_test_split" /
+             f"shuffled_{s}_file_list.json").write_text("[]")
+    return str(path)
+
+
+@pytest.mark.parametrize("name", sorted(p.stem for p in DEFAULTS))
+def test_default_cfg_instantiates(name, tmp_path):
+    """Each of the port's default_cfgs builds its module through the
+    port's registries, as ``tests/test_cli.py`` builds the JAX ones: a
+    model from its keys (less ``batcher`` and ``ckpt_path``), a dataset
+    on an empty tree (its cfg equal to the JAX reader's there), a
+    pipeline class by name."""
+    d = Config.load_from_file(PORT_DEFAULTS / f"{name}.yml").to_dict()
+    cls_name = d.pop("name")
+    if "dataset_path" in d:
+        d["dataset_path"] = _default_dataset_root(cls_name,
+                                                  tmp_path / cls_name)
+        ds = get_module("dataset", cls_name)(**d)
+        want = jax_get_module("dataset", cls_name)(**d)
+        assert ds.cfg.to_dict() == dict(want.cfg)
+    elif "max_epoch" in d:
+        assert get_module("pipeline", cls_name) is PIPELINE.get(cls_name)
+    else:
+        d.pop("batcher", None)
+        d.pop("ckpt_path", None)
+        model = get_module("model", cls_name)(**d)
+        assert model.cfg.num_classes == d["num_classes"]
 
 
 def test_load_py_config_equals_jax(tmp_path):

@@ -473,7 +473,7 @@ def test_fused_launches_count_the_searches(n):
     fused pyramid captured on the CPU (``chip_smoke.fused_searches``), at
     point counts whose levels are and are not whole query blocks; at the
     YAMLs' full sizes every level of 40,960 and 65,536 points is, while
-    SemanticKITTI's 45,056 has one pool search."""
+    SemanticKITTI's and PandaSet's 45,056 have one pool search."""
     model = RandLANet(**yaml_cfg("semantic3d", num_points=n)[0])
     pts = torch.from_numpy(lattice_cloud(np.random.default_rng(n), 1, n))
     calls = chip_smoke.fused_searches(pts, model.cfg, 6, 4)
@@ -482,6 +482,6 @@ def test_fused_launches_count_the_searches(n):
     full = {name: chip_smoke.fused_launches(
         chip_smoke.randla_yaml(name).cfg)["bucket_knn"]
         for name in chip_smoke.RC_CONFIGS}
-    assert full == dict.fromkeys(chip_smoke.RC_CONFIGS, 4)
+    assert full == dict(dict.fromkeys(chip_smoke.RC_CONFIGS, 4), Pandaset=5)
     assert chip_smoke.fused_launches(RandLANet().cfg) == {
         k: v for k, v in chip_smoke.EXPECTED_LAUNCHES.items() if v}

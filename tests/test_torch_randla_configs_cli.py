@@ -1,9 +1,11 @@
 """RandLA-Net at the four other shipped YAMLs through the readers, the
-training step and the command line, against the JAX package on the CPU.
+training step and the command line, against the JAX package on the CPU;
+and ``randlanet_pandaset.yml`` through its reader and the command line.
 
 The readers' files are written into ``tmp_path`` by ``chip_smoke``'s
 writers (``write_rc_data``: S3DIS rooms, Semantic3D text scans, Toronto3D
-and ParisLille3D PLY tiles), which both packages' readers read alike. Per
+and ParisLille3D PLY tiles, PandaSet pickles), which both packages'
+readers read alike. Per
 YAML, at small shapes (1,024-point patches at the YAML's widths for the
 command line, 2,560 at narrow widths for the step; float32, the loader
 in this thread) with its channels, classes, ignored labels and class
@@ -53,7 +55,8 @@ from test_torch_train import _FixedDropout
 from torch_threads import one_torch_thread  # noqa: F401
 
 READERS = {"s3dis": "S3DIS", "semantic3d": "Semantic3D",
-           "toronto3d": "Toronto3D", "parislille3d": "ParisLille3D"}
+           "toronto3d": "Toronto3D", "parislille3d": "ParisLille3D",
+           "pandaset": "Pandaset"}
 CLOUD, TEST_CLOUD = 2500, 4000
 # the YAMLs' widths at 1,024-point patches, float32, the loader in this
 # thread
@@ -71,7 +74,7 @@ def _argv(name, root, *extra):
             "--pipeline.train_sum_dir", str(root / "tb"), *SMALL, *extra]
 
 
-@pytest.mark.parametrize("name", YAMLS)
+@pytest.mark.parametrize("name", list(READERS))
 def test_writers_feed_both_readers(name, tmp_path):
     """``chip_smoke.write_rc_data``'s files: both packages' readers list
     the same clouds in every split and give the same arrays, bit for
@@ -93,6 +96,37 @@ def test_writers_feed_both_readers(name, tmp_path):
             for key, value in w.items():
                 _same_value(g[key], value, f"{split} {i} {key}")
     assert [port.get_split("test").get_attr(0)["name"]] == [cloud]
+
+
+def test_cli_trains_and_tests_pandaset(tmp_path):
+    """``run_pipeline`` on ``randlanet_pandaset.yml`` with
+    ``chip_smoke.RC_CLI_EXTRAS`` (3 + 1 input channels: the reader gives
+    the intensity as a feature) on ``chip_smoke.write_pandaset``'s
+    frames: ``--split train`` (4 steps of 4 patches, 2 validation steps of
+    2) writes a checkpoint and the six scalars; ``--split test`` with it
+    labels every point of the test frame, in [0, 39), in
+    ``<test_result_folder>/115_00.npy`` (no dataset folder, no label
+    shifted in)."""
+    cloud, test_n = chip_smoke.write_rc_data("Pandaset", tmp_path / "data",
+                                             CLOUD, TEST_CLOUD)
+    extras = chip_smoke.RC_CLI_EXTRAS["Pandaset"]
+    run_pipeline.main(_argv("pandaset", tmp_path, *extras, "--split",
+                            "train", "--pipeline.max_epoch", "0",
+                            "--dataset.steps_per_epoch_train", "16",
+                            "--dataset.steps_per_epoch_valid", "4"))
+    ckpt = (tmp_path / "logs" / "RandLANet_Pandaset_torch" / "checkpoint" /
+            "ckpt_00000.pth")
+    assert ckpt.exists()
+    (run,) = (tmp_path / "tb").iterdir()
+    acc = EventAccumulator(str(run))
+    acc.Reload()
+    assert set(chip_smoke.TB_SCALARS) == set(acc.Tags()["scalars"])
+    run_pipeline.main(_argv("pandaset", tmp_path, *extras, "--split", "test",
+                            "--ckpt_path", str(ckpt)))
+    assert cloud == "115_00" and test_n == CLOUD
+    pred = chip_smoke.read_predictions("Pandaset", tmp_path / "test", cloud)
+    assert pred.shape == (test_n,)
+    assert pred.min() >= 0 and pred.max() < 39
 
 
 def _jax_step(cfg, dataset, variables, batch):
@@ -242,7 +276,7 @@ def test_test_predictions_match_jax(name, tmp_path, monkeypatch):
 
 
 def test_chip_smoke_configs_are_the_shipped_yamls():
-    """``chip_smoke``'s four YAMLs are the port's copies, equal to the JAX
+    """``chip_smoke``'s five YAMLs are the port's copies, equal to the JAX
     package's, and its models take their model sections whole."""
     for reader, path in chip_smoke.RC_CONFIGS.items():
         port = Config.load_from_file(chip_smoke.REPO / path)

@@ -203,7 +203,8 @@ def test_get_net_rejects_unported_paths(key, value):
 
 def test_port_imports_no_jax():
     """Neither the port nor ``chip_smoke.py`` loads JAX or the JAX
-    package."""
+    package; nor, until a file is read, ``joblib`` or ``pandas`` (the
+    card's machine has no ``joblib``)."""
     code = ("import sys\n"
             "import open3d_ml_tpu_torch\n"
             "import open3d_ml_tpu_torch.models.randlanet\n"
@@ -241,9 +242,24 @@ def test_port_imports_no_jax():
             "import open3d_ml_tpu_torch.models.pvcnn\n"
             "import open3d_ml_tpu_torch.ops.cuda.devoxelize\n"
             "import open3d_ml_tpu_torch.utils.convert_torch\n"
+            "import open3d_ml_tpu_torch.datasets.pandaset\n"
+            "import open3d_ml_tpu_torch.datasets.shapenet\n"
+            "import open3d_ml_tpu_torch.datasets.sunrgbd\n"
+            "import open3d_ml_tpu_torch.datasets.matterport_objects\n"
+            "import open3d_ml_tpu_torch.datasets.tumfacade\n"
+            "import open3d_ml_tpu_torch.datasets.utils.pcd\n"
+            "import open3d_ml_tpu_torch.datasets.utils.transforms\n"
+            "import open3d_ml_tpu_torch.ops.ragged\n"
+            "import open3d_ml_tpu_torch.ops.subsample\n"
+            "import open3d_ml_tpu_torch.modules.optimizers\n"
+            "import open3d_ml_tpu_torch.vis.boundingbox\n"
+            "import open3d_ml_tpu_torch.pipelines.summaries\n"
+            "import open3d_ml_tpu_torch.utils.flops\n"
+            "import open3d_ml_tpu_torch.utils.profiling\n"
             "import chip_smoke\n"
-            "bad = [m for m in ('jax', 'flax', 'optax', 'yaml',\n"
-            "                   'open3d_ml_tpu') if m in sys.modules]\n"
+            "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'joblib',\n"
+            "                   'pandas', 'open3d_ml_tpu')\n"
+            "       if m in sys.modules]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

@@ -1,9 +1,9 @@
 """The port's logging helpers, label colours and TensorBoard summaries
 against the JAX package's: ``utils/log.py`` (``LogRecord``, ``get_runid``,
 ``code2md``), ``vis/labellut.py`` and ``vis/colormap.py``,
-``pipelines/summaries.py`` (each package's ``record_summary`` into its own
-event file in ``tmp_path``, read back with TensorBoard's
-``EventAccumulator``), and the writers of both pipelines' ``run_train``:
+``pipelines/summaries.py`` (each package's ``record_summary`` and
+``add_boxes_summary`` into its own event file in ``tmp_path``, read back
+with TensorBoard's ``EventAccumulator``), and the writers of both pipelines' ``run_train``:
 the six scalars of the JAX ``save_logs`` (its tags taken from the JAX
 method itself, run on stand-in metrics), the command line and the
 configuration as text, the run ids, and the first batch's clouds where
@@ -24,6 +24,9 @@ from torch.utils.tensorboard import SummaryWriter
 from open3d_ml_tpu.modules.metrics import SemSegMetric as JaxSemSegMetric
 from open3d_ml_tpu.pipelines.semantic_segmentation import (
     SemanticSegmentation as JaxSemanticSegmentation)
+from open3d_ml_tpu.datasets.utils import BEVBox3D as JaxBEVBox3D
+from open3d_ml_tpu.pipelines.summaries import (
+    add_boxes_summary as jax_add_boxes)
 from open3d_ml_tpu.pipelines.summaries import record_summary as jax_record
 from open3d_ml_tpu.utils import log as jax_log
 from open3d_ml_tpu.vis import Colormap as JaxColormap
@@ -31,7 +34,9 @@ from open3d_ml_tpu.vis import LabelLUT as JaxLabelLUT
 from open3d_ml_tpu_torch.datasets import SyntheticBoxes, SyntheticShapes
 from open3d_ml_tpu_torch.models import PointPillars, RandLANet
 from open3d_ml_tpu_torch.pipelines import ObjectDetection, SemanticSegmentation
-from open3d_ml_tpu_torch.pipelines.summaries import record_summary
+from open3d_ml_tpu_torch.datasets.utils import BEVBox3D
+from open3d_ml_tpu_torch.pipelines.summaries import (add_boxes_summary,
+                                                     record_summary)
 from open3d_ml_tpu_torch.utils import LogRecord, code2md, get_runid
 from open3d_ml_tpu_torch.vis import Colormap, LabelLUT
 
@@ -121,6 +126,33 @@ def test_record_summary_tags_match_jax(tmp_path, record_for):
         assert len(tags[0]) == 4  # vertices and colours of two clouds
     else:
         assert tags[0] == []
+
+
+def test_add_boxes_summary_matches_jax(tmp_path):
+    """Each package's ``add_boxes_summary`` of the same boxes into its own
+    event file: one mesh of 14 vertices a box under the tag, the same
+    tensor bytes; no event for no boxes."""
+    rng = np.random.default_rng(5)
+    params = [(rng.uniform(-10, 10, 3), rng.uniform(0.5, 4, 3),
+               float(rng.uniform(-3, 3)), label, conf)
+              for label, conf in (("Car", -1.0), ("Pedestrian", 0.4),
+                                  ("Car", 0.9))]
+    protos = []
+    for sub, fn, box in (("port", add_boxes_summary, BEVBox3D),
+                         ("jax", jax_add_boxes, JaxBEVBox3D)):
+        writer = SummaryWriter(str(tmp_path / sub / "run"))
+        fn(writer, "boxes/gt", [box(*p) for p in params], step=3)
+        fn(writer, "boxes/none", [], step=3)
+        writer.close()
+        _, acc = _events(tmp_path / sub)
+        tags = sorted(acc.Tags()["tensors"])
+        assert tags == ["boxes/gt_VERTEX"], tags
+        event = acc.Tensors(tags[0])[0]
+        assert event.step == 3
+        shape = [d.size for d in event.tensor_proto.tensor_shape.dim]
+        assert shape == [1, 14 * len(params), 3]
+        protos.append(event.tensor_proto.SerializeToString())
+    assert protos[0] == protos[1]
 
 
 def _semseg(tmp_path, **pipeline):
