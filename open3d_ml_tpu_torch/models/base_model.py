@@ -26,6 +26,10 @@ class BaseModel(ABC):
     # where ``draws_patches`` is False: the ROADMAP item that queues the
     # test and inference loop, which the pipeline names when it refuses
     patch_loop_queue = None
+    # whether a training step may run split over ranks
+    # (``parallel.mesh``): every BatchNorm, dropout and loss divisor of the
+    # model's nets takes the global batch's
+    data_parallel = False
 
     def __init__(self, **kwargs):
         self.cfg = ModuleConfig(kwargs)

@@ -4,6 +4,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum, current_split
+
 
 def dense(linear, x, dtype):
     """``linear`` applied in ``dtype`` (when None, float32, or float64 for
@@ -29,6 +31,12 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     statistics. A bf16 input is read in float32, as flax promotes it; the
     output is float32 (float64 for a float64 input, on float64 weights).
     The parameter and buffer names are torch's.
+
+    While a split batch runs (``parallel.mesh.split``), the train-mode
+    statistics are the global batch's: the row count, the sums and the
+    sums of squares are summed over the group (differentiably), so every
+    rank normalises alike and moves its running statistics alike, as the
+    JAX package's one program over the global batch does.
     """
 
     def __init__(self, dim, eps=1e-5, momentum=0.01, axis=-1):
@@ -37,7 +45,10 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             raise ValueError(f"channel axis {axis}: -1 or 1")
         self.axis = axis
 
-    def forward(self, x):
+    def forward(self, x, shared_rows=0):
+        """``shared_rows``: with the channels last, the number of last
+        rows of ``x`` that every rank of a split batch holds alike (the
+        pillar net's pad row), counted once in the global statistics."""
         if x.dtype != torch.float64:
             x = x.float()
         rows = x.reshape(-1, x.shape[-1]) if self.axis == -1 else x
@@ -46,8 +57,21 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
                                self.weight, self.bias, False, 0.0, self.eps)
             return out.reshape(x.shape)
         dims = 0 if self.axis == -1 else (0, *range(2, x.dim()))
-        mean = rows.mean(dims)
-        var = torch.clamp((rows * rows).mean(dims) - mean * mean, min=0.0)
+        split = current_split()
+        if split is None:
+            mean = rows.mean(dims)
+            var = torch.clamp((rows * rows).mean(dims) - mean * mean,
+                              min=0.0)
+        else:
+            own = (rows[:rows.shape[0] - shared_rows]
+                   if shared_rows and split.rank else rows)
+            c = self.num_features
+            count = own.new_full((1,), own.numel() // c)
+            sums = all_reduce_sum(torch.cat(
+                [own.sum(dims), (own * own).sum(dims), count]))
+            mean = sums[:c] / sums[-1]
+            var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean,
+                              min=0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
@@ -129,11 +153,18 @@ class Dropout(nn.Module):
         self.generator = None
 
     def forward(self, x):
+        """While a split batch runs (``parallel.mesh.split``), the mask is
+        drawn for the global batch (x's first axis) and this rank keeps
+        its rows, so the ranks drop what one process would."""
         if not self.training:
             return x
         if self.generator is None or self.generator.device != x.device:
             self.generator = torch.Generator(device=x.device).manual_seed(
                 self.seed)
-        keep = torch.rand(x.shape, generator=self.generator,
+        split = current_split()
+        shape = x.shape if split is None else (split.total, *x.shape[1:])
+        keep = torch.rand(shape, generator=self.generator,
                           device=x.device) >= self.p
+        if split is not None:
+            keep = keep[split.start:split.stop]
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))

@@ -55,6 +55,7 @@ from ..modules.losses import CrossEntropyLoss, FocalLoss, SmoothL1Loss
 from ..ops.bev import bev_scatter
 from ..ops.nms import nms_bev
 from ..ops.voxelize import voxelize
+from ..parallel.mesh import global_sum
 from ..utils.registry import MODEL
 from .base_model_objdet import ObjdetBaseModel
 from .common import BatchNorm
@@ -119,11 +120,13 @@ class PFNLayer(nn.Module):
     def forward(self, x, mask=None, *, seg_ids=None, num_segments=None,
                 seg_counts=None, max_pts=None):
         if seg_ids is not None:  # point-major
-            # one extra zero row gives the pad value relu(BN(0))
+            # one extra zero row gives the pad value relu(BN(0)); the
+            # batch has one, however many ranks share it
             xa = torch.cat([x, x.new_zeros((1, x.shape[-1]))])
             # the max runs over the values cast to the pool dtype, as the
             # JAX net's; their ties decide the gradient
-            y = F.relu(self.norm(self.linear(xa))).to(self.pool_dtype)
+            y = F.relu(self.norm(self.linear(xa), shared_rows=1)).to(
+                self.pool_dtype)
             pad_val = y[-1]
             y = y[:-1]
             vmax = segment_max(y, seg_ids, num_segments)
@@ -434,6 +437,10 @@ class PointPillars(ObjdetBaseModel):
     """PointPillars: the host side of every split, the two nets, the anchor
     assignment, the losses and the optimizer, the decode and the boxes."""
 
+    # its BatchNorms and its loss's divisor take the global batch's
+    # statistics under a split batch (``parallel.mesh``)
+    data_parallel = True
+
     def __init__(self,
                  name="PointPillars",
                  point_cloud_range=[0, -40.0, -3, 70.0, 40.0, 1],
@@ -691,7 +698,8 @@ class PointPillars(ObjdetBaseModel):
         pos, neg = t["pos_mask"], t["neg_mask"]
         labels = t["target_labels"]
         pos_v = (pos & (labels >= 0) & (labels < num_classes)).float()
-        avg = pos.sum().float().clamp(min=1.0)
+        # the positive anchors of the global batch
+        avg = global_sum(pos.sum().float()).clamp(min=1.0)
 
         loss_cls = self.loss_cls(cls_scores.reshape(-1, num_classes),
                                  torch.where(pos, labels, num_classes),

@@ -367,6 +367,10 @@ class RandLANet(BaseModel):
     ``open3d_ml_tpu/configs/randlanet_semantickitti.yml``.
     """
 
+    # its BatchNorms, its dropout and its loss's divisor take the global
+    # batch's statistics and mask under a split batch (``parallel.mesh``)
+    data_parallel = True
+
     def __init__(self,
                  name="RandLANet",
                  batcher="DefaultBatcher",

@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from ...datasets.utils import DataProcessing
+from ...parallel.mesh import global_sum
 
 
 def filter_valid_label(scores, labels, num_classes, ignored_label_inds):
@@ -47,7 +48,8 @@ class SemSegLoss:
 
     def weighted_cross_entropy(self, logits, labels, valid_mask):
         """-sum(w * log p[label]) / max(sum(w), 1e-6) over the rows, with
-        w = class weight * valid mask.
+        w = class weight * valid mask; while a split batch runs, sum(w) is
+        the global batch's, so the loss is this rank's share.
 
         logits [N, C] float32, labels [N] (dense class ids), valid_mask [N]
         bool.
@@ -59,4 +61,6 @@ class SemSegLoss:
         else:
             w = self.class_weights.to(logp.device)[labels.long()]
         w = w * valid_mask.to(w.dtype)
-        return -(logp * w).sum() / torch.clamp(w.sum(), min=1e-6)
+        # the weights of the global batch's rows
+        return -(logp * w).sum() / torch.clamp(global_sum(w.sum()),
+                                               min=1e-6)

@@ -88,17 +88,23 @@ def _nvcc():
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build():
-    """Compile the kernels if no library for these sources exists yet.
-
-    Returns (path of the library, seconds spent compiling; 0 when the
-    library was already built)."""
+def library_path():
+    """Where the library of these sources and flags is built: named by a
+    hash of them."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     # the sources and the headers they include
     paths = [CSRC / name for name in SOURCES] + sorted(CSRC.glob("*.cuh"))
     for path in paths:
         digest.update(path.read_bytes())
-    out = CSRC / "build" / f"libo3dtorch_{digest.hexdigest()[:16]}.so"
+    return CSRC / "build" / f"libo3dtorch_{digest.hexdigest()[:16]}.so"
+
+
+def build():
+    """Compile the kernels if no library for these sources exists yet.
+
+    Returns (path of the library, seconds spent compiling; 0 when the
+    library was already built)."""
+    out = library_path()
     if out.exists():
         return out, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -42,11 +42,20 @@ JAX): give it the RPN's weights with ``net.load_state_dict(state,
 strict=False)`` and a log directory of its own.
 
 Not ported: reading the JAX package's orbax checkpoints.
+
+In a process group of more than one rank (``parallel.mesh``), every rank
+draws the same global training batches (the augmentation's generators
+alike) and runs its share of each: the BatchNorm statistics and the
+losses' divisor are the global batch's, one all-reduce sums the
+gradients, and the losses are summed over the ranks; the net's state is
+broadcast from rank 0 before the first epoch. ``run_valid`` splits the
+validation frames over the ranks and gathers their boxes
+(``process_allgather``) in frame order before the mAP. ``run_test`` and
+``run_inference`` run on rank 0 alone.
 """
 
 import logging
-from datetime import datetime
-from os.path import exists, join
+from os.path import exists
 from pathlib import Path
 
 import numpy as np
@@ -55,6 +64,8 @@ import torch
 from ..dataloaders import BatchLoader, DefaultBatcher, PointCloudDataloader
 from ..datasets.utils import BEVBox3D
 from ..metrics import mAP
+from ..parallel.mesh import (barrier, current_split, global_sum,
+                             process_allgather, reduce_gradients, replicate)
 from ..utils import make_dir
 from ..utils.registry import PIPELINE
 from .base_pipeline import BasePipeline
@@ -95,13 +106,18 @@ class ObjectDetection(BasePipeline):
                 if isinstance(v, np.ndarray)}
 
     def _loader(self, split, batch_size, steps_per_epoch=None,
-                drop_last=False, num_workers=None):
+                drop_last=False, num_workers=None, over_ranks=False):
+        """Batches of ``split``; with ``over_ranks``, of this rank's frames
+        only: rank, rank + ranks, ..."""
         model, dataset = self.model, self.dataset
         dataloader = PointCloudDataloader(
             dataset.get_split(split), preprocess=model.preprocess,
             transform=model.transform,
             use_cache=dataset.cfg.get("use_cache", False),
             steps_per_epoch=steps_per_epoch)
+        if over_ranks:
+            dataloader = _Frames(dataloader, range(
+                self.mesh.rank, len(dataloader), self.mesh.size))
         return BatchLoader(dataloader, batch_size, DefaultBatcher(),
                            num_workers=self.cfg.get("num_workers", 2)
                            if num_workers is None else num_workers,
@@ -115,33 +131,27 @@ class ObjectDetection(BasePipeline):
         return self.model.inference_end(results, batch["data"])
 
     def _train_step(self, inputs):
-        """One AdamW step of the net in train mode on a device batch;
-        returns the loss dict, detached, on the device."""
+        """One AdamW step of the net in train mode on a device batch (this
+        rank's share of a split batch); returns the loss dict, the global
+        batch's, detached, on the device."""
         net = self.net
         net.train()
         losses = self.model.get_loss(net(inputs), inputs)
         self.optimizer.zero_grad(set_to_none=True)
         sum(losses.values()).backward()
+        if current_split() is not None:
+            reduce_gradients(net.parameters())
         self.optimizer.step()
-        return {k: v.detach() for k, v in losses.items()}
+        return {k: global_sum(v.detach()) for k, v in losses.items()}
 
     def run_train(self):
         """Train from the newest checkpoint (or from the start) up to
         ``max_epoch``, epochs 0 to ``max_epoch`` both included. The
         optimizer comes first, so a model whose ``get_optimizer`` raises
         leaves no log directory behind."""
-        cfg = self.cfg
-        self.optimizer, _ = self.model.get_optimizer(cfg, self.net)
-        make_dir(cfg.logs_dir)
-        stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-        handler = logging.FileHandler(join(cfg.logs_dir,
-                                           f"log_train_{stamp}.txt"))
-        log.addHandler(handler)
-        try:
+        self.optimizer, _ = self.model.get_optimizer(self.cfg, self.net)
+        with self._log_file(log, "train"):
             self._train_epochs()
-        finally:
-            log.removeHandler(handler)
-            handler.close()
 
     def _train_epochs(self):
         model, cfg = self.model, self.cfg
@@ -154,6 +164,7 @@ class ObjectDetection(BasePipeline):
         first_epoch = self.load_ckpt(model.cfg.get("ckpt_path"),
                                      is_resume=model.cfg.get("is_resume",
                                                              True))
+        replicate(self.net.state_dict(), self.mesh)
         writer = self._make_writer()
         try:
             self._epochs(first_epoch, steps, writer)
@@ -168,7 +179,7 @@ class ObjectDetection(BasePipeline):
             self.losses = {}
             for batch in self._loader("training", cfg.batch_size, steps,
                                       drop_last=True):
-                losses = self._train_step(self._device_batch(batch))
+                losses = self._on_rows(self._train_step, batch)
                 values = torch.stack(list(losses.values())).tolist()
                 for key, value in zip(losses, values):
                     self.losses.setdefault(key, []).append(value)
@@ -185,14 +196,25 @@ class ObjectDetection(BasePipeline):
         """The mAP (BEV and 3D) of the validation split at the config's
         ``overlaps``, ``difficulties`` and ``similar_classes``, also to
         ``writer`` where given; returns (ap_bev, ap_3d), each
-        [num_classes, num_difficulties, 1], or None for an empty split."""
-        model, cfg = self.model, self.cfg
+        [num_classes, num_difficulties, 1], or None for an empty split.
+        Over ranks, each detects the frames rank, rank + ranks, ... and
+        every rank takes the mAP of all of them, in frame order."""
+        model, cfg, ranks = self.model, self.cfg, self.mesh.size
         self.eval_net.load_state_dict(self.net.state_dict())
-        pred, gt = [], []
-        for batch in self._loader("validation", cfg.val_batch_size):
+        frames = []
+        for batch in self._loader("validation", cfg.val_batch_size,
+                                  over_ranks=ranks > 1):
             for i, boxes in enumerate(self._detect(batch)):
-                pred.append(BEVBox3D.to_dicts(boxes))
-                gt.append(BEVBox3D.to_dicts(batch["data"]["bbox_objs"][i]))
+                frames.append((BEVBox3D.to_dicts(boxes), BEVBox3D.to_dicts(
+                    batch["data"]["bbox_objs"][i])))
+        if ranks > 1:
+            # the reference's dist.gather_object; rank r's k-th frame is
+            # frame r + k * ranks
+            parts = process_allgather(frames)
+            frames = [part[k] for k in range(len(parts[0]))
+                      for part in parts if k < len(part)]
+        pred = [p for p, _ in frames]
+        gt = [g for _, g in frames]
         if not pred:
             return None
 
@@ -218,7 +240,11 @@ class ObjectDetection(BasePipeline):
     def run_test(self):
         """Detect in every frame of the test split with the newest
         checkpoint's weights (or ``ckpt_path``'s) and save the boxes
-        through the dataset; returns one list of boxes per frame."""
+        through the dataset; returns one list of boxes per frame. On rank
+        0 alone."""
+        return self._on_rank0(self._run_test)
+
+    def _run_test(self):
         self.load_ckpt(self.model.cfg.get("ckpt_path"))
         self.eval_net.load_state_dict(self.net.state_dict())
         results, attrs = [], []
@@ -234,7 +260,11 @@ class ObjectDetection(BasePipeline):
 
     def run_inference(self, data):
         """Detect objects in one in-memory frame {'point' [N, >= 4],
-        'calib' or None}; returns its list of ``BEVBox3D``."""
+        'calib' or None}; returns its list of ``BEVBox3D``. On rank 0
+        alone."""
+        return self._on_rank0(self._run_inference, data)
+
+    def _run_inference(self, data):
         model = self.model
         attr = {"split": "test"}
         sample = model.transform(model.preprocess(data, attr), attr)
@@ -249,14 +279,17 @@ class ObjectDetection(BasePipeline):
 
     def save_ckpt(self, epoch):
         """Write the net's weights and BatchNorm statistics, and the
-        optimizer's state where there is one, as those of ``epoch``."""
+        optimizer's state where there is one, as those of ``epoch`` (rank
+        0; every rank waits for it)."""
         path = self._ckpt_dir() / f"ckpt_{epoch:05d}.pth"
-        make_dir(path.parent)
-        optimizer = (None if self.optimizer is None else
-                     self.optimizer.state_dict())
-        torch.save({"model": self.net.state_dict(), "optimizer": optimizer,
-                    "epoch": epoch}, path)
-        log.info(f"Epoch {epoch:3d}: save ckpt to {path}")
+        if self.writes:
+            make_dir(path.parent)
+            optimizer = (None if self.optimizer is None else
+                         self.optimizer.state_dict())
+            torch.save({"model": self.net.state_dict(),
+                        "optimizer": optimizer, "epoch": epoch}, path)
+            log.info(f"Epoch {epoch:3d}: save ckpt to {path}")
+        barrier(self.mesh)
         return path
 
     def load_ckpt(self, ckpt_path=None, is_resume=True):
@@ -277,3 +310,17 @@ class ObjectDetection(BasePipeline):
         self.net.load_state_dict(ckpt["model"])
         log.info(f"Loading checkpoint {ckpt_path}")
         return int(ckpt["epoch"]) + 1
+
+
+class _Frames:
+    """Frames ``indices`` of a dataloader, in that order."""
+
+    def __init__(self, dataloader, indices):
+        self.dataloader = dataloader
+        self.indices = indices
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.dataloader[self.indices[i]]

@@ -35,11 +35,19 @@ where the net has a dropout; load trained weights with
 Checkpoints are ``torch.save`` files ``<logs_dir>/checkpoint/
 ckpt_{epoch:05d}.pth`` of {"model", "optimizer", "scheduler", "epoch"}.
 Not ported: reading the JAX package's orbax checkpoints.
+
+In a process group of more than one rank (``parallel.mesh``), every rank
+draws the same global batches and runs its share of each training and
+validation batch: the step's BatchNorm statistics, dropout mask and loss
+divisor are the global batch's, one all-reduce sums the gradients before
+the clip, and the loss and the confusion matrix are summed over the
+ranks, so each rank holds what one process would; the net's state is
+broadcast from rank 0 before the first epoch. ``run_test`` and
+``run_inference`` run on rank 0 alone.
 """
 
 import logging
-from datetime import datetime
-from os.path import exists, join
+from os.path import exists
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +58,8 @@ from ..datasets import InferenceDummySplit
 from ..models.common import MaskedBatchNorm
 from ..modules.losses import SemSegLoss
 from ..modules.metrics import SemSegMetric, confusion_matrix_device
+from ..parallel.mesh import (barrier, current_split, global_sum,
+                             reduce_gradients, replicate)
 from ..utils import make_dir
 from ..utils.registry import PIPELINE
 from .base_pipeline import BasePipeline
@@ -137,8 +147,9 @@ class SemanticSegmentation(BasePipeline):
     # ----------------------------------------------------------------- steps
 
     def _train_step(self, inputs, loss_fn):
-        """One optimizer step on a device batch; returns (loss, the step's
-        confusion matrix), both on the device."""
+        """One optimizer step on a device batch (this rank's share of a
+        split batch); returns (loss, the step's confusion matrix), the
+        global batch's, both on the device."""
         model, net = self.model, self.net
         net.train()
         results = net(inputs)
@@ -146,6 +157,8 @@ class SemanticSegmentation(BasePipeline):
         loss = loss + model.regularizer_loss(net)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if current_split() is not None:
+            reduce_gradients(net.parameters())
         clip = model.cfg.get("grad_clip_norm", -1)
         if clip and clip > 0:
             # by value, as the JAX package and its reference clip
@@ -158,11 +171,12 @@ class SemanticSegmentation(BasePipeline):
         cm = confusion_matrix_device(scores, labels,
                                      torch.ones_like(labels, dtype=torch.bool),
                                      model.cfg.num_classes)
-        return loss.detach(), cm
+        return global_sum(loss.detach()), global_sum(cm)
 
     def _eval_step(self, inputs, loss_fn):
-        """The training net in eval mode on a device batch; returns (loss,
-        confusion matrix)."""
+        """The training net in eval mode on a device batch (this rank's
+        share of a split batch); returns (loss, confusion matrix), the
+        global batch's."""
         model, net = self.model, self.net
         net.eval()
         with torch.no_grad():
@@ -171,7 +185,7 @@ class SemanticSegmentation(BasePipeline):
             cm = confusion_matrix_device(
                 scores, labels, torch.ones_like(labels, dtype=torch.bool),
                 model.cfg.num_classes)
-        return loss, cm
+        return global_sum(loss), global_sum(cm)
 
     # ----------------------------------------------------------------- train
 
@@ -188,17 +202,8 @@ class SemanticSegmentation(BasePipeline):
     def run_train(self):
         """Train from the newest checkpoint (or from the start) up to
         ``max_epoch``, validating after every epoch."""
-        cfg = self.cfg
-        make_dir(cfg.logs_dir)
-        stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-        handler = logging.FileHandler(join(cfg.logs_dir,
-                                           f"log_train_{stamp}.txt"))
-        log.addHandler(handler)
-        try:
+        with self._log_file(log, "train"):
             return self._train_epochs()
-        finally:
-            log.removeHandler(handler)
-            handler.close()
 
     def _train_epochs(self):
         model, cfg = self.model, self.cfg
@@ -218,6 +223,7 @@ class SemanticSegmentation(BasePipeline):
         first_epoch = self.load_ckpt(model.cfg.get("ckpt_path"),
                                      is_resume=model.cfg.get("is_resume",
                                                              True))
+        replicate(self.net.state_dict(), self.mesh)
         writer = self._make_writer()
         try:
             self._epochs(first_epoch, train_split, valid_split, loss_fn,
@@ -246,22 +252,21 @@ class SemanticSegmentation(BasePipeline):
                                      num_workers=cfg.get("num_workers", 2),
                                      sampler=split.sampler, drop_last=True)
                 for i, batch in enumerate(loader):
-                    inputs = self._device_batch(batch)
-                    loss, cm = step(inputs, loss_fn)
+                    loss, cm = self._on_rows(step, batch, loss_fn)
                     metric.update_cm(cm)
                     losses.append(float(loss))
-                    if i == 0 and record:
-                        self._record_train(writer, batch, inputs, epoch)
+                    if i == 0 and record and self.writes:
+                        self._record_train(writer, batch, epoch)
             self.save_logs(writer, epoch)
             if epoch % cfg.save_ckpt_freq == 0 or epoch == cfg.max_epoch:
                 self.save_ckpt(epoch)
 
-    def _record_train(self, writer, batch, inputs, epoch):
-        """The summary of the epoch's first training batch: its clouds
-        coloured by the updated net's labels in eval mode."""
+    def _record_train(self, writer, batch, epoch):
+        """The summary of the epoch's first training batch (all its rows):
+        its clouds coloured by the updated net's labels in eval mode."""
         self.net.eval()
         with torch.no_grad():
-            results = self.net(inputs).cpu().numpy()
+            results = self.net(self._device_batch(batch)).cpu().numpy()
         record_summary(writer, self.cfg.get("summary"), "train", "semseg",
                        batch["data"], results, epoch,
                        getattr(self.dataset, "label_to_names", None))
@@ -299,14 +304,17 @@ class SemanticSegmentation(BasePipeline):
         return Path(self.cfg.logs_dir) / "checkpoint"
 
     def save_ckpt(self, epoch):
-        """Write the net, optimizer and scheduler state of ``epoch``."""
+        """Write the net, optimizer and scheduler state of ``epoch`` (rank
+        0; every rank waits for it)."""
         path = self._ckpt_dir() / f"ckpt_{epoch:05d}.pth"
-        make_dir(path.parent)
-        torch.save({"model": self.net.state_dict(),
-                    "optimizer": self.optimizer.state_dict(),
-                    "scheduler": self.scheduler.state_dict(),
-                    "epoch": epoch}, path)
-        log.info(f"Epoch {epoch:3d}: save ckpt to {path}")
+        if self.writes:
+            make_dir(path.parent)
+            torch.save({"model": self.net.state_dict(),
+                        "optimizer": self.optimizer.state_dict(),
+                        "scheduler": self.scheduler.state_dict(),
+                        "epoch": epoch}, path)
+            log.info(f"Epoch {epoch:3d}: save ckpt to {path}")
+        barrier(self.mesh)
 
     def load_ckpt(self, ckpt_path=None, is_resume=True):
         """Load ``ckpt_path``, or with ``is_resume`` the newest checkpoint
@@ -334,7 +342,10 @@ class SemanticSegmentation(BasePipeline):
     def run_test(self):
         """The patch loop over every cloud of the test split with the
         newest checkpoint's weights (or ``ckpt_path``'s); the predictions
-        go to ``dataset.save_test_result``."""
+        go to ``dataset.save_test_result``. On rank 0 alone."""
+        return self._on_rank0(self._run_test)
+
+    def _run_test(self):
         model = self.model
         self.load_ckpt(model.cfg.get("ckpt_path"))
         test_split = self._split_loader("test")
@@ -344,7 +355,10 @@ class SemanticSegmentation(BasePipeline):
     def run_inference(self, data):
         """Inference on one in-memory cloud {'point' [N, 3], 'feat' [N, d]
         or None, 'label' or None}; returns {'predict_labels' [N],
-        'predict_scores' [N, num_classes]}."""
+        'predict_scores' [N, num_classes]}. On rank 0 alone."""
+        return self._on_rank0(self._run_inference, data)
+
+    def _run_inference(self, data):
         model = self.model
         infer_split = InferenceDummySplit(data, seed=self.cfg.get("seed"))
         test_split = PointCloudDataloader(infer_split,

@@ -18,9 +18,17 @@ there, as in JAX.
 
 It runs on ``--device cuda`` (the default) or ``cpu``, and on no other
 device: ``tpu`` raises, as does ``cuda`` with no card visible; nothing
-falls back to the CPU. ``--distributed`` raises (data parallelism is not
-ported). SparseConvUnet's, PointTransformer's and PVCNN's test and valid
-splits raise in the pipeline (``run_test_on_split``): their
+falls back to the CPU. ``--distributed`` trains data-parallel over
+``torch.distributed``, one process a rank started by ``torchrun``
+(``parallel.mesh``): each rank runs its share of every global batch
+(``batch_size`` is the global batch, as in the JAX package) on
+``cuda:<LOCAL_RANK>``, and rank 0 writes the logs and checkpoints; a
+dataset with no seed gets one from ``--seed``, drawn after the model's
+and the pipeline's, so that every rank draws the same batches;
+``--dist_backend`` is ``nccl`` on cuda and ``gloo`` on the CPU unless
+given. Only RandLA-Net and PointPillars run on more than one rank; any
+other model raises (ROADMAP queue 1 item 7). SparseConvUnet's,
+PointTransformer's and PVCNN's test and valid splits raise in the pipeline (``run_test_on_split``): their
 ``transform`` never advances the possibility map, so the loop would not
 end. Three shipped PointPillars configs fail as the JAX package fails
 (ROADMAP.md queue 3): ``pointpillars_waymo.yml``'s net cannot join its
@@ -36,6 +44,10 @@ and Argoverse test splits cannot write their boxes as KITTI lines
     python -m open3d_ml_tpu_torch.run_pipeline \\
         -c open3d_ml_tpu_torch/configs/pointpillars_nuscenes.yml \\
         --dataset.dataset_path <root of infos_*.pkl> --split train
+
+    torchrun --nproc-per-node 2 -m open3d_ml_tpu_torch.run_pipeline \\
+        -c open3d_ml_tpu_torch/configs/randlanet_semantickitti.yml \\
+        --dataset.dataset_path <root> --split train --distributed
 """
 
 import argparse
@@ -43,7 +55,9 @@ import logging
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .parallel.mesh import init_distributed
 from .utils import Config, get_module
 
 TRAIN_SPLITS = ("train", "training")
@@ -78,7 +92,11 @@ def parse_args(argv=None):
     parser.add_argument("--main_log_dir", default=None)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--distributed", action="store_true",
-                        help="not ported: raises")
+                        help="data parallelism over torch.distributed, "
+                             "one process a rank (start with torchrun)")
+    parser.add_argument("--dist_backend", default=None,
+                        help="nccl | gloo (default: nccl on cuda, gloo on "
+                             "cpu)")
 
     args, unknown = parser.parse_known_args(argv)
 
@@ -107,10 +125,6 @@ def resolve_device(device):
 
 def build_pipeline(args, extra_dict):
     """(the pipeline the arguments describe, the split to run)."""
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: data parallelism is not ported (ROADMAP queue 1 "
-            "item 7)")
     args.device = resolve_device(args.device)
     if args.cfg_file is None:
         if args.model is None or args.dataset is None:
@@ -135,8 +149,12 @@ def build_pipeline(args, extra_dict):
     pipe_kwargs = cfg_pipeline.to_dict()
     model_kwargs.setdefault("seed", int(rng.integers(1 << 31)))
     pipe_kwargs.setdefault("seed", int(rng.integers(1 << 31)))
-    dataset = get_module("dataset", cfg_dataset.name)(
-        **cfg_dataset.to_dict())
+    dataset_cls = get_module("dataset", cfg_dataset.name)
+    dataset = dataset_cls(**cfg_dataset.to_dict())
+    if args.distributed and dataset.cfg.get("seed") is None:
+        # every rank draws the same global batches
+        dataset = dataset_cls(**dict(cfg_dataset.to_dict(),
+                                     seed=int(rng.integers(1 << 31))))
     model = get_module("model", cfg_model.name)(**model_kwargs)
     pipeline = get_module("pipeline", cfg_pipeline.name)(
         model, dataset, **pipe_kwargs)
@@ -157,8 +175,16 @@ def main(argv=None):
         level=logging.INFO,
         format="%(levelname)s - %(asctime)s - %(module)s - %(message)s")
     args, extra_dict = parse_args(argv)
-    pipeline, split = build_pipeline(args, extra_dict)
-    run(pipeline, split)
+    joined = False
+    if args.distributed and not dist.is_initialized():
+        init_distributed(args.dist_backend, resolve_device(args.device))
+        joined = True
+    try:
+        pipeline, split = build_pipeline(args, extra_dict)
+        run(pipeline, split)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

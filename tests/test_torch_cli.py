@@ -6,8 +6,9 @@ predictions equal the JAX pipeline's, built through the JAX command line's
 config route from the same YAML and overrides, on the same weights;
 SparseConvUnet trains from ``sparseconvunet_scannet.yml`` on ScanNet
 rooms; the seed draws, the split dispatch and the refusals (``--device
-tpu``, ``cuda`` with no card, ``--distributed``, SparseConvUnet's test
-and valid splits, which the pipeline itself refuses).
+tpu``, ``cuda`` with no card, ``--distributed`` outside torchrun,
+SparseConvUnet's test and valid splits, which the pipeline itself
+refuses).
 
 Every run overrides ``--model.in_channels 4``: SemanticKITTI's reader
 gives each point's remission as a feature (in the JAX package too), so
@@ -237,8 +238,12 @@ def test_cli_refuses_devices(device, error, tmp_path, monkeypatch):
             "--device", device, "--dataset.dataset_path", str(tmp_path)])
 
 
-def test_cli_refuses_distributed(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+def test_cli_refuses_distributed(tmp_path, monkeypatch):
+    """``--distributed`` outside torchrun's environment raises, naming the
+    launcher; the ranks' runs are ``test_torch_parallel_cli.py``'s."""
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         run_pipeline.main(_kitti_argv(tmp_path, "--distributed"))
 
 

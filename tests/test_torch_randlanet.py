@@ -256,6 +256,9 @@ def test_port_imports_no_jax():
             "import open3d_ml_tpu_torch.pipelines.summaries\n"
             "import open3d_ml_tpu_torch.utils.flops\n"
             "import open3d_ml_tpu_torch.utils.profiling\n"
+            "import open3d_ml_tpu_torch.parallel\n"
+            "import open3d_ml_tpu_torch.parallel.mesh\n"
+            "import open3d_ml_tpu_torch.parallel.dryrun\n"
             "import chip_smoke\n"
             "bad = [m for m in ('jax', 'flax', 'optax', 'yaml', 'joblib',\n"
             "                   'pandas', 'open3d_ml_tpu')\n"
